@@ -1,0 +1,6 @@
+"""Decentralized runtime on node-stacked state.
+
+  gossip       MATCHA mixing as per-matching gathers along the node dim,
+               then the fused gossip-axpy update
+  decen_train  stacked per-node state + the decentralized SGD train step
+"""

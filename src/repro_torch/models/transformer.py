@@ -1,0 +1,334 @@
+"""Transformer assembly for the dense decoder family.
+
+The port of ``repro.models.transformer``. Layer stacking follows the JAX
+package: consecutive identical layers form a *segment* whose parameters
+are stacked on a leading layer dim, so ``blocks_0.mixer.wq.w`` has shape
+``(layers, d, heads * head_dim)`` here and in the JAX tree alike. The
+JAX model scans segments of ``SCAN_THRESHOLD`` or more layers with
+``lax.scan`` and unrolls shorter ones; both become the same Python loop
+over the layer dim here. ``cfg.remat`` maps to
+``torch.utils.checkpoint`` (recompute in the backward, same numbers).
+
+Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP
+item): Mamba and MoE layers, periodic hybrid segments, the encoder of
+encoder-decoder models and vision prefixes (queue 1, item 12), and the
+serving path with its caches (queue 1, item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import attention_block, declare_attention
+from repro_torch.models.ffn import declare_ffn, ffn_block
+from repro_torch.models.layers import (
+    apply_dense,
+    apply_norm,
+    declare_embedding,
+    declare_norm,
+    softmax_cross_entropy,
+    unembed,
+)
+from repro_torch.models.module import (
+    ParamBuilder,
+    _fold_path,
+    embedding_init,
+    torch_dtype,
+)
+from repro_torch.tree import tree_leaves, tree_map
+
+SCAN_THRESHOLD = 8
+
+_FAMILIES = "ROADMAP queue 1, item 12 (the other model families)"
+
+
+# ---------------------------------------------------------------------------
+# Layer segmentation (identical to the JAX package)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    kind: str          # attn | local | global | mamba
+    is_moe: bool
+    count: int
+    scanned: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class PeriodicSegment:
+    """A repeating heterogeneous layer pattern (jamba, gemma3): the JAX
+    model scans the pattern over its repeats. Not ported yet."""
+
+    pattern: Tuple[Segment, ...]
+    reps: int
+
+    @property
+    def count(self) -> int:
+        return len(self.pattern) * self.reps
+
+
+def _plain_segments(cfg: ModelConfig, kinds, moes, scan: bool) -> List[Segment]:
+    segs: List[Segment] = []
+    i = 0
+    while i < len(kinds):
+        kind, moe = kinds[i], moes[i]
+        j = i
+        while j < len(kinds) and kinds[j] == kind and moes[j] == moe:
+            j += 1
+        count = j - i
+        segs.append(Segment(kind, moe, count,
+                            scanned=scan and count >= SCAN_THRESHOLD))
+        i = j
+    return segs
+
+
+def segment_layers(cfg: ModelConfig) -> List:
+    kinds = list(cfg.layer_kinds())
+    moes = [cfg.layer_is_moe(i) for i in range(cfg.num_layers)]
+    plain = _plain_segments(cfg, kinds, moes, cfg.scan_layers)
+    if not cfg.scan_layers:
+        return plain
+    if any(s.scanned for s in plain):
+        return plain
+    # no long uniform run: look for a repeating heterogeneous period
+    pattern = list(zip(kinds, moes))
+    L = len(pattern)
+    for p in range(2, 13):
+        reps = L // p
+        if reps < 2:
+            break
+        if len(set(pattern[:p])) <= 1:
+            continue
+        if all(pattern[i] == pattern[i % p] for i in range(reps * p)):
+            body = tuple(
+                Segment(kinds[j], moes[j], 1, scanned=False) for j in range(p)
+            )
+            segs: List = [PeriodicSegment(pattern=body, reps=reps)]
+            rem = L - reps * p
+            if rem:
+                segs.extend(
+                    _plain_segments(
+                        cfg, kinds[reps * p:], moes[reps * p:], cfg.scan_layers
+                    )
+                )
+            return segs
+    return plain
+
+
+def _has_ffn(cfg: ModelConfig, seg: Segment) -> bool:
+    return seg.is_moe or (cfg.d_ff > 0 and seg.kind != "mamba") or (
+        cfg.d_ff > 0 and cfg.family == "hybrid"
+    )
+
+
+def _check_supported(cfg: ModelConfig, segments) -> None:
+    """Reject, up front, every branch of the JAX model the port lacks."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet ({_FAMILIES})"
+        )
+    if cfg.pos_embed not in ("rope", "learned", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.pos_embed} position embeddings are not ported "
+            f"yet ({_FAMILIES})"
+        )
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.frontend} prefix frontends are not ported yet "
+            f"({_FAMILIES})"
+        )
+    for seg in segments:
+        if isinstance(seg, PeriodicSegment):
+            raise NotImplementedError(
+                f"{cfg.name}: periodic (hybrid / local:global) segments are "
+                f"not ported yet ({_FAMILIES})"
+            )
+        if seg.kind == "mamba":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba (SSM) layers are not ported yet ({_FAMILIES})"
+            )
+        if seg.is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet ({_FAMILIES})"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Declarations
+# ---------------------------------------------------------------------------
+def _declare_layer(b: ParamBuilder, path: str, cfg: ModelConfig, seg: Segment) -> None:
+    declare_norm(b, f"{path}.norm1", cfg.d_model, cfg.norm)
+    declare_attention(b, f"{path}.mixer", cfg)
+    if _has_ffn(cfg, seg):
+        declare_norm(b, f"{path}.norm2", cfg.d_model, cfg.norm)
+        declare_ffn(b, f"{path}.ffn", cfg.d_model, cfg.d_ff, cfg.gated_ffn)
+
+
+def _stack_builder(cfg: ModelConfig, seg: Segment) -> ParamBuilder:
+    """Builder for ONE layer of a segment (stacked at materialization)."""
+    b = ParamBuilder(param_dtype=cfg.param_dtype)
+    _declare_layer(b, "layer", cfg, seg)
+    return b
+
+
+def _top_builder(cfg: ModelConfig) -> ParamBuilder:
+    top = ParamBuilder(param_dtype=cfg.param_dtype)
+    declare_embedding(top, "embed", cfg.padded_vocab, cfg.d_model)
+    if not cfg.tie_embeddings:
+        top.declare(
+            "unembed.w", (cfg.d_model, cfg.padded_vocab), (None, "vocab"),
+            init=embedding_init,
+        )
+    declare_norm(top, "final_norm", cfg.d_model, cfg.norm)
+    if cfg.pos_embed == "learned":
+        top.declare(
+            "pos_embed.table", (cfg.max_position, cfg.d_model),
+            (None, None), init=embedding_init,
+        )
+    return top
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"load_balance": z, "router_z": z}
+
+
+class Model:
+    """Config-driven dense transformer. Pure functions + param dicts."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.segments = segment_layers(cfg)
+        _check_supported(cfg, self.segments)
+
+    # -- parameters -----------------------------------------------------------
+    def init(self, seed: int, *, device="cuda") -> Dict[str, Any]:
+        """Random initial parameters on ``device`` from ``seed``."""
+        device = resolve_device(device)
+        params: Dict[str, Any] = dict(_top_builder(self.cfg).init(seed, device))
+        for s, seg in enumerate(self.segments):
+            params[f"blocks_{s}"] = _stacked_init(
+                _stack_builder(self.cfg, seg),
+                _fold_path(seed, f"blocks_{s}"), seg.count, device,
+            )
+        return params
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """The tree of ``(shape, dtype)`` leaves ``init`` would return."""
+        shapes: Dict[str, Any] = dict(_top_builder(self.cfg).abstract())
+        for s, seg in enumerate(self.segments):
+            shapes[f"blocks_{s}"] = tree_map(
+                lambda sd, n=seg.count: ((n,) + sd[0], sd[1]),
+                _stack_builder(self.cfg, seg).abstract()["layer"],
+            )
+        return shapes
+
+    def num_params(self) -> int:
+        return int(sum(
+            np.prod(shape) for shape, _ in tree_leaves(self.param_shapes())
+        ))
+
+    # -- forward ----------------------------------------------------------------
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.compute_dtype)
+        x = F.embedding(tokens.long(), params["embed"]["table"]).to(dtype)
+        if cfg.name.startswith("gemma"):
+            # the JAX model multiplies by a numpy float64 scalar, which
+            # promotes a bf16 residual stream to fp32; mirror that
+            x = x.float() * float(np.sqrt(cfg.d_model))
+        return x
+
+    @staticmethod
+    def _positions(batch: int, length: int, device) -> torch.Tensor:
+        pos = torch.arange(length, dtype=torch.int32, device=device)
+        return pos[None, :].expand(batch, length)
+
+    def _layer_apply(self, p, x, seg: Segment, *, positions):
+        cfg = self.cfg
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        window = cfg.sliding_window if seg.kind == "local" else 0
+        y, _ = attention_block(
+            p["mixer"], h, cfg, positions=positions, causal=True, window=window,
+        )
+        x = x + y
+        if _has_ffn(cfg, seg):
+            h = apply_norm(p["norm2"], x, cfg.norm)
+            x = x + ffn_block(p["ffn"], h, cfg)
+        return x
+
+    def _run_segment(self, params_seg, x, seg: Segment, *, positions):
+        """One segment: a loop over the stacked layer dim (the JAX model's
+        ``lax.scan`` for scanned segments, its unrolled loop otherwise).
+        Dense layers carry no aux losses, so the aux terms stay zero."""
+        def one(x, p):
+            return self._layer_apply(p, x, seg, positions=positions)
+
+        for i in range(seg.count):
+            p_i = tree_map(lambda a: a[i], params_seg)
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(one, x, p_i, use_reentrant=False)
+            else:
+                x = one(x, p_i)
+        return x, _zero_aux(x.device)
+
+    def forward(self, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """Teacher-forced forward from position 0: logits at every
+        position."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        B, S = x.shape[0], x.shape[1]
+        positions = self._positions(B, S, x.device)
+        if cfg.pos_embed == "learned":
+            x = x + params["pos_embed"]["table"][positions.long()].to(x.dtype)
+        aux_total = _zero_aux(x.device)
+        for s, seg in enumerate(self.segments):
+            x, aux = self._run_segment(
+                params[f"blocks_{s}"], x, seg, positions=positions
+            )
+            aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        return self._unembed(params, x), aux_total
+
+    def _unembed(self, params, x):
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.compute_dtype)
+        if cfg.tie_embeddings:
+            logits = unembed(params["embed"], x, dtype)
+        else:
+            logits = apply_dense(params["unembed"], x, dtype)
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+            neg = torch.tensor(-1e30, dtype=torch.float32).to(logits.dtype)
+            logits = torch.where(pad, neg.to(x.device), logits)
+        return logits
+
+    # -- loss -------------------------------------------------------------------
+    @staticmethod
+    def _combine_loss(logits, batch: dict, aux: dict) -> Tuple[torch.Tensor, dict]:
+        """ce + aux-regularizer objective and its metrics."""
+        ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+        total = ce + 1e-2 * aux["load_balance"] + 1e-3 * aux["router_z"]
+        return total, {"ce": ce, **aux}
+
+    def loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
+        """batch: tokens (B,S), labels (B,S), optional mask."""
+        logits, aux = self.forward(params, batch["tokens"])
+        return self._combine_loss(logits, batch, aux)
+
+
+def _stacked_init(builder: ParamBuilder, seed: int, count: int, device):
+    """Materialize ``count`` stacked layers, each from its own seed."""
+    layers = [
+        builder.init(_fold_path(seed, str(i)), device)["layer"]
+        for i in range(count)
+    ]
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
