@@ -12,9 +12,13 @@ non-zero exit:
 1. build   every CUDA source under ``src/repro_torch/csrc`` (one nvcc per
            source, in parallel) and print the build time and ptxas report;
 2. kernels each hand-written kernel against its plain PyTorch version on
-           the card: odd sizes, misaligned views, in place, and the main
-           path's shapes; times of the kernel, the plain version and the
-           one-call PyTorch yardstick beside the memory bound;
+           the card, at the shapes its main path gives it and on edge
+           cases; times of the kernel, the plain version and the
+           one-call PyTorch yardstick (where there is one) beside the
+           bound: gossip_axpy (odd sizes, misaligned views, in place),
+           flash_attention (odd and unequal lengths, kv_len, windows,
+           GQA groups 1 and 2, fully masked rows, fp32 and bf16) and
+           ssm_scan (chunk halving, fp32 and bf16, decays that underflow);
 3. main    the decentralized trainer at full published width:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
@@ -23,9 +27,20 @@ non-zero exit:
            and per-phase times, peak memory, loss and consensus; then one
            more step whose gossip runs through the kernel and through
            the plain version from the same state, which must agree;
-4. check   a small input (the tiny preset, fp32) stepped on the card and
-           on the CPU from the same weights and batches must agree, and
-           the training CLI ``repro_torch.launch.train`` must train on the card.
+4. serve   the serving path (``repro_torch.launch.serve``) at full
+           published width and depth: internlm2-1.8b (24 layers) and
+           mamba2-370m (48 layers, d 1024, 32 SSM heads of 64, state 128,
+           vocab 50280), batch 8, prompt 2048, 32 generated tokens, random
+           weights from seed 0; prefill and decode times, peak memory, and
+           the launches: 24 flash_attention per internlm2 prefill, 48
+           ssm_scan per mamba2 prefill, none in decode; then a profile
+           of one prefill and four decode steps of each model: device
+           busy share, kernel launches per step, the costliest kernels;
+5. check   small inputs (the tiny presets, fp32) run on the card and on
+           the CPU from the same weights must agree: two masked training
+           steps, and for internlm2 and mamba2 a prefill, one decode step
+           and every cache; then the training CLI
+           ``repro_torch.launch.train`` must train on the card.
 
 Then it prints the card's name and power limit, one JSON line with every
 ported kernel's numbers, and, last, the device JSON line.
@@ -42,8 +57,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at the 700 W limit
+BF16_FLOP_PER_S = 989e12        # dense bf16 tensor cores, same source
+FP32_FLOP_PER_S = 67e12         # fp32 on the CUDA cores, same source
 NODES, BATCH, SEQ, STEPS = 8, 4, 128, 5
 SMALL_TOL = 1e-4                # card vs CPU, fp32 tiny preset, 2 steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
+# kernel vs plain version on the card: the kernels sum in another order
+# (and attention uses the fast exp); bf16 outputs may sit one bf16
+# rounding apart
+FA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSM_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-2, 5e-2)}   # (abs, rel)
+SERVE_TOL = 1e-4                # card (kernels) vs CPU (plain), fp32 tiny serving
 
 
 def fail(msg: str) -> None:
@@ -180,6 +204,347 @@ def phase_kernels(torch, leaf_shapes, alpha: float):
     torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                 bound_ms=step_bound, library_ms=l_ms)
+
+
+def close(torch, got, want, atol: float, rtol: float) -> float:
+    """Max abs error; fails unless |got - want| <= atol + rtol |want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    if not bool((diff <= atol + rtol * want.abs()).all()):
+        return math.inf
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def flash_pairs(Sq: int, Sk: int, causal: bool, window: int, kv_len: int) -> int:
+    """Live (query, key) pairs: the work this input needs."""
+    n = kv_len or Sk
+    total = 0
+    for i in range(Sq):
+        hi = min(n, i + 1) if causal else n
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def phase_flash(torch):
+    """flash_attention against attention_ref; returns the JSON row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def qkv(B, Sq, Sk, Hq, Hkv, hd, dtype):
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+        return mk(B, Sq, Hq, hd), mk(B, Sk, Hkv, hd), mk(B, Sk, Hkv, hd)
+
+    max_err = 0.0
+    cases = [
+        # (label, B, Sq, Sk, Hq, Hkv, hd, causal, window, kv_len)
+        ("odd Sq = Sk, GQA 2", 2, 100, 100, 4, 2, 32, True, 0, 0),
+        ("Sq != Sk, GQA 1, non-causal", 1, 37, 130, 2, 2, 128, False, 0, 0),
+        ("Sq > Sk, MQA, causal", 2, 130, 37, 4, 1, 64, True, 0, 0),
+        ("kv_len 61, causal", 2, 192, 192, 8, 4, 128, True, 0, 61),
+        ("kv_len 61, non-causal, window 24", 1, 100, 128, 4, 4, 64, False, 24, 61),
+        ("window 24 causal (rows masked per tile)", 2, 256, 256, 8, 2, 64, True, 24, 0),
+        ("fully masked rows: kv_len 10, window 4", 1, 96, 96, 2, 1, 32, True, 4, 10),
+        ("smoke widths (4 heads, 2 kv, hd 32)", 2, 64, 64, 4, 2, 32, True, 0, 0),
+    ]
+    for label, B, Sq, Sk, Hq, Hkv, hd, causal, window, kv_len in cases:
+        for dname, dtype in dtypes.items():
+            q, k, v = qkv(B, Sq, Sk, Hq, Hkv, hd, dtype)
+            got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+            torch.cuda.synchronize()
+            n = kv_len or Sk
+            want = attention_ref(q, k[:, :n], v[:, :n], causal=causal, window=window)
+            i = torch.arange(Sq, device="cuda")[:, None]
+            j = torch.arange(n, device="cuda")[None, :]
+            live = (j >= 0) & (i >= 0)
+            if causal:
+                live = live & (j <= i)
+            if window:
+                live = live & (i - j < window)
+            rows = live.any(1)
+            if not bool((got[:, ~rows] == 0).all()):
+                fail(f"flash {label} {dname}: a row with no live key is not 0")
+            err = close(torch, got[:, rows], want[:, rows], FA_TOL[dname], FA_TOL[dname])
+            if not math.isfinite(err):
+                fail(f"flash {label} {dname}: disagrees with attention_ref")
+            max_err = max(max_err, err)
+            log(f"kernels: flash_attention {label} {dname}: agrees (max abs err "
+                f"{err:.3g}; {int((~rows).sum())} rows with no live key are 0)")
+
+    # the serving path's shapes: internlm2-1.8b prefill, bf16, causal
+    B, S, Hq, Hkv, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
+    q, k, v = qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    err = close(torch, got, want, FA_TOL["bfloat16"], FA_TOL["bfloat16"])
+    if not math.isfinite(err):
+        fail("flash at the serving shapes: disagrees with attention_ref")
+    max_err = max(max_err, err)
+    del got, want
+    flops = 4 * hd * B * Hq * flash_pairs(S, S, True, 0, 0)
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True), 5)
+    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True), 3)
+    log(f"kernels: flash_attention serving shapes (B {B}, S {S}, heads {Hq}/{Hkv}, "
+        f"hd {hd}, bf16, causal; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, sdpa {l_ms:.3f} ms, bound "
+        f"{bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of it; fp32 CUDA-core "
+        f"floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms); max abs err {err:.3g}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=l_ms)
+
+
+def phase_ssm(torch):
+    """ssm_scan against ssm_scan_ref; returns the JSON row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssm_scan_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def inputs(B, S, H, P, N, dtype, a_scale=1.0):
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        x = (rn(B, S, H, P) * 0.5).to(dtype)
+        dt = F.softplus(rn(B, S, H))
+        A = -torch.exp(torch.rand(H, generator=gen, device="cuda")) * a_scale
+        return x, dt, A, (rn(B, S, N) * 0.3).to(dtype), (rn(B, S, N) * 0.3).to(dtype)
+
+    def check(label, dname, got, want):
+        atol, rtol = SSM_TOL[dname]
+        errs = [close(torch, g, w, atol, rtol) for g, w in zip(got, want)]
+        if not all(math.isfinite(e) for e in errs):
+            fail(f"ssm_scan {label} {dname}: disagrees with ssm_scan_ref (y, h)")
+        log(f"kernels: ssm_scan {label} {dname}: agrees (max abs err y "
+            f"{errs[0]:.3g}, h {errs[1]:.3g})")
+        return max(errs)
+
+    max_err = 0.0
+    cases = [
+        # (label, B, S, H, P, N, a_scale): ops.ssd halves the chunk from 128
+        ("S 200 -> chunk 100", 2, 200, 3, 16, 8, 1.0),
+        ("S 96 -> chunk 96", 2, 96, 4, 32, 16, 1.0),
+        ("S 52 -> chunk 52", 1, 52, 2, 64, 128, 1.0),
+        ("S 384 -> chunk 128 (3 chunks)", 1, 384, 2, 64, 128, 1.0),
+        ("smoke widths, S 100 -> chunk 100", 2, 100, 8, 32, 32, 1.0),
+        ("A * dt up to ~200: decays underflow", 2, 256, 4, 32, 32, 60.0),
+    ]
+    for label, B, S, H, P, N, a_scale in cases:
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, dt, A, Bm, Cm = inputs(B, S, H, P, N, dtype, a_scale)
+            got = ops.ssd(x, dt, A, Bm, Cm, chunk=128)
+            torch.cuda.synchronize()
+            max_err = max(max_err, check(label, dname, got, ssm_scan_ref(x, dt, A, Bm, Cm)))
+
+    # the serving path's shapes: mamba2-370m prefill, bf16 x/B/C, fp32 dt/A
+    B, S, H, P, N, Q = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128
+    x, dt, A, Bm, Cm = inputs(B, S, H, P, N, torch.bfloat16)
+    got = ssm_scan(x, dt, A, Bm, Cm, chunk=Q)
+    max_err = max(max_err, check("serving shapes", "bfloat16", got,
+                                 ssm_scan_ref(x, dt, A, Bm, Cm)))
+    del got
+    tri = Q * (Q + 1) // 2
+    flops = B * H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
+              + 2 * Bm.numel() * 2 + B * H * N * P * 4)
+    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_by = "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+    k_ms = cuda_ms(torch, lambda: ssm_scan(x, dt, A, Bm, Cm, chunk=Q), 5)
+    p_ms = cuda_ms(torch, lambda: ssm_scan_ref(x, dt, A, Bm, Cm), 2, warmup=1)
+    log(f"kernels: ssm_scan serving shapes (B {B}, S {S}, H {H}, P {P}, N {N}, "
+        f"chunk {Q}, bf16; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): kernel "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, no single PyTorch call computes the "
+        f"SSD, bound {bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of it; fp32 "
+        f"CUDA-core floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms)")
+    del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=None)
+
+
+def phase_serve(torch):
+    """The serving path at full width and depth; returns the launches of
+    each kernel in its model's run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.launch import serve
+
+    kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan}
+    expect = {"internlm2_1_8b": ("flash_attention", 24), "mamba2_370m": ("ssm_scan", 48)}
+    launches = {}
+    for arch, (kname, per_prefill) in expect.items():
+        cfg = get_config(arch)
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = serve.run(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                        gen=SERVE_GEN, seed=0, device="cuda")
+        total = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        launches[kname] = counts[kname]
+        log(f"serve: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"vocab {cfg.vocab_size}) batch {SERVE_BATCH} prompt {SERVE_PROMPT} gen "
+            f"{SERVE_GEN}: prefill {res['prefill_ms']:.1f} ms, decode "
+            f"{res['decode_ms_per_token']:.2f} ms/token, peak memory allocated "
+            f"{res['peak_bytes'] / 1e9:.2f} GB; launches in the prefill "
+            f"{res['prefill_launches']}, in the decode {res['decode_launches']}; "
+            f"whole run with set-up {total:.1f} s")
+        log(f"serve: {cfg.name} generated ids (first request): "
+            f"{res['generated'][0].tolist()}")
+        if res["prefill_launches"][kname] != per_prefill:
+            fail(f"{cfg.name}: {res['prefill_launches'][kname]} {kname} launches in "
+                 f"the prefill, expected {per_prefill}")
+        if any(res["decode_launches"].values()) or sum(counts.values()) != per_prefill:
+            fail(f"{cfg.name}: kernel launches outside the prefill: {counts}")
+        if not bool(torch.isfinite(res["logits"]).all()):
+            fail(f"{cfg.name}: non-finite logits")
+        if res["generated"].shape != (SERVE_BATCH, SERVE_GEN):
+            fail(f"{cfg.name}: generated ids of shape {res['generated'].shape}")
+        del res
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_profile(torch):
+    """Where a serving step's time goes: torch.profiler over one prefill
+    and four decode steps of each full model (random prompt ids): the
+    device's busy time (the sum of kernel times) against the host clock,
+    kernel launches per step, and the kernels that take the most time.
+    Prints "not measured" where the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import serve as sv
+    from repro_torch.models.transformer import Model
+
+    def summary(prof, wall_ms, steps, label):
+        # device activity: kernels, copies and sets on the card; busy time
+        # is the union of their intervals (one stream: no overlap)
+        spans = sorted(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("Command Buffer")
+        )
+        busy_us, reach, by_name = 0.0, -math.inf, {}
+        for start, end, name in spans:
+            busy_us += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+            t, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + end - start, n + 1)
+        launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+        if not spans:
+            log(f"profile: {label}: device time not measured (the profiler saw none); "
+                f"host clock {wall_ms / steps:.2f} ms per step")
+            return
+        busy_ms = busy_us / 1e3
+        log(f"profile: {label}: host clock {wall_ms / steps:.2f} ms per step, device "
+            f"busy {busy_ms / steps:.2f} ms per step ({busy_ms / wall_ms:.1%}; idle "
+            f"{1 - busy_ms / wall_ms:.1%}), {launches / steps:.0f} kernel launches per "
+            f"step, {len(spans) / steps:.0f} device activities per step")
+        top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+        for name, (t_us, n) in top:
+            log(f"profile: {label}:   {t_us / 1e3 / steps:9.3f} ms/step x{n // steps:<5d} "
+                f"{name[:90]}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for arch in ("internlm2_1_8b", "mamba2_370m"):
+        cfg = get_config(arch)
+        model = Model(cfg)
+        params = model.init(0, device="cuda")
+        max_len = SERVE_PROMPT + 8
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                               generator=gen, device="cuda", dtype=torch.int32)
+        caches = model.init_cache(SERVE_BATCH, max_len, device="cuda")
+        prefill = sv.make_prefill_step(model, max_len=max_len)
+        decode = sv.make_decode_step(model, max_len=max_len)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, tokens, caches)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        summary(prof, wall, 1, f"{cfg.name} prefill")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        logits, caches = decode(params, tok, caches, SERVE_PROMPT)     # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(4):
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+                logits, caches = decode(params, tok, caches, SERVE_PROMPT + 1 + i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        summary(prof, wall, 4, f"{cfg.name} decode")
+        del params, caches, logits
+        torch.cuda.empty_cache()
+
+
+def phase_serve_check(torch):
+    """Tiny fp32 serving on the card (kernels) against the CPU (plain
+    versions), from the same weights and prompts."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import tree_map
+
+    B, S, max_len = 2, 100, 128
+    for arch in ("internlm2_1_8b", "mamba2_370m"):
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+        model = Model(cfg)
+        params = model.init(0, device="cpu")
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(dev), params)
+            tokens = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+            caches = model.init_cache(B, max_len, device=dev)
+            before = flash_attention.launches + ssm_scan.launches
+            with torch.inference_mode():
+                lp, caches = model.serve_forward(p, tokens[:, :S], caches,
+                                                 start_position=0, max_len=max_len)
+                prefill_caches = [{k: v.cpu().clone() for k, v in c.items()} for c in caches]
+                ld, caches = model.serve_forward(p, tokens[:, S:], caches,
+                                                 start_position=S, max_len=max_len)
+            launched = flash_attention.launches + ssm_scan.launches - before
+            out[dev] = (lp.cpu(), ld.cpu(), prefill_caches,
+                        [{k: v.cpu() for k, v in c.items()} for c in caches], launched)
+        if out["cuda"][4] != cfg.num_layers or out["cpu"][4] != 0:
+            fail(f"{cfg.name}: the card ran {out['cuda'][4]} kernel launches, the CPU "
+                 f"{out['cpu'][4]}; expected {cfg.num_layers} and 0")
+        worst = 0.0
+        for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+            worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+        for c_got, c_want in zip(out["cuda"][2] + out["cuda"][3],
+                                 out["cpu"][2] + out["cpu"][3]):
+            for key in c_want:
+                g, w = c_got[key].float(), c_want[key].float()
+                worst = max(worst, float((g - w).abs().max() / max(w.abs().max(), 1e-30)))
+        log(f"check: {cfg.name} fp32 serving, card (kernels) vs CPU (plain): prefill "
+            f"logits, one decode step and every cache leaf within {worst:.2e} of the "
+            f"largest magnitude (tolerance {SERVE_TOL:g})")
+        if not worst <= SERVE_TOL:
+            fail(f"{cfg.name}: the card's serving disagrees with the CPU's")
 
 
 def phase_main(torch, cfg, plan):
@@ -353,24 +718,31 @@ def main() -> None:
         for path, (shape, _) in flatten(Model(cfg).param_shapes()).items()
     }
     row = phase_kernels(torch, leaf_shapes, float(plan.alpha))
+    fa_row = phase_flash(torch)
+    ss_row = phase_ssm(torch)
     launches = phase_main(torch, cfg, plan)
     torch.cuda.empty_cache()
+    serve_launches = phase_serve(torch)
+    phase_profile(torch)
     phase_check(torch, plan)
+    phase_serve_check(torch)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [dict(
-        name="gossip_axpy",
-        route="cuda",
-        source="src/repro_torch/csrc/gossip_axpy.cu",
-        replaces="src/repro/kernels/gossip_axpy.py:80",
-        launches=launches,
-        max_abs_err=row["max_abs_err"],
-        ms=row["ms"],
-        plain_ms=row["plain_ms"],
-        bound_ms=row["bound_ms"],
-        bound_by="bytes",
-        library_ms=row["library_ms"],
-    )]
+    kernels = [
+        dict(name="gossip_axpy", route="cuda",
+             source="src/repro_torch/csrc/gossip_axpy.cu",
+             replaces="src/repro/kernels/gossip_axpy.py:80", launches=launches,
+             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+             bound_ms=row["bound_ms"], bound_by="bytes", library_ms=row["library_ms"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:202",
+             launches=serve_launches["flash_attention"], **fa_row),
+        dict(name="ssm_scan", route="cuda",
+             source="src/repro_torch/csrc/ssm_scan.cu",
+             replaces="src/repro/kernels/ssm_scan.py:154",
+             launches=serve_launches["ssm_scan"], **ss_row),
+    ]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

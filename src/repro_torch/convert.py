@@ -1,4 +1,5 @@
-"""Carry parameter trees between the JAX package and the port.
+"""Carry parameter trees and serving caches between the JAX package and
+the port.
 
 Both packages key parameters identically (nested dicts, the same
 paths and shapes), so conversion is a leaf-for-leaf copy through numpy.
@@ -44,3 +45,17 @@ def params_to_numpy(tree: Any) -> Any:
         return t.numpy()
 
     return tree_map(leaf, tree)
+
+
+def caches_from_numpy(caches, device) -> list:
+    """Serving caches as the JAX ``Model.init_cache`` / ``serve_forward``
+    hand them over (a list of per-segment dicts of numpy arrays: ``k``,
+    ``v``, ``pos`` or ``ssm``, ``conv``) -> the port's caches on
+    ``device``."""
+    return [params_from_numpy(c, device) for c in caches]
+
+
+def caches_to_numpy(caches) -> list:
+    """The port's caches -> per-segment dicts of numpy arrays (bfloat16
+    widened to float32, as in ``params_to_numpy``)."""
+    return [params_to_numpy(c) for c in caches]

@@ -3,4 +3,5 @@
   gossip       MATCHA mixing as per-matching gathers along the node dim,
                then the fused gossip-axpy update
   decen_train  stacked per-node state + the decentralized SGD train step
+  serve        prefill / decode step builders for one serving replica
 """

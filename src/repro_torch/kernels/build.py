@@ -105,6 +105,18 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
     return logs
 
 
+def require_hopper(device, kernel: str) -> None:
+    """Raise unless ``device`` is an sm_90 card: the kernels are built
+    for sm_90a only."""
+    import torch
+
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"{kernel} is built for sm_90a (Hopper); {device} is sm_{major}{minor}"
+        )
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if missing."""
     lib = _LOADED.get(name)

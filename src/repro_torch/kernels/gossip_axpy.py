@@ -56,12 +56,7 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
     if x.shape != y.shape:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
-    major, minor = torch.cuda.get_device_capability(x.device)
-    if (major, minor) != (9, 0):
-        raise RuntimeError(
-            f"gossip_axpy is built for sm_90a (Hopper); {x.device} is "
-            f"sm_{major}{minor}"
-        )
+    build.require_hopper(x.device, "gossip_axpy")
 
 
 def gossip_axpy(

@@ -1,8 +1,11 @@
 """Public wrappers that dispatch between the kernels and their plain
 versions.
 
-The port of ``repro.kernels.ops`` (its gossip part). ``resolve_mode`` is
-the one place the decision is made, per tensor device:
+The port of ``repro.kernels.ops``: ``attention`` (flash attention),
+``ssd`` (the Mamba2 chunk scan) and the gossip update. The grouped
+matmul of the MoE family is not ported yet (ROADMAP queue 2, item 3).
+``resolve_mode`` is the one place the decision is made, per tensor
+device:
 
   * ``"auto"``  -> ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU one;
   * ``"cuda"``  -> the hand-written kernel (it raises on a CPU tensor, and
@@ -17,8 +20,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gossip_axpy as _ga
-from repro_torch.kernels.ref import gossip_axpy_ref
+from repro_torch.kernels import ssm_scan as _ss
+from repro_torch.kernels.ref import attention_ref, gossip_axpy_ref, ssm_scan_ref
 from repro_torch.tree import tree_map
 
 MODES = ("torch", "cuda")
@@ -35,6 +40,44 @@ def resolve_mode(impl: str, device) -> str:
     return impl
 
 
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+def attention(q, k, v, *, causal: bool = True, window: int = 0, impl: str = "auto"):
+    """Attention of q (B,Sq,Hq,hd) over k/v (B,Sk,Hkv,hd), query i and
+    key j at positions i and j. The kernel masks ragged lengths itself,
+    so nothing is padded here (the JAX wrapper pads to block multiples
+    and masks the pad with ``kv_len``)."""
+    if resolve_mode(impl, q.device) == "torch":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window
+    )
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+def ssd(x, dt, A, B_mat, C_mat, *, chunk: int = 128, impl: str = "auto"):
+    """Mamba2 SSD from a zero state: ``(y, final_state)``. The kernel
+    needs the chunk to divide S, so the chunk halves until it does; its
+    final state is fp32 (the plain version's is in x's dtype, as in the
+    JAX oracle)."""
+    if resolve_mode(impl, x.device) == "torch":
+        return ssm_scan_ref(x, dt, A, B_mat, C_mat)
+    S = x.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    return _ss.ssm_scan(
+        x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+        B_mat.contiguous(), C_mat.contiguous(), chunk=c,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Gossip consensus update
+# ---------------------------------------------------------------------------
 def _gossip_tree_map(x_tree, y_tree, alpha: float, impl: str, inplace: bool):
     """Leaf dispatcher for x + alpha * (y - x); non-float leaves pass
     through untouched."""

@@ -1,11 +1,17 @@
 """Plain PyTorch versions of the port's hand-written kernels.
 
 The correctness contract: the CPU tests run these, and on the card the
-kernels are held against them on the same inputs.
+kernels are held against them on the same inputs. Each mirrors its
+oracle in ``repro.kernels.ref``.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+NEG_INF = -2.0**30  # large-but-finite, as in the JAX oracle
 
 
 def gossip_axpy_ref(x: torch.Tensor, y: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -14,3 +20,50 @@ def gossip_axpy_ref(x: torch.Tensor, y: torch.Tensor, alpha: float) -> torch.Ten
     xf = x.float()
     yf = y.float()
     return (xf + alpha * (yf - xf)).to(x.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,            # (B, Sq, Hq, hd)
+    k: torch.Tensor,            # (B, Sk, Hkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """fp32 masked softmax attention; query head h reads kv head
+    ``h // (Hq // Hkv)``. Query i and key j sit at positions i and j.
+    A row with no live key gets uniform weights over NEG_INF scores
+    (the JAX oracle's behaviour; the kernel writes 0 there)."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qf = q.float() / math.sqrt(hd)
+    qg = qf.reshape(B, Sq, Hkv, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def ssm_scan_ref(
+    x: torch.Tensor,            # (B, S, H, P)
+    dt: torch.Tensor,           # (B, S, H), positive
+    A: torch.Tensor,            # (H,), negative
+    B_mat: torch.Tensor,        # (B, S, N)
+    C_mat: torch.Tensor,        # (B, S, N)
+    *,
+    h0: Optional[torch.Tensor] = None,
+):
+    """Exact sequential SSD recurrence; returns ``(y, final_state)``,
+    both in x's dtype."""
+    from repro_torch.models.ssm import ssd_sequential
+
+    return ssd_sequential(x, dt, A, B_mat, C_mat, h0=h0, return_final_state=True)

@@ -1,18 +1,36 @@
-"""Attention: GQA/MQA, causal and sliding-window, over position arrays.
+"""Attention: GQA/MQA, causal and sliding-window, over position arrays,
+with the explicit-position KV cache of serving.
 
-The port of ``repro.models.attention`` for training (no KV cache: the
-cache belongs to serving). Attention is plain PyTorch, as the JAX model
-computes it with jnp: the JAX model never reaches its flash-attention
-Pallas kernel.
+The port of ``repro.models.attention``. Two execution paths share one
+declaration, as in the JAX package:
+
+  * ``sdpa``: plain PyTorch attention over position arrays (with
+    softcap), for training and for every cache step but one;
+  * ``repro_torch.kernels.ops.attention``: the hand-written Hopper
+    flash-attention kernel on the card (its plain version on the CPU).
+    A serving prefill that starts at position 0 runs it over the keys it
+    has just written: there, attention over the cache is causal
+    attention over the first S keys, which is the kernel's function. The
+    kernel has no softcap and no backward, so softcapped configurations,
+    decode steps, later prefills and training stay on ``sdpa`` (the
+    backward kernel is a later slice of the port).
+
+Decode uses an explicit-position KV cache: positions are stored next to
+k/v, so full caches and ring-buffer (sliding-window) caches share one
+code path. The port writes caches in place: ``cache_write`` updates the
+tensors it is given and returns them, which spares a copy of every
+layer's cache on every step.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_dense, apply_rope, declare_dense
 from repro_torch.models.module import ParamBuilder, ones_init, torch_dtype
 
@@ -91,6 +109,46 @@ def _dispatch_sdpa(q, k, v, **kw):
     return sdpa(q, k, v, **kw)
 
 
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    length: int        # slots (full seq or sliding window)
+    ring: bool         # round-robin writes (window caches)
+
+
+def init_kv_cache(
+    batch: int, spec: CacheSpec, kv_heads: int, head_dim: int, dtype, device
+) -> dict:
+    shape = (batch, spec.length, kv_heads, head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # explicit absolute positions; -1 = empty slot
+        "pos": torch.full((batch, spec.length), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_write(
+    cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+    positions: torch.Tensor, spec: CacheSpec,
+) -> dict:
+    """Write Sq new entries at ``positions`` (B, Sq), in place. Ring
+    caches wrap; of a run of consecutive positions longer than the ring
+    only the last ``length`` land, which is what sequential writes leave."""
+    if spec.ring and positions.shape[1] > spec.length:
+        keep = slice(positions.shape[1] - spec.length, None)
+        positions, k_new, v_new = positions[:, keep], k_new[:, keep], v_new[:, keep]
+    B, Sq = positions.shape
+    idx = (positions % spec.length if spec.ring else positions).long()
+    bidx = torch.arange(B, device=positions.device)[:, None].expand(B, Sq)
+    cache["k"][bidx, idx] = k_new.to(cache["k"].dtype)
+    cache["v"][bidx, idx] = v_new.to(cache["v"].dtype)
+    cache["pos"][bidx, idx] = positions.to(torch.int32)
+    return cache
+
+
 def attention_block(
     p: dict,
     x: torch.Tensor,                    # (B, Sq, D)
@@ -99,10 +157,17 @@ def attention_block(
     positions: torch.Tensor,            # (B, Sq)
     causal: bool = True,
     window: int = 0,
+    cache: Optional[dict] = None,       # decode/prefill KV cache
+    cache_spec: Optional[CacheSpec] = None,
+    prefill_from_zero: bool = False,
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention over the block's own keys (training; no cache).
-    Returns ``(y, None)``: the JAX block's ``(y, new_cache)``."""
+    """Self-attention. Without a cache (training) over the block's own
+    keys; with one, the new keys are written and the queries attend over
+    the cache. ``prefill_from_zero`` says that this multi-token cache
+    step starts at position 0 (``positions`` is ``0..S-1``): with no
+    softcap it then runs ``ops.attention``, the flash kernel on the
+    card, over the keys just written. Returns ``(y, new_cache)``."""
     dtype = torch_dtype(cfg.compute_dtype)
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -116,10 +181,28 @@ def attention_block(
     if use_rope and cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = _dispatch_sdpa(
-        q, k, v,
-        q_positions=positions, k_positions=positions,
-        causal=causal, window=window, logit_softcap=cfg.logit_softcap,
-    )
+    sdpa_kw = dict(causal=causal, window=window, logit_softcap=cfg.logit_softcap)
+
+    if cache is None:
+        out = _dispatch_sdpa(q, k, v, q_positions=positions, k_positions=positions,
+                             **sdpa_kw)
+        new_cache = None
+    else:
+        assert cache_spec is not None
+        new_cache = cache_write(cache, k, v, positions, cache_spec)
+        multi = q.shape[1] > 1
+        if multi and prefill_from_zero and not cfg.logit_softcap:
+            out = ops.attention(q, k, v, causal=causal, window=window)
+        elif cache_spec.ring and multi:
+            # Windowed prefill: a ring cache shorter than the chunk has
+            # already overwritten the oldest keys, but every query's
+            # window lies inside the in-flight chunk (prefill starts at
+            # position 0), so attend over k/v directly.
+            out = _dispatch_sdpa(q, k, v, q_positions=positions,
+                                 k_positions=positions, **sdpa_kw)
+        else:
+            out = _dispatch_sdpa(q, new_cache["k"], new_cache["v"],
+                                 q_positions=positions,
+                                 k_positions=new_cache["pos"], **sdpa_kw)
     y = apply_dense(p["wo"], out.reshape(*x.shape[:-1], h * hd), dtype)
-    return y, None
+    return y, new_cache

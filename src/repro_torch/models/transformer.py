@@ -1,4 +1,5 @@
-"""Transformer assembly for the dense decoder family.
+"""Transformer assembly: the dense decoder family and Mamba2 stacks,
+for training and serving.
 
 The port of ``repro.models.transformer``. Layer stacking follows the JAX
 package: consecutive identical layers form a *segment* whose parameters
@@ -9,15 +10,22 @@ JAX model scans segments of ``SCAN_THRESHOLD`` or more layers with
 over the layer dim here. ``cfg.remat`` maps to
 ``torch.utils.checkpoint`` (recompute in the backward, same numbers).
 
+Serving (``init_cache`` / ``serve_forward``) threads per-segment caches,
+stacked on the layer dim like the parameters, through the layer loop:
+KV caches for attention layers, the SSM and conv state for Mamba
+layers. The port updates them in place. A prefill from position 0 runs
+the hand-written flash-attention and SSD chunk-scan kernels on the card
+(``repro_torch.kernels.ops``); decode and training run the models' plain
+PyTorch attention and SSD, as the JAX model does.
+
 Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP
-item): Mamba and MoE layers, periodic hybrid segments, the encoder of
-encoder-decoder models and vision prefixes (queue 1, item 12), and the
-serving path with its caches (queue 1, item 13).
+item): MoE layers, periodic hybrid segments, the encoder of
+encoder-decoder models and vision prefixes (queue 1, item 12).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +34,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import attention_block, declare_attention
+from repro_torch.models.attention import (
+    CacheSpec,
+    attention_block,
+    declare_attention,
+    init_kv_cache,
+)
 from repro_torch.models.ffn import declare_ffn, ffn_block
 from repro_torch.models.layers import (
     apply_dense,
@@ -36,6 +49,7 @@ from repro_torch.models.layers import (
     softmax_cross_entropy,
     unembed,
 )
+from repro_torch.models.ssm import declare_mamba, init_mamba_state, mamba_block
 from repro_torch.models.module import (
     ParamBuilder,
     _fold_path,
@@ -149,10 +163,6 @@ def _check_supported(cfg: ModelConfig, segments) -> None:
                 f"{cfg.name}: periodic (hybrid / local:global) segments are "
                 f"not ported yet ({_FAMILIES})"
             )
-        if seg.kind == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba (SSM) layers are not ported yet ({_FAMILIES})"
-            )
         if seg.is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers are not ported yet ({_FAMILIES})"
@@ -164,7 +174,10 @@ def _check_supported(cfg: ModelConfig, segments) -> None:
 # ---------------------------------------------------------------------------
 def _declare_layer(b: ParamBuilder, path: str, cfg: ModelConfig, seg: Segment) -> None:
     declare_norm(b, f"{path}.norm1", cfg.d_model, cfg.norm)
-    declare_attention(b, f"{path}.mixer", cfg)
+    if seg.kind == "mamba":
+        declare_mamba(b, f"{path}.mixer", cfg)
+    else:
+        declare_attention(b, f"{path}.mixer", cfg)
     if _has_ffn(cfg, seg):
         declare_norm(b, f"{path}.norm2", cfg.d_model, cfg.norm)
         declare_ffn(b, f"{path}.ffn", cfg.d_model, cfg.d_ff, cfg.gated_ffn)
@@ -246,33 +259,55 @@ class Model:
         return x
 
     @staticmethod
-    def _positions(batch: int, length: int, device) -> torch.Tensor:
-        pos = torch.arange(length, dtype=torch.int32, device=device)
+    def _positions(batch: int, length: int, device, start: int = 0) -> torch.Tensor:
+        pos = torch.arange(start, start + length, dtype=torch.int32, device=device)
         return pos[None, :].expand(batch, length)
 
-    def _layer_apply(self, p, x, seg: Segment, *, positions):
+    def _layer_apply(self, p, x, seg: Segment, *, positions, cache=None,
+                     cache_spec=None, prefill_from_zero: bool = False):
+        """One layer; returns ``(x, new_cache)``. ``prefill_from_zero``:
+        a multi-token cache step from position 0 (the kernels' path)."""
         cfg = self.cfg
         h = apply_norm(p["norm1"], x, cfg.norm)
-        window = cfg.sliding_window if seg.kind == "local" else 0
-        y, _ = attention_block(
-            p["mixer"], h, cfg, positions=positions, causal=True, window=window,
-        )
+        if seg.kind == "mamba":
+            y, new_cache = mamba_block(
+                p["mixer"], h, cfg, state=cache, return_state=cache is not None,
+                from_zero_state=prefill_from_zero,
+            )
+        else:
+            window = cfg.sliding_window if seg.kind == "local" else 0
+            y, new_cache = attention_block(
+                p["mixer"], h, cfg, positions=positions, causal=True, window=window,
+                cache=cache, cache_spec=cache_spec,
+                prefill_from_zero=prefill_from_zero,
+            )
         x = x + y
         if _has_ffn(cfg, seg):
             h = apply_norm(p["norm2"], x, cfg.norm)
             x = x + ffn_block(p["ffn"], h, cfg)
-        return x
+        return x, new_cache
 
-    def _run_segment(self, params_seg, x, seg: Segment, *, positions):
+    def _run_segment(self, params_seg, x, seg: Segment, *, positions, caches=None,
+                     cache_spec=None, prefill_from_zero: bool = False):
         """One segment: a loop over the stacked layer dim (the JAX model's
         ``lax.scan`` for scanned segments, its unrolled loop otherwise).
-        Dense layers carry no aux losses, so the aux terms stay zero."""
+        Layer i reads and updates ``caches`` at index i in place. Dense and
+        Mamba layers carry no aux losses, so the aux terms stay zero."""
         def one(x, p):
-            return self._layer_apply(p, x, seg, positions=positions)
+            return self._layer_apply(p, x, seg, positions=positions)[0]
 
         for i in range(seg.count):
             p_i = tree_map(lambda a: a[i], params_seg)
-            if self.cfg.remat and torch.is_grad_enabled():
+            if caches is not None:
+                cache_i = {key: a[i] for key, a in caches.items()}
+                x, new = self._layer_apply(
+                    p_i, x, seg, positions=positions, cache=cache_i,
+                    cache_spec=cache_spec, prefill_from_zero=prefill_from_zero,
+                )
+                for key, t in new.items():
+                    if t.data_ptr() != cache_i[key].data_ptr():
+                        cache_i[key].copy_(t)
+            elif self.cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(one, x, p_i, use_reentrant=False)
             else:
                 x = one(x, p_i)
@@ -323,6 +358,70 @@ class Model:
         """batch: tokens (B,S), labels (B,S), optional mask."""
         logits, aux = self.forward(params, batch["tokens"])
         return self._combine_loss(logits, batch, aux)
+
+
+    # -- serving ------------------------------------------------------------------
+    def cache_specs(self, max_len: int) -> List[Optional[CacheSpec]]:
+        """Per-layer cache spec; local layers get ring buffers of window
+        size, Mamba layers none (they carry a recurrent state)."""
+        cfg = self.cfg
+        specs: List[Optional[CacheSpec]] = []
+        for kind in cfg.layer_kinds():
+            if kind == "local" and cfg.sliding_window:
+                specs.append(CacheSpec(length=min(cfg.sliding_window, max_len), ring=True))
+            elif kind == "mamba":
+                specs.append(None)
+            else:
+                specs.append(CacheSpec(length=max_len, ring=False))
+        return specs
+
+    def _one_layer_cache(self, kind, spec, batch, dtype, device):
+        if kind == "mamba":
+            return init_mamba_state(batch, self.cfg, dtype, device)
+        return init_kv_cache(
+            batch, spec, self.cfg.num_kv_heads, self.cfg.head_dim, dtype, device
+        )
+
+    def init_cache(self, batch: int, max_len: int, *, device="cuda") -> List[dict]:
+        """Per-segment caches, stacked on a leading layer dim, in the
+        compute dtype on ``device``."""
+        device = resolve_device(device)
+        dtype = torch_dtype(self.cfg.compute_dtype)
+        specs = self.cache_specs(max_len)
+        caches, li = [], 0
+        for seg in self.segments:
+            one = self._one_layer_cache(seg.kind, specs[li], batch, dtype, device)
+            caches.append({
+                key: a[None].repeat((seg.count,) + (1,) * a.dim())
+                for key, a in one.items()
+            })
+            li += seg.count
+        return caches
+
+    def serve_forward(self, params, tokens: torch.Tensor, caches, *,
+                      start_position, max_len: int):
+        """One serving step: prefill (S > 1) or decode (S == 1) of
+        ``tokens`` (B, S) at positions ``start_position..+S-1``. Updates
+        ``caches`` in place and returns ``(logits of the last position
+        (B, 1, vocab), caches)``."""
+        cfg = self.cfg
+        start = int(start_position)
+        x = self._embed(params, tokens)
+        B, S = x.shape[0], x.shape[1]
+        positions = self._positions(B, S, x.device, start)
+        if cfg.pos_embed == "learned":
+            x = x + params["pos_embed"]["table"][positions.long()].to(x.dtype)
+        specs = self.cache_specs(max_len)
+        li = 0
+        for s, seg in enumerate(self.segments):
+            x, _ = self._run_segment(
+                params[f"blocks_{s}"], x, seg, positions=positions,
+                caches=caches[s], cache_spec=specs[li],
+                prefill_from_zero=S > 1 and start == 0,
+            )
+            li += seg.count
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        return self._unembed(params, x[:, -1:, :]), caches
 
 
 def _stacked_init(builder: ParamBuilder, seed: int, count: int, device):

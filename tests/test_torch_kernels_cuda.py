@@ -5,15 +5,19 @@ imports no JAX, so it runs on a machine with the card but without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: exact. The kernel rounds the same three fp32 operations as
-the plain version and casts once, as it does.
+Tolerances: gossip_axpy exact (it rounds the same three fp32
+operations as the plain version and casts once, as it does); flash
+attention and the SSD chunk scan as stated above their tests.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_axpy import gossip_axpy
-from repro_torch.kernels.ref import gossip_axpy_ref
+from repro_torch.kernels.ref import attention_ref, gossip_axpy_ref, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 SHAPES = [(17,), (1003, 77), (4, 33, 9), (2048, 1024), (1,), (5,), ((1 << 20) + 3,)]
 ALPHAS = [0.0, 0.3, 1.0]
@@ -69,3 +73,134 @@ def test_cuda_kernel_in_place_and_rejects_bad_operands(sm90):
         gossip_axpy(x.view(10, 100).T, y.view(10, 100).T, 0.25)
     with pytest.raises(ValueError, match="dtype"):
         gossip_axpy(x.half(), y, 0.25)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the SSD chunk scan
+#
+# Tolerances: fp32 1e-4 abs and rel (the kernel sums in another order and
+# uses the fast exp); bf16 2e-2 for attention and 5e-2 for the scan (one
+# bf16 rounding of the output apart, as in tests/test_kernels.py). Rows
+# with no live key: the kernel writes 0 where the plain version spreads
+# uniform weight over NEG_INF scores; they are checked apart.
+# ---------------------------------------------------------------------------
+
+FA_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+          torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+SSM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3),
+           torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+
+
+def _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    return mk(B, Sq, Hq, hd), mk(B, Sk, Hkv, hd), mk(B, Sk, Hkv, hd)
+
+
+def _live(Sq, Sk, causal, window, kv_len):
+    i = torch.arange(Sq)[:, None]
+    j = torch.arange(Sk)[None, :]
+    m = (j < (kv_len or Sk)) & (i >= 0)
+    if causal:
+        m = m & (j <= i)
+    if window:
+        m = m & (i - j < window)
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd", [
+    (1, 128, 128, 4, 4, 64),      # MHA
+    (2, 256, 256, 8, 2, 64),      # GQA 4:1
+    (1, 192, 192, 6, 1, 32),      # MQA
+    (2, 64, 64, 4, 4, 128),       # wide heads
+    (2, 100, 100, 4, 2, 32),      # odd lengths, GQA 2
+    (1, 37, 130, 2, 2, 128),      # Sq != Sk, odd
+    (2, 130, 37, 4, 1, 64),       # more queries than keys
+])
+@pytest.mark.parametrize("causal,window,kv_len", [
+    (True, 0, 0), (True, 24, 0), (False, 0, 0), (False, 24, 0), (True, 0, 31), (False, 0, 31),
+])
+def test_flash_kernel_matches_plain_version(sm90, dtype, B, Sq, Sk, Hq, Hkv, hd,
+                                            causal, window, kv_len):
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype)
+    kv_len = min(kv_len, Sk)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    n = kv_len or Sk
+    want = attention_ref(q, k[:, :n], v[:, :n], causal=causal, window=window)
+    live = _live(Sq, Sk, causal, window, kv_len).any(1).cuda()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got[:, live].float(), want[:, live].float(), **FA_TOL[dtype])
+    assert bool((got[:, ~live] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_fully_masked_rows_are_zero_and_wrapper_dispatches(sm90):
+    # kv_len 10 with a window of 4: queries from 13 on see no live key
+    q, k, v = _qkv(1, 64, 64, 2, 2, 32, torch.float32, seed=2)
+    got = flash_attention(q, k, v, causal=True, window=4, kv_len=10)
+    assert bool((got[:, 13:] == 0).all()) and bool(torch.isfinite(got).all())
+    before = flash_attention.launches
+    out = ops.attention(q, k, v, causal=True, window=8)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out, ops.attention(q, k, v, causal=True, window=8,
+                                                  impl="torch"), **FA_TOL[torch.float32])
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                        v[..., :16].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k, v)
+
+
+def _ssm_inputs(B, S, H, P, N, dtype, seed=0, a_scale=1.0):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    x = f(rng.standard_normal((B, S, H, P)) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(f(rng.standard_normal((B, S, H))))
+    A = -torch.exp(f(rng.uniform(size=(H,)))) * a_scale
+    Bm = f(rng.standard_normal((B, S, N)) * 0.3).to(dtype)
+    Cm = f(rng.standard_normal((B, S, N)) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 64, 2, 16, 8, 16),
+    (2, 128, 4, 32, 16, 32),
+    (1, 256, 2, 64, 128, 128),    # the serving path's state dims
+    (2, 96, 3, 16, 8, 32),        # 3 chunks
+    (2, 64, 8, 32, 32, 64),       # the mamba2 smoke widths
+])
+def test_ssm_kernel_matches_plain_version(sm90, dtype, B, S, H, P, N, chunk):
+    x, dt, A, Bm, Cm = _ssm_inputs(B, S, H, P, N, dtype)
+    before = ssm_scan.launches
+    y, h = ssm_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    y_ref, h_ref = ssm_scan_ref(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y.float(), y_ref.float(), **SSM_TOL[dtype])
+    torch.testing.assert_close(h, h_ref.float(), **SSM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [100, 52, 200])
+def test_ssd_wrapper_halves_the_chunk_and_survives_underflow(sm90, S):
+    # A * dt large: exp(La) underflows to 0 inside a chunk
+    x, dt, A, Bm, Cm = _ssm_inputs(2, S, 2, 16, 8, torch.float32, seed=S, a_scale=60.0)
+    before = ssm_scan.launches
+    y, h = ops.ssd(x, dt, A, Bm, Cm, chunk=64)
+    assert ssm_scan.launches == before + 1
+    y_ref, h_ref = ops.ssd(x, dt, A, Bm, Cm, chunk=64, impl="torch")
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, y_ref, **SSM_TOL[torch.float32])
+    torch.testing.assert_close(h, h_ref, **SSM_TOL[torch.float32])
+    with pytest.raises(ValueError, match="divide"):
+        ssm_scan(x, dt, A, Bm, Cm, chunk=48 if S % 48 else 56)

@@ -129,7 +129,7 @@ def test_own_init_is_seeded_and_lecun_scaled():
 
 
 @pytest.mark.parametrize(
-    "arch", ["dbrx_132b", "mamba2_370m", "jamba_v0_1_52b", "whisper_base",
+    "arch", ["dbrx_132b", "kimi_k2_1t_a32b", "jamba_v0_1_52b", "whisper_base",
              "internvl2_1b", "gemma3_4b"]
 )
 def test_unported_families_raise_with_roadmap_item(arch):

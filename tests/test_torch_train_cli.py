@@ -1,8 +1,9 @@
 """The port's training CLI, run as a user runs it.
 
 ``python -m repro_torch.launch.train --device cpu --preset tiny --steps 3``
-must train, print the JAX CLI's step lines and write its CSV columns;
-its step-0 loss must sit near the JAX CLI's ~6.26 (about ln 512 for
+must train, for the dense internlm2 and the Mamba2 smoke models alike,
+print the JAX CLI's step lines and write its CSV columns; its step-0
+loss must sit near the JAX CLI's ~6.26 (about ln 512 for
 the smoke vocab; not bit-equal, since the port initializes from its own
 generator; tolerance 0.1). Without a card and without ``--device cpu``
 it must refuse to run, and every flag it has not ported must exit with
@@ -35,9 +36,10 @@ def _run(args, timeout=300):
     )
 
 
-def test_cli_trains_on_cpu_and_writes_csv(tmp_path):
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m"])
+def test_cli_trains_on_cpu_and_writes_csv(tmp_path, arch):
     out = tmp_path / "run.csv"
-    res = _run(["--device", "cpu", "--preset", "tiny", "--steps", "3",
+    res = _run(["--device", "cpu", "--arch", arch, "--preset", "tiny", "--steps", "3",
                 "--csv", str(out)])
     assert res.returncode == 0, res.stderr[-4000:]
     lines = [ln for ln in res.stdout.splitlines() if ln.startswith("step ")]
@@ -64,7 +66,8 @@ def test_cli_without_a_card_needs_device_cpu():
 
 
 @pytest.mark.parametrize("entry", ["Model.init", "init_stacked_params",
-                                   "init_stacked_opt_state", "DecentralizedBatches"])
+                                   "init_stacked_opt_state", "DecentralizedBatches",
+                                   "Model.init_cache"])
 def test_library_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible: the default device is usable here")
@@ -80,6 +83,7 @@ def test_library_entry_points_default_to_the_card(entry):
         "init_stacked_params": lambda: dt.init_stacked_params(Model(cfg), 2),
         "init_stacked_opt_state": lambda: dt.init_stacked_opt_state(sgd(0.1, 0.9), Model(cfg), 2),
         "DecentralizedBatches": lambda: DecentralizedBatches(cfg, 2, 1, 4),
+        "Model.init_cache": lambda: Model(cfg).init_cache(2, 8),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
