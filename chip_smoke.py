@@ -17,8 +17,14 @@ non-zero exit:
            one-call PyTorch yardstick (where there is one) beside the
            bound: gossip_axpy (odd sizes, misaligned views, in place),
            flash_attention (odd and unequal lengths, kv_len, windows,
-           GQA groups 1 and 2, fully masked rows, fp32 and bf16) and
-           ssm_scan (chunk halving, fp32 and bf16, decays that underflow);
+           GQA groups 1 and 2, fully masked rows, fp32 and bf16),
+           ssm_scan (chunk halving, fp32 and bf16, decays that underflow)
+           and grouped_matmul (the sweep of tests/test_kernels.py, empty
+           groups, ragged tails, rows past the groups, in fp32 and bf16;
+           dbrx-132b's prefill shapes, 65,536 sorted rows x 6144 x 10752
+           and the transposed w2 shape, and its decode shape of 32 rows,
+           with group sizes from a router pass), with torch._grouped_mm
+           as the one-call yardstick;
 3. main    the decentralized trainer at full published width:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
@@ -28,19 +34,25 @@ non-zero exit:
            more step whose gossip runs through the kernel and through
            the plain version from the same state, which must agree;
 4. serve   the serving path (``repro_torch.launch.serve``) at full
-           published width and depth: internlm2-1.8b (24 layers) and
-           mamba2-370m (48 layers, d 1024, 32 SSM heads of 64, state 128,
-           vocab 50280), batch 8, prompt 2048, 32 generated tokens, random
-           weights from seed 0; prefill and decode times, peak memory, and
-           the launches: 24 flash_attention per internlm2 prefill, 48
-           ssm_scan per mamba2 prefill, none in decode; then a profile
-           of one prefill and four decode steps of each model: device
-           busy share, kernel launches per step, the costliest kernels;
+           published width: internlm2-1.8b (24 layers), mamba2-370m (48
+           layers, d 1024, 32 SSM heads of 64, state 128, vocab 50280) and
+           dbrx-132b (d 6144, 48 heads, 8 kv heads, head_dim 128, 16
+           experts, top-4, expert d_ff 10752, vocab 100352; depth cut
+           40 -> 3 layers to fit one card), batch 8, prompt 2048, 32
+           generated tokens, random weights from seed 0; prefill and decode
+           times, peak memory, and all four kernels' launches, counted from
+           0 for each model (gossip_axpy none): internlm2 24 flash_attention per prefill,
+           mamba2 48 ssm_scan per prefill, none in decode; dbrx 3
+           flash_attention and 9 grouped_matmul per prefill and 9
+           grouped_matmul per decode step; then a profile of one prefill
+           and four decode steps of each model: device busy share, kernel
+           launches per step, the costliest kernels;
 5. check   small inputs (the tiny presets, fp32) run on the card and on
            the CPU from the same weights must agree: two masked training
-           steps, and for internlm2 and mamba2 a prefill, one decode step
-           and every cache; then the training CLI
-           ``repro_torch.launch.train`` must train on the card.
+           steps, and for internlm2, mamba2 and dbrx with 16 experts and
+           top-4 (the ragged MoE branch) a prefill, one decode step and
+           every cache; then the training CLI ``repro_torch.launch.train``
+           must train on the card.
 
 Then it prints the card's name and power limit, one JSON line with every
 ported kernel's numbers, and, last, the device JSON line.
@@ -68,6 +80,10 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
 FA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSM_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-2, 5e-2)}   # (abs, rel)
 SERVE_TOL = 1e-4                # card (kernels) vs CPU (plain), fp32 tiny serving
+# grouped matmul vs its plain version: fp32 sums over K in another order;
+# in bf16 both round an fp32 sum once, one bf16 step apart at most
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+DBRX_LAYERS = 3                 # dbrx-132b depth on one card (40 published)
 
 
 def fail(msg: str) -> None:
@@ -278,34 +294,43 @@ def phase_flash(torch):
             log(f"kernels: flash_attention {label} {dname}: agrees (max abs err "
                 f"{err:.3g}; {int((~rows).sum())} rows with no live key are 0)")
 
-    # the serving path's shapes: internlm2-1.8b prefill, bf16, causal
-    B, S, Hq, Hkv, hd = SERVE_BATCH, SERVE_PROMPT, 16, 8, 128
-    q, k, v = qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16)
-    got = flash_attention(q, k, v, causal=True)
-    want = attention_ref(q, k, v, causal=True)
-    err = close(torch, got, want, FA_TOL["bfloat16"], FA_TOL["bfloat16"])
-    if not math.isfinite(err):
-        fail("flash at the serving shapes: disagrees with attention_ref")
-    max_err = max(max_err, err)
-    del got, want
-    flops = 4 * hd * B * Hq * flash_pairs(S, S, True, 0, 0)
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    k_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True), 5)
-    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True), 3)
-    log(f"kernels: flash_attention serving shapes (B {B}, S {S}, heads {Hq}/{Hkv}, "
-        f"hd {hd}, bf16, causal; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): "
-        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, sdpa {l_ms:.3f} ms, bound "
-        f"{bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of it; fp32 CUDA-core "
-        f"floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms); max abs err {err:.3g}")
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=l_ms)
+    # the serving path's prefills, bf16, causal: internlm2-1.8b (16/8 heads;
+    # the JSON row) and dbrx-132b (48/8 heads)
+    row = None
+    for model, Hq, Hkv in (("internlm2-1.8b", 16, 8), ("dbrx-132b", 48, 8)):
+        B, S, hd = SERVE_BATCH, SERVE_PROMPT, 128
+        q, k, v = qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16)
+        got = flash_attention(q, k, v, causal=True)
+        want = attention_ref(q, k, v, causal=True)
+        err = close(torch, got, want, FA_TOL["bfloat16"], FA_TOL["bfloat16"])
+        if not math.isfinite(err):
+            fail(f"flash at {model}'s serving shapes: disagrees with attention_ref")
+        max_err = max(max_err, err)
+        del got, want
+        torch.cuda.empty_cache()
+        flops = 4 * hd * B * Hq * flash_pairs(S, S, True, 0, 0)
+        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+        bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = ("operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
+                    else "bytes")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        k_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True), 5)
+        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True), 3)
+        log(f"kernels: flash_attention {model} serving shapes (B {B}, S {S}, heads "
+            f"{Hq}/{Hkv}, hd {hd}, bf16, causal; {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, sdpa "
+            f"{l_ms:.3f} ms, bound {bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of "
+            f"it; fp32 CUDA-core floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms); max "
+            f"abs err {err:.3g}")
+        if row is None:
+            row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                       library_ms=l_ms)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = max_err
+    return row
 
 
 def phase_ssm(torch):
@@ -377,19 +402,193 @@ def phase_ssm(torch):
                 bound_by=bound_by, library_ms=None)
 
 
-def phase_serve(torch):
-    """The serving path at full width and depth; returns the launches of
-    each kernel in its model's run."""
+def dbrx_serving_config():
     from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config("dbrx_132b"), num_layers=DBRX_LAYERS)
+
+
+def router_group_sizes(torch, cfg, tokens: int, seed: int):
+    """Group sizes of a router pass: the port's ``_router`` at the model's
+    router init over ``tokens`` N(0, 1) hidden states."""
+    from repro_torch.models import ffn
+    from repro_torch.models.module import lecun_normal
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = lecun_normal(gen, (cfg.d_model, cfg.moe_num_experts), torch.float32, "cuda")
+    x = torch.randn(tokens, cfg.d_model, generator=gen, device="cuda")
+    _, idx, _ = ffn._router({"router": {"w": w}}, x, cfg)
+    return torch.bincount(idx.reshape(-1), minlength=cfg.moe_num_experts).int()
+
+
+def phase_gmm(torch):
+    """grouped_matmul against grouped_matmul_ref; returns the JSON row
+    (dbrx's prefill w1/w3 shape, bf16)."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def inputs(M, K, N, G, dtype, w_std):
+        x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(G, K, N, generator=gen, device="cuda") * w_std).to(dtype)
+        return x, w
+
+    def cut(M, G, seed):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        cuts = np.sort(rng.choice(M, G - 1, replace=False))
+        return np.diff(np.concatenate([[0], cuts, [M]])).tolist()
+
+    def check(label, dname, x, w, sizes):
+        got = grouped_matmul(x, w, sizes)
+        torch.cuda.synchronize()
+        want = grouped_matmul_ref(x, w, sizes)
+        tail = int(sizes.sum())
+        if not bool((got[tail:] == 0).all()):
+            fail(f"grouped_matmul {label} {dname}: rows past the groups are not 0")
+        err = close(torch, got, want, GMM_TOL[dname], GMM_TOL[dname])
+        if not math.isfinite(err):
+            fail(f"grouped_matmul {label} {dname}: disagrees with grouped_matmul_ref")
+        return err
+
+    def bound(x, w, sizes, elem):
+        M, K = x.shape
+        N = w.shape[2]
+        rows = int(sizes.sum())
+        flops = 2 * rows * K * N
+        live = int((sizes > 0).sum())
+        nbytes = (M * K + live * K * N + M * N) * elem + 4 * sizes.numel()
+        rate = BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S
+        t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+                flops, nbytes)
+
+    def library(x, w, sizes):
+        """torch._grouped_mm on the same inputs, or why it cannot take them."""
+        if x.dtype != torch.bfloat16:
+            return None, "torch._grouped_mm takes bf16 only"
+        if not hasattr(torch, "_grouped_mm"):
+            return None, f"torch {torch.__version__} has no torch._grouped_mm"
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        try:
+            lib = torch._grouped_mm(x, w, offs=offs)
+            torch.cuda.synchronize()
+        except RuntimeError as err:                # report, do not stop
+            return None, f"torch._grouped_mm refused: {str(err).splitlines()[0][:160]}"
+        tail = int(sizes.sum())
+        lib_err = float((lib[:tail].float() - grouped_matmul_ref(x, w, sizes)[:tail].float())
+                        .abs().max()) if tail else 0.0
+        del lib
+        ms = cuda_ms(torch, lambda: torch._grouped_mm(x, w, offs=offs), 3, warmup=1)
+        return ms, f"torch._grouped_mm {ms:.3f} ms (max abs diff {lib_err:.3g})"
+
+    max_err = 0.0
+    cases = [
+        # (label, M, K, N, group sizes): the sweep of tests/test_kernels.py,
+        # then empty groups, tails, and rows past the groups
+        ("sweep 96x32x48, 4 groups", 96, 32, 48, cut(96, 4, 100)),
+        ("sweep 256x64x128, 8 groups", 256, 64, 128, cut(256, 8, 264)),
+        ("sweep 130x16x40, 3 groups (ragged tails)", 130, 16, 40, cut(130, 3, 133)),
+        ("sweep 64x128x256, 16 groups (some empty)", 64, 128, 256, cut(64, 16, 80)),
+        ("empty groups 0/40/0/24", 64, 16, 24, [0, 40, 0, 24]),
+        ("M 37 below one tile", 37, 48, 72, [5, 0, 20, 12]),
+        ("M 165, groups over tiles", 165, 48, 72, [64, 0, 0, 101]),
+        ("sum(sizes) 17 < M 48", 48, 24, 40, [10, 0, 7]),
+        ("no rows in any group", 48, 24, 40, [0, 0, 0]),
+        ("K 20, N 36 (scalar path in bf16)", 300, 20, 36, [100, 50, 150]),
+    ]
+    for label, M, K, N, sizes in cases:
+        for dname, dtype in dtypes.items():
+            x, w = inputs(M, K, N, len(sizes), dtype, 0.2)
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            err = check(label, dname, x, w, gs)
+            max_err = max(max_err, err)
+            b_ms, b_by, _, _ = bound(x, w, gs, x.element_size())
+            k_ms = cuda_ms(torch, lambda: grouped_matmul(x, w, gs), 5)
+            p_ms = cuda_ms(torch, lambda: grouped_matmul_ref(x, w, gs), 3)
+            _, lib_note = library(x, w, gs)
+            log(f"kernels: grouped_matmul {label} {dname}: agrees (max abs err {err:.3g}; "
+                f"rows past the groups are 0); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"{lib_note}; bound {b_ms:.5f} ms by {b_by}")
+
+    # dbrx-132b's shapes, group sizes from a router pass
+    cfg = dbrx_serving_config()
+    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.moe_num_experts
+    prefill_sizes = router_group_sizes(torch, cfg, SERVE_BATCH * SERVE_PROMPT, seed=5)
+    decode_sizes = router_group_sizes(torch, cfg, SERVE_BATCH, seed=6)
+    log(f"kernels: grouped_matmul router group sizes, prefill "
+        f"{prefill_sizes.tolist()}, decode {decode_sizes.tolist()}")
+    row = None
+    P_pre, P_dec = SERVE_BATCH * SERVE_PROMPT * cfg.moe_top_k, SERVE_BATCH * cfg.moe_top_k
+    shapes = [
+        # (label, M, K, N, sizes, dtypes)
+        ("dbrx prefill w1/w3", P_pre, D, F, prefill_sizes, ("bfloat16", "float32")),
+        ("dbrx prefill w2", P_pre, F, D, prefill_sizes, ("bfloat16",)),
+        ("dbrx decode w1/w3", P_dec, D, F, decode_sizes, ("bfloat16", "float32")),
+        ("dbrx decode w2", P_dec, F, D, decode_sizes, ("bfloat16",)),
+    ]
+    for label, M, K, N, gs, dnames in shapes:
+        for dname in dnames:
+            dtype = dtypes[dname]
+            x, w = inputs(M, K, N, E, dtype, 1.0 / math.sqrt(K))
+            # the kernel's rule: bf16 with K and N multiples of 8 on the tensor cores
+            tensor_cores = dname == "bfloat16" and K % 8 == 0 and N % 8 == 0
+            path = "tensor cores" if tensor_cores else "scalar"
+            err = check(label, dname, x, w, gs)
+            max_err = max(max_err, err)
+            b_ms, b_by, flops, nbytes = bound(x, w, gs, x.element_size())
+            iters = 3 if dname == "bfloat16" else 2
+            k_ms = cuda_ms(torch, lambda: grouped_matmul(x, w, gs), iters, warmup=1)
+            p_ms = cuda_ms(torch, lambda: grouped_matmul_ref(x, w, gs), 2, warmup=1)
+            l_ms, lib_note = library(x, w, gs)
+            floor = ("" if dname == "float32" else
+                     f"; fp32 CUDA-core floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms")
+            log(f"kernels: grouped_matmul {label} ({M} x {K} -> {N}, {E} groups) {dname} "
+                f"({path}; {flops / 1e12:.3f} TFLOP, "
+                f"{nbytes / 1e9:.3f} GB): agrees (max abs err {err:.3g}); kernel "
+                f"{k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} ms, "
+                f"{lib_note}; bound {b_ms:.3f} ms by {b_by} ({b_ms / k_ms:.1%} of it{floor})")
+            if row is None:                         # the first: prefill w1/w3, bf16
+                row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=l_ms)
+            del x, w
+            torch.cuda.empty_cache()
+    row["max_abs_err"] = max_err
+    return row
+
+
+def serving_configs():
+    """(config, expected launches per prefill, per decode step) of each
+    model the serving phases drive."""
+    from repro_torch.configs.registry import get_config
+
+    dense, mamba, dbrx = (get_config("internlm2_1_8b"), get_config("mamba2_370m"),
+                          dbrx_serving_config())
+    moe = 3 * dbrx.num_layers                   # w1, w3, w2 in every layer
+    return [
+        (dense, {"flash_attention": dense.num_layers}, {}),
+        (mamba, {"ssm_scan": mamba.num_layers}, {}),
+        (dbrx, {"flash_attention": dbrx.num_layers, "grouped_matmul": moe},
+         {"grouped_matmul": moe}),
+    ]
+
+
+def phase_serve(torch):
+    """The serving path at full width; returns each kernel's launches,
+    summed over the models' runs (each counted from 0)."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.launch import serve
 
-    kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan}
-    expect = {"internlm2_1_8b": ("flash_attention", 24), "mamba2_370m": ("ssm_scan", 48)}
-    launches = {}
-    for arch, (kname, per_prefill) in expect.items():
-        cfg = get_config(arch)
+    kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
+               "grouped_matmul": grouped_matmul, "gossip_axpy": gossip_axpy}
+    launches = dict.fromkeys(kernels, 0)
+    for cfg, per_prefill, per_decode in serving_configs():
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -397,7 +596,8 @@ def phase_serve(torch):
                         gen=SERVE_GEN, seed=0, device="cuda")
         total = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in kernels.items()}
-        launches[kname] = counts[kname]
+        for name, n in counts.items():
+            launches[name] += n
         log(f"serve: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
             f"vocab {cfg.vocab_size}) batch {SERVE_BATCH} prompt {SERVE_PROMPT} gen "
             f"{SERVE_GEN}: prefill {res['prefill_ms']:.1f} ms, decode "
@@ -407,11 +607,17 @@ def phase_serve(torch):
             f"whole run with set-up {total:.1f} s")
         log(f"serve: {cfg.name} generated ids (first request): "
             f"{res['generated'][0].tolist()}")
-        if res["prefill_launches"][kname] != per_prefill:
-            fail(f"{cfg.name}: {res['prefill_launches'][kname]} {kname} launches in "
-                 f"the prefill, expected {per_prefill}")
-        if any(res["decode_launches"].values()) or sum(counts.values()) != per_prefill:
-            fail(f"{cfg.name}: kernel launches outside the prefill: {counts}")
+        steps = SERVE_GEN - 1
+        want_prefill = {k: per_prefill.get(k, 0) for k in kernels}
+        want_decode = {k: per_decode.get(k, 0) * steps for k in kernels}
+        if res["prefill_launches"] != want_prefill:
+            fail(f"{cfg.name}: launches in the prefill {res['prefill_launches']}, "
+                 f"expected {want_prefill}")
+        if res["decode_launches"] != want_decode:
+            fail(f"{cfg.name}: launches in the decode {res['decode_launches']}, "
+                 f"expected {want_decode}")
+        if counts != {k: want_prefill[k] + want_decode[k] for k in kernels}:
+            fail(f"{cfg.name}: kernel launches outside the prefill and decode: {counts}")
         if not bool(torch.isfinite(res["logits"]).all()):
             fail(f"{cfg.name}: non-finite logits")
         if res["generated"].shape != (SERVE_BATCH, SERVE_GEN):
@@ -430,7 +636,6 @@ def phase_profile(torch):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.dist import serve as sv
     from repro_torch.models.transformer import Model
 
@@ -465,8 +670,7 @@ def phase_profile(torch):
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for arch in ("internlm2_1_8b", "mamba2_370m"):
-        cfg = get_config(arch)
+    for cfg, _, _ in serving_configs():
         model = Model(cfg)
         params = model.init(0, device="cuda")
         max_len = SERVE_PROMPT + 8
@@ -504,13 +708,26 @@ def phase_serve_check(torch):
 
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models.transformer import Model
     from repro_torch.tree import tree_map
 
+    kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
+               "grouped_matmul": grouped_matmul}
     B, S, max_len = 2, 100, 128
-    for arch in ("internlm2_1_8b", "mamba2_370m"):
-        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    checks = [
+        # (arch, overrides, launches expected on the card per layer of the
+        # prefill plus one decode step)
+        ("internlm2_1_8b", {}, {"flash_attention": 1}),
+        ("mamba2_370m", {}, {"ssm_scan": 1}),
+        # the stock dbrx smoke model has 4 experts (the einsum branch):
+        # 16 experts, top-4 take the ragged branch and its grouped matmuls
+        ("dbrx_132b", dict(moe_num_experts=16, moe_top_k=4),
+         {"flash_attention": 1, "grouped_matmul": 6}),
+    ]
+    for arch, over, per_layer in checks:
+        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32", **over)
         model = Model(cfg)
         params = model.init(0, device="cpu")
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1))
@@ -519,19 +736,20 @@ def phase_serve_check(torch):
             p = tree_map(lambda a: a.to(dev), params)
             tokens = torch.as_tensor(toks, dtype=torch.int32, device=dev)
             caches = model.init_cache(B, max_len, device=dev)
-            before = flash_attention.launches + ssm_scan.launches
+            before = {name: fn.launches for name, fn in kernels.items()}
             with torch.inference_mode():
                 lp, caches = model.serve_forward(p, tokens[:, :S], caches,
                                                  start_position=0, max_len=max_len)
                 prefill_caches = [{k: v.cpu().clone() for k, v in c.items()} for c in caches]
                 ld, caches = model.serve_forward(p, tokens[:, S:], caches,
                                                  start_position=S, max_len=max_len)
-            launched = flash_attention.launches + ssm_scan.launches - before
+            launched = {name: fn.launches - before[name] for name, fn in kernels.items()}
             out[dev] = (lp.cpu(), ld.cpu(), prefill_caches,
                         [{k: v.cpu() for k, v in c.items()} for c in caches], launched)
-        if out["cuda"][4] != cfg.num_layers or out["cpu"][4] != 0:
+        expected = {k: per_layer.get(k, 0) * cfg.num_layers for k in kernels}
+        if out["cuda"][4] != expected or any(out["cpu"][4].values()):
             fail(f"{cfg.name}: the card ran {out['cuda'][4]} kernel launches, the CPU "
-                 f"{out['cpu'][4]}; expected {cfg.num_layers} and 0")
+                 f"{out['cpu'][4]}; expected {expected} and none")
         worst = 0.0
         for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
             worst = max(worst, float((got - want).abs().max() / want.abs().max()))
@@ -540,9 +758,10 @@ def phase_serve_check(torch):
             for key in c_want:
                 g, w = c_got[key].float(), c_want[key].float()
                 worst = max(worst, float((g - w).abs().max() / max(w.abs().max(), 1e-30)))
-        log(f"check: {cfg.name} fp32 serving, card (kernels) vs CPU (plain): prefill "
-            f"logits, one decode step and every cache leaf within {worst:.2e} of the "
-            f"largest magnitude (tolerance {SERVE_TOL:g})")
+        log(f"check: {cfg.name} {over or ''} fp32 serving, card (kernels: "
+            f"{out['cuda'][4]}) vs CPU (plain): prefill logits, one decode step and "
+            f"every cache leaf within {worst:.2e} of the largest magnitude (tolerance "
+            f"{SERVE_TOL:g})")
         if not worst <= SERVE_TOL:
             fail(f"{cfg.name}: the card's serving disagrees with the CPU's")
 
@@ -720,6 +939,7 @@ def main() -> None:
     row = phase_kernels(torch, leaf_shapes, float(plan.alpha))
     fa_row = phase_flash(torch)
     ss_row = phase_ssm(torch)
+    gm_row = phase_gmm(torch)
     launches = phase_main(torch, cfg, plan)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(torch)
@@ -742,6 +962,10 @@ def main() -> None:
              source="src/repro_torch/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan.py:154",
              launches=serve_launches["ssm_scan"], **ss_row),
+        dict(name="grouped_matmul", route="cuda",
+             source="src/repro_torch/csrc/grouped_matmul.cu",
+             replaces="src/repro/kernels/grouped_matmul.py:134",
+             launches=serve_launches["grouped_matmul"], **gm_row),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

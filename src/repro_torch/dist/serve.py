@@ -23,7 +23,9 @@ def make_prefill_step(model, *, max_len: int):
     ``(logits, caches)``: logits ``(B, 1, vocab)`` of the last prompt
     position, and every layer's KV or SSM cache filled for positions
     ``[0, S)``. A prefill from position 0 runs the flash-attention and
-    SSD chunk-scan kernels on the card."""
+    SSD chunk-scan kernels on the card, and MoE layers of more than 8
+    experts the grouped-matmul kernel (``launch/serve.py`` counts each
+    kernel's launches)."""
 
     def step(params, tokens, caches):
         with torch.inference_mode():
@@ -40,7 +42,8 @@ def make_decode_step(model, *, max_len: int):
     The returned function maps ``(params, tokens, caches,
     start_position)``, tokens ``(B, 1)`` and ``start_position`` the
     absolute position the token occupies, to ``(logits (B, 1, vocab),
-    caches)`` with the caches advanced by one position."""
+    caches)`` with the caches advanced by one position. MoE layers of
+    more than 8 experts run the grouped-matmul kernel here too."""
 
     def step(params, tokens, caches, start_position):
         with torch.inference_mode():

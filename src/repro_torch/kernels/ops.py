@@ -2,10 +2,9 @@
 versions.
 
 The port of ``repro.kernels.ops``: ``attention`` (flash attention),
-``ssd`` (the Mamba2 chunk scan) and the gossip update. The grouped
-matmul of the MoE family is not ported yet (ROADMAP queue 2, item 3).
-``resolve_mode`` is the one place the decision is made, per tensor
-device:
+``ssd`` (the Mamba2 chunk scan), ``grouped_matmul`` (the MoE expert
+products) and the gossip update. ``resolve_mode`` is the one place the
+decision is made, per tensor device:
 
   * ``"auto"``  -> ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU one;
   * ``"cuda"``  -> the hand-written kernel (it raises on a CPU tensor, and
@@ -22,8 +21,14 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gossip_axpy as _ga
+from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import ssm_scan as _ss
-from repro_torch.kernels.ref import attention_ref, gossip_axpy_ref, ssm_scan_ref
+from repro_torch.kernels.ref import (
+    attention_ref,
+    gossip_axpy_ref,
+    grouped_matmul_ref,
+    ssm_scan_ref,
+)
 from repro_torch.tree import tree_map
 
 MODES = ("torch", "cuda")
@@ -72,6 +77,28 @@ def ssd(x, dt, A, B_mat, C_mat, *, chunk: int = 128, impl: str = "auto"):
     return _ss.ssm_scan(
         x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
         B_mat.contiguous(), C_mat.contiguous(), chunk=c,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Grouped matmul
+# ---------------------------------------------------------------------------
+def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
+    """``out[r] = x[r] @ w[g(r)]`` for x (M, K) sorted by group, w
+    (G, K, N), group_sizes (G,) int32: fp32 sums, x's dtype out, rows
+    past ``sum(group_sizes)`` zero (``lax.ragged_dot``). The plain
+    version is differentiable; the kernel has no backward, so on the
+    card a call whose inputs require grad raises instead of quietly
+    taking the plain version."""
+    if resolve_mode(impl, x.device) == "torch":
+        return grouped_matmul_ref(x, w, group_sizes)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "grouped_matmul has no backward kernel yet (ROADMAP queue 2, item 5: "
+            "the grouped-matmul backward): MoE layers train on the CPU only"
+        )
+    return _gm.grouped_matmul(
+        x.contiguous(), w.contiguous(), group_sizes.to(torch.int32).contiguous()
     )
 
 

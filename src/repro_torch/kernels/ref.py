@@ -67,3 +67,21 @@ def ssm_scan_ref(
     from repro_torch.models.ssm import ssd_sequential
 
     return ssd_sequential(x, dt, A, B_mat, C_mat, h0=h0, return_final_state=True)
+
+
+def grouped_matmul_ref(
+    x: torch.Tensor,             # (M, K), rows sorted by group
+    w: torch.Tensor,             # (G, K, N)
+    group_sizes: torch.Tensor,   # (G,) int
+) -> torch.Tensor:
+    """``lax.ragged_dot``: row r of group g is ``x[r] @ w[g]``, an fp32
+    product per group cast to x's dtype; rows past ``sum(group_sizes)``
+    are 0. Reads the sizes on the host (one sync); differentiable."""
+    M, N = x.shape[0], w.shape[2]
+    pieces, start = [], 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), M)
+        pieces.append(x[start:end].float() @ w[g].float())
+        start = end
+    pieces.append(x.new_zeros((M - start, N), dtype=torch.float32))
+    return torch.cat(pieces).to(x.dtype)

@@ -6,8 +6,11 @@ The port of ``repro.launch.serve``. It takes the JAX CLI's flags, plus
 and without a card and without that flag it exits with an error
 instead of carrying on on the CPU. On the card the prefill runs the
 hand-written flash-attention kernel (attention layers) and SSD
-chunk-scan kernel (Mamba layers); the driver prints each kernel's
-launches in the prefill and in the decode.
+chunk-scan kernel (Mamba layers), and MoE layers of more than 8 experts
+run their expert products on the grouped-matmul kernel in prefill and
+decode alike; the command prints each of the port's four kernels'
+launches in the prefill and in the decode (``gossip_axpy``, the
+training step's, stays at 0).
 
 Flags of the JAX CLI that the port does not implement yet exit with a
 message naming the ROADMAP item: ``--trace`` (item 14) and
@@ -18,6 +21,8 @@ Examples:
       --preset full --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch mamba2_370m --preset tiny
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch dbrx_132b --preset tiny
 """
 from __future__ import annotations
 
@@ -79,11 +84,14 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     from repro_torch.device import resolve_device
     from repro_torch.dist import serve as sv
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models.transformer import Model
 
     device = resolve_device(device)
-    kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan}
+    kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
+               "grouped_matmul": grouped_matmul, "gossip_axpy": gossip_axpy}
     model = Model(cfg)
     max_len = prompt_len + gen
     params = model.init(seed, device=device)

@@ -1,5 +1,5 @@
-"""Transformer assembly: the dense decoder family and Mamba2 stacks,
-for training and serving.
+"""Transformer assembly: the dense decoder family, Mixture-of-Experts
+layers and Mamba2 stacks, for training and serving.
 
 The port of ``repro.models.transformer``. Layer stacking follows the JAX
 package: consecutive identical layers form a *segment* whose parameters
@@ -18,9 +18,15 @@ the hand-written flash-attention and SSD chunk-scan kernels on the card
 (``repro_torch.kernels.ops``); decode and training run the models' plain
 PyTorch attention and SSD, as the JAX model does.
 
+MoE layers take the JAX model's branch: the einsum path for 8 experts
+or fewer, else the ragged path, whose expert products run the
+hand-written grouped-matmul kernel on the card (in prefill and decode
+alike). Their load-balance and router-z losses are summed over the
+layers into the training loss.
+
 Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP
-item): MoE layers, periodic hybrid segments, the encoder of
-encoder-decoder models and vision prefixes (queue 1, item 12).
+item): periodic hybrid segments, the encoder of encoder-decoder models
+and vision prefixes (queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from repro_torch.models.attention import (
     declare_attention,
     init_kv_cache,
 )
-from repro_torch.models.ffn import declare_ffn, ffn_block
+from repro_torch.models.ffn import declare_ffn, declare_moe, ffn_block, moe_block
 from repro_torch.models.layers import (
     apply_dense,
     apply_norm,
@@ -52,6 +58,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm import declare_mamba, init_mamba_state, mamba_block
 from repro_torch.models.module import (
     ParamBuilder,
+    _assign,
     _fold_path,
     embedding_init,
     torch_dtype,
@@ -163,10 +170,6 @@ def _check_supported(cfg: ModelConfig, segments) -> None:
                 f"{cfg.name}: periodic (hybrid / local:global) segments are "
                 f"not ported yet ({_FAMILIES})"
             )
-        if seg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet ({_FAMILIES})"
-            )
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +183,10 @@ def _declare_layer(b: ParamBuilder, path: str, cfg: ModelConfig, seg: Segment) -
         declare_attention(b, f"{path}.mixer", cfg)
     if _has_ffn(cfg, seg):
         declare_norm(b, f"{path}.norm2", cfg.d_model, cfg.norm)
-        declare_ffn(b, f"{path}.ffn", cfg.d_model, cfg.d_ff, cfg.gated_ffn)
+        if seg.is_moe:
+            declare_moe(b, f"{path}.ffn", cfg)
+        else:
+            declare_ffn(b, f"{path}.ffn", cfg.d_model, cfg.d_ff, cfg.gated_ffn)
 
 
 def _stack_builder(cfg: ModelConfig, seg: Segment) -> ParamBuilder:
@@ -265,8 +271,10 @@ class Model:
 
     def _layer_apply(self, p, x, seg: Segment, *, positions, cache=None,
                      cache_spec=None, prefill_from_zero: bool = False):
-        """One layer; returns ``(x, new_cache)``. ``prefill_from_zero``:
-        a multi-token cache step from position 0 (the kernels' path)."""
+        """One layer; returns ``(x, new_cache, aux)``, aux the MoE layer's
+        losses (None for other layers: no zeros to add on their path).
+        ``prefill_from_zero``: a multi-token cache step from position 0
+        (the kernels' path)."""
         cfg = self.cfg
         h = apply_norm(p["norm1"], x, cfg.norm)
         if seg.kind == "mamba":
@@ -282,25 +290,35 @@ class Model:
                 prefill_from_zero=prefill_from_zero,
             )
         x = x + y
+        aux = None
         if _has_ffn(cfg, seg):
             h = apply_norm(p["norm2"], x, cfg.norm)
-            x = x + ffn_block(p["ffn"], h, cfg)
-        return x, new_cache
+            if seg.is_moe:
+                y, aux = moe_block(
+                    p["ffn"], h, cfg,
+                    impl="einsum" if cfg.moe_num_experts <= 8 else "ragged",
+                )
+            else:
+                y = ffn_block(p["ffn"], h, cfg)
+            x = x + y
+        return x, new_cache, aux
 
     def _run_segment(self, params_seg, x, seg: Segment, *, positions, caches=None,
                      cache_spec=None, prefill_from_zero: bool = False):
         """One segment: a loop over the stacked layer dim (the JAX model's
         ``lax.scan`` for scanned segments, its unrolled loop otherwise).
-        Layer i reads and updates ``caches`` at index i in place. Dense and
-        Mamba layers carry no aux losses, so the aux terms stay zero."""
+        Layer i reads and updates ``caches`` at index i in place. Returns
+        the layers' aux losses summed (zero for dense and Mamba layers)."""
         def one(x, p):
-            return self._layer_apply(p, x, seg, positions=positions)[0]
+            x, _, aux = self._layer_apply(p, x, seg, positions=positions)
+            return x, aux
 
+        aux_total = _zero_aux(x.device)
         for i in range(seg.count):
             p_i = tree_map(lambda a: a[i], params_seg)
             if caches is not None:
                 cache_i = {key: a[i] for key, a in caches.items()}
-                x, new = self._layer_apply(
+                x, new, aux = self._layer_apply(
                     p_i, x, seg, positions=positions, cache=cache_i,
                     cache_spec=cache_spec, prefill_from_zero=prefill_from_zero,
                 )
@@ -308,10 +326,12 @@ class Model:
                     if t.data_ptr() != cache_i[key].data_ptr():
                         cache_i[key].copy_(t)
             elif self.cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(one, x, p_i, use_reentrant=False)
+                x, aux = checkpoint(one, x, p_i, use_reentrant=False)
             else:
-                x = one(x, p_i)
-        return x, _zero_aux(x.device)
+                x, aux = one(x, p_i)
+            if aux is not None:
+                aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
+        return x, aux_total
 
     def forward(self, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, dict]:
         """Teacher-forced forward from position 0: logits at every
@@ -425,9 +445,18 @@ class Model:
 
 
 def _stacked_init(builder: ParamBuilder, seed: int, count: int, device):
-    """Materialize ``count`` stacked layers, each from its own seed."""
-    layers = [
-        builder.init(_fold_path(seed, str(i)), device)["layer"]
-        for i in range(count)
-    ]
-    return tree_map(lambda *xs: torch.stack(xs), *layers)
+    """Materialize ``count`` stacked layers, each from its own seed.
+
+    Each stacked leaf is allocated once and layer i is drawn into it in
+    place, leaf by leaf, so no more than one layer's copy of one leaf is
+    ever held beside the stack (the same numbers as drawing every layer's
+    tree and stacking them, at about half the peak memory)."""
+    stacked: Dict[str, Any] = {}
+    for path, decl in builder.decls.items():
+        leaf = torch.empty((count,) + decl.shape, dtype=decl.dtype, device=device)
+        for i in range(count):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(_fold_path(_fold_path(seed, str(i)), path))
+            leaf[i].copy_(decl.init(gen, decl.shape, decl.dtype, device))
+        _assign(stacked, path, leaf)
+    return stacked["layer"]

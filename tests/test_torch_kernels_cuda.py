@@ -7,7 +7,8 @@ imports no JAX, so it runs on a machine with the card but without JAX:
 
 Tolerances: gossip_axpy exact (it rounds the same three fp32
 operations as the plain version and casts once, as it does); flash
-attention and the SSD chunk scan as stated above their tests.
+attention, the SSD chunk scan and the grouped matmul as stated above
+their tests.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,13 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_axpy import gossip_axpy
-from repro_torch.kernels.ref import attention_ref, gossip_axpy_ref, ssm_scan_ref
+from repro_torch.kernels.grouped_matmul import grouped_matmul
+from repro_torch.kernels.ref import (
+    attention_ref,
+    gossip_axpy_ref,
+    grouped_matmul_ref,
+    ssm_scan_ref,
+)
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 SHAPES = [(17,), (1003, 77), (4, 33, 9), (2048, 1024), (1,), (5,), ((1 << 20) + 3,)]
@@ -118,6 +125,7 @@ def _live(Sq, Sk, causal, window, kv_len):
     (2, 100, 100, 4, 2, 32),      # odd lengths, GQA 2
     (1, 37, 130, 2, 2, 128),      # Sq != Sk, odd
     (2, 130, 37, 4, 1, 64),       # more queries than keys
+    (1, 128, 128, 48, 8, 128),    # dbrx-132b's heads, GQA 6:1
 ])
 @pytest.mark.parametrize("causal,window,kv_len", [
     (True, 0, 0), (True, 24, 0), (False, 0, 0), (False, 24, 0), (True, 0, 31), (False, 0, 31),
@@ -204,3 +212,119 @@ def test_ssd_wrapper_halves_the_chunk_and_survives_underflow(sm90, S):
     torch.testing.assert_close(h, h_ref, **SSM_TOL[torch.float32])
     with pytest.raises(ValueError, match="divide"):
         ssm_scan(x, dt, A, Bm, Cm, chunk=48 if S % 48 else 56)
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul
+#
+# Tolerances: fp32 1e-4 abs and rel (fp32 sums over K in another order);
+# bf16 2e-2 abs and rel (both round an fp32 sum to bf16 once; one bf16 step
+# apart at most), as tests/test_kernels.py's _tol. Rows past
+# sum(group_sizes) must be exactly 0.
+# ---------------------------------------------------------------------------
+
+GMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _cut(M, G, seed):
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(M, G - 1, replace=False))
+    return np.diff(np.concatenate([[0], cuts, [M]])).tolist()
+
+
+def _gmm_inputs(M, K, N, sizes, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((len(sizes), K, N)) * 0.2).astype(np.float32))
+    return (x.to("cuda", dtype), w.to("cuda", dtype),
+            torch.tensor(sizes, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (96, 32, 48, _cut(96, 4, 100)),          # the sweep of tests/test_kernels.py
+    (256, 64, 128, _cut(256, 8, 264)),
+    (130, 16, 40, _cut(130, 3, 133)),        # ragged tail blocks
+    (64, 128, 256, _cut(64, 16, 80)),        # 16 groups, some empty
+    (64, 16, 24, [0, 40, 0, 24]),            # empty groups
+    (37, 48, 72, [5, 0, 20, 12]),            # M below one tile
+    (165, 48, 72, [64, 0, 0, 101]),
+    (48, 24, 40, [10, 0, 7]),                # sum(group_sizes) < M
+    (48, 24, 40, [0, 0, 0]),                 # no rows at all
+    (32, 256, 520, [2, 3, 0, 1, 4, 2, 2, 0, 3, 1, 2, 4, 3, 0, 2, 3]),  # decode-like
+    (1000, 64, 136, [300, 0, 129, 1, 570]),  # groups over several row tiles
+    (300, 20, 36, [100, 50, 150]),           # K, N not multiples of 8
+])
+def test_gmm_kernel_matches_plain_version(sm90, dtype, M, K, N, sizes):
+    x, w, gs = _gmm_inputs(M, K, N, sizes, dtype)
+    before = grouped_matmul.launches
+    got = grouped_matmul(x, w, gs)
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    want = grouped_matmul_ref(x, w, gs)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dtype])
+    assert bool((got[sum(sizes):] == 0).all())
+
+
+@pytest.mark.cuda
+def test_gmm_paths_wrapper_and_refusals(sm90):
+    x, w, gs = _gmm_inputs(64, 32, 48, [20, 0, 44], torch.bfloat16, seed=3)
+    # bf16 with K and N multiples of 8 takes the tensor cores; a bf16 N of
+    # 44 and fp32 take the scalar path; all three agree on shared columns
+    tc = grouped_matmul(x, w, gs).float()
+    scalar_bf16 = grouped_matmul(x, w[..., :44].contiguous(), gs).float()
+    scalar_fp32 = grouped_matmul(x.float(), w.float(), gs)
+    torch.testing.assert_close(scalar_bf16, tc[:, :44], **GMM_TOL[torch.bfloat16])
+    torch.testing.assert_close(scalar_fp32, tc, **GMM_TOL[torch.bfloat16])
+    before = grouped_matmul.launches
+    got = ops.grouped_matmul(x, w, gs.long())        # sizes cast to int32
+    assert grouped_matmul.launches == before + 1
+    torch.testing.assert_close(got.float(), ops.grouped_matmul(
+        x, w, gs, impl="torch").float(), **GMM_TOL[torch.bfloat16])
+    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+        ops.grouped_matmul(x.float().requires_grad_(), w.float(), gs)
+    with torch.no_grad():
+        ops.grouped_matmul(x.float().requires_grad_(), w.float(), gs)
+    with pytest.raises(ValueError, match="int32"):
+        grouped_matmul(x, w, gs.long())
+    with pytest.raises(ValueError, match="dtype"):
+        grouped_matmul(x, w.float(), gs)
+    with pytest.raises(ValueError, match="does not fit"):
+        grouped_matmul(x, w[:2], gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul(x.T.contiguous().T, w, gs)
+
+
+@pytest.mark.cuda
+def test_moe_ragged_layer_never_waits_for_the_host(sm90):
+    """The ragged MoE layer (router, sort, group sizes, three grouped
+    matmuls, combine) runs with synchronizing CUDA calls made errors."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import ffn
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(get_smoke_config("dbrx_132b"), moe_num_experts=16,
+                              moe_top_k=4)
+    params = Model(cfg).init(0, device="cuda")
+    p = {k: v[0] for k, v in params["blocks_0"]["ffn"].items() if k != "router"}
+    p["router"] = {"w": params["blocks_0"]["ffn"]["router"]["w"][0]}
+    x = torch.randn(2, 24, cfg.d_model, device="cuda", dtype=torch.bfloat16)
+    want, _ = ffn.moe_block({k: (v.cpu() if torch.is_tensor(v) else
+                                 {kk: vv.cpu() for kk, vv in v.items()})
+                             for k, v in p.items()}, x.cpu(), cfg)
+    before = grouped_matmul.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            got, _ = ffn.moe_block(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert grouped_matmul.launches == before + 3
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=3e-2, rtol=3e-2)

@@ -8,12 +8,15 @@
   logits and ~3e-6 on cache values of magnitude ~5); ``pos`` exactly.
   internlm2 and mamba2 are the serving path's models; granite (learned
   positions) and gemma3 (ring caches under a sliding window, shorter
-  than the prompt) cover the other cache branches.
+  than the prompt) cover the other cache branches; dbrx (4 experts: the
+  einsum branch; 16 experts, top-4: the ragged branch and its grouped
+  matmuls, in prefill and decode) and kimi (a dense first layer, then
+  MoE with a shared expert) the MoE layers.
 * Serve consistency against the port's own teacher-forced ``forward``
   at the default bf16 compute, as ``tests/test_arch_smoke.py`` does it
   for JAX (tolerance 2e-2, as there).
 * ``python -m repro_torch.launch.serve --device cpu --preset tiny`` for
-  both models; without ``--device cpu`` and without a card it exits with
+  internlm2, mamba2 and dbrx; without ``--device cpu`` and without a card it exits with
   a message; unported flags exit naming their ROADMAP item.
 """
 import dataclasses
@@ -36,9 +39,19 @@ from repro_torch.launch import serve
 from repro_torch.models.transformer import Model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["internlm2_1_8b", "mamba2_370m", "granite_20b", "gemma3_4b"]
+ARCHS = ["internlm2_1_8b", "mamba2_370m", "granite_20b", "gemma3_4b",
+         "dbrx_132b", "dbrx_132b_16x4", "kimi_k2_1t_a32b"]
+# smoke configs with overrides, by the name ARCHS gives them
+VARIANTS = {"dbrx_132b_16x4": ("dbrx_132b", dict(moe_num_experts=16, moe_top_k=4))}
 B, S, MAX_LEN = 2, 24, 40
 TOL = dict(atol=2e-5, rtol=1e-5)
+
+
+def _smoke(arch, **kw):
+    """(JAX config, port config) of an ARCHS entry, with overrides."""
+    name, over = VARIANTS.get(arch, (arch, {}))
+    return (dataclasses.replace(jax_smoke_config(name), **over, **kw),
+            dataclasses.replace(get_smoke_config(name), **over, **kw))
 
 
 def _tokens(vocab, seed=0):
@@ -60,8 +73,7 @@ def _close_caches(got, want, tol):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_forward_matches_jax(arch):
-    jcfg = dataclasses.replace(jax_smoke_config(arch), compute_dtype="float32")
-    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    jcfg, cfg = _smoke(arch, compute_dtype="float32")
     jm, model = JaxModel(jcfg), Model(cfg)
     jparams = jm.init(jax.random.key(0))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
@@ -93,7 +105,7 @@ def test_serve_forward_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_consistency_with_forward(arch):
-    cfg = get_smoke_config(arch)
+    cfg = _smoke(arch)[1]
     model = Model(cfg)
     params = model.init(0, device="cpu")
     toks = torch.as_tensor(_tokens(cfg.vocab_size, seed=5))
@@ -117,7 +129,7 @@ def _run(args, timeout=300):
     )
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m", "dbrx_132b"])
 def test_cli_serves_on_cpu(arch):
     res = _run(["--device", "cpu", "--preset", "tiny", "--arch", arch,
                 "--batch", "2", "--prompt-len", "24", "--gen", "4"])
@@ -126,6 +138,8 @@ def test_cli_serves_on_cpu(arch):
     assert "prefill:" in out and "ms/token" in out
     assert "kernel launches: flash_attention prefill 0 decode 0" in out
     assert "kernel launches: ssm_scan prefill 0 decode 0" in out
+    assert "kernel launches: grouped_matmul prefill 0 decode 0" in out
+    assert "kernel launches: gossip_axpy prefill 0 decode 0" in out
     ids = out.split("generated token ids (first request):")[1]
     assert len(ids.split("[")[1].split("]")[0].split()) == 4
 
@@ -155,5 +169,6 @@ def test_run_reports_generated_ids_and_times():
     assert res["generated"].shape == (2, 3)
     assert res["prefill_ms"] > 0 and res["decode_ms_per_token"] > 0
     assert res["peak_bytes"] is None
-    assert res["prefill_launches"] == {"flash_attention": 0, "ssm_scan": 0}
+    assert res["prefill_launches"] == {"flash_attention": 0, "ssm_scan": 0,
+                                       "grouped_matmul": 0, "gossip_axpy": 0}
     assert bool(torch.isfinite(res["logits"]).all())

@@ -1,11 +1,11 @@
 """The port's training CLI, run as a user runs it.
 
 ``python -m repro_torch.launch.train --device cpu --preset tiny --steps 3``
-must train, for the dense internlm2 and the Mamba2 smoke models alike,
-print the JAX CLI's step lines and write its CSV columns; its step-0
-loss must sit near the JAX CLI's ~6.26 (about ln 512 for
-the smoke vocab; not bit-equal, since the port initializes from its own
-generator; tolerance 0.1). Without a card and without ``--device cpu``
+must train, for the dense internlm2, the Mamba2 and the dbrx (MoE)
+smoke models alike, print the JAX CLI's step lines and write its CSV
+columns; its step-0 loss must sit near the JAX CLI's ~6.26 (about ln
+512 for the smoke vocab; not bit-equal, since the port initializes from
+its own generator; tolerance 0.1). Without a card and without ``--device cpu``
 it must refuse to run, and every flag it has not ported must exit with
 the ROADMAP item that ports it.
 """
@@ -36,7 +36,7 @@ def _run(args, timeout=300):
     )
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m", "dbrx_132b"])
 def test_cli_trains_on_cpu_and_writes_csv(tmp_path, arch):
     out = tmp_path / "run.csv"
     res = _run(["--device", "cpu", "--arch", arch, "--preset", "tiny", "--steps", "3",
