@@ -116,7 +116,46 @@ def bf16_ulp_agree(torch, got, want) -> bool:
     return bool((diff <= want.float().abs() * 2.0**-7 + 1e-30).all())
 
 
+def ptxas_report(text: str):
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    entry function in one source's ``nvcc -Xptxas -v`` output."""
+    import re
+
+    rows, label, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled, base, i = m.group(1), None, 0
+            while base is None and i < len(mangled):   # length-prefixed names
+                n = re.match(r"\d+", mangled[i:])
+                if n is None:
+                    i += 1
+                    continue
+                start = i + len(n.group())
+                name = mangled[start:start + int(n.group())]
+                base = name if name.endswith("_kernel") else None
+                i = start + int(n.group())
+            args = ["bf16" if "__nv_bfloat16" in mangled else "fp32" if
+                    re.search(r"kernelIf", mangled) else ""]
+            args += re.findall(r"Li(\d+)E", mangled)
+            args = [a for a in args if a]
+            label = (base or mangled) + (f"<{', '.join(args)}>" if args else "")
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and label:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and label:
+            rows.append((label, int(m.group(1)), *spills))
+            label = None
+    return rows
+
+
 def phase_build():
+    """Builds every kernel; returns {kernel: (registers, spill stores,
+    spill loads)} from ptxas's report of this build."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -128,6 +167,30 @@ def phase_build():
         for line in text.strip().splitlines():
             log(f"build: [{name}] {line}")
     log(f"build: {len(logs)} source(s) compiled in {secs:.2f} s")
+    report = {}
+    for name, text in logs.items():
+        for kernel, regs, st, ld in ptxas_report(text):
+            report[kernel] = (regs, st, ld)
+            log(f"build: ptxas {kernel}: {regs} registers, {st} bytes spill stores, "
+                f"{ld} bytes spill loads")
+    return report
+
+
+def ptxas_note(report, prefix: str) -> str:
+    """ptxas's registers and spills of the kernels named ``prefix*``."""
+    rows = [f"{k} {r} registers, {st}/{ld} bytes spilled (stores/loads)"
+            for k, (r, st, ld) in sorted(report.items()) if k.startswith(prefix)]
+    return "; ".join(rows) if rows else "ptxas report not available (library cached)"
+
+
+def in_turns(torch, kernel, library, iters: int, warmup: int = 2):
+    """Times of ``kernel`` and ``library`` measured in turns: kernel,
+    library, library, kernel. Returns ((k1, k2), (l1, l2)) in ms."""
+    k1 = cuda_ms(torch, kernel, iters, warmup)
+    l1 = cuda_ms(torch, library, iters, warmup)
+    l2 = cuda_ms(torch, library, iters, warmup)
+    k2 = cuda_ms(torch, kernel, iters, warmup)
+    return (k1, k2), (l1, l2)
 
 
 def phase_kernels(torch, leaf_shapes, alpha: float):
@@ -244,11 +307,11 @@ def flash_pairs(Sq: int, Sk: int, causal: bool, window: int, kv_len: int) -> int
     return total
 
 
-def phase_flash(torch):
+def phase_flash(torch, ptxas):
     """flash_attention against attention_ref; returns the JSON row."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_path
     from repro_torch.kernels.ref import attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -291,8 +354,8 @@ def phase_flash(torch):
             if not math.isfinite(err):
                 fail(f"flash {label} {dname}: disagrees with attention_ref")
             max_err = max(max_err, err)
-            log(f"kernels: flash_attention {label} {dname}: agrees (max abs err "
-                f"{err:.3g}; {int((~rows).sum())} rows with no live key are 0)")
+            log(f"kernels: flash_attention {label} {dname} ({kernel_path(q, k)}): agrees "
+                f"(max abs err {err:.3g}; {int((~rows).sum())} rows with no live key are 0)")
 
     # the serving path's prefills, bf16, causal: internlm2-1.8b (16/8 heads;
     # the JSON row) and dbrx-132b (48/8 heads)
@@ -313,15 +376,21 @@ def phase_flash(torch):
         bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
         bound_by = ("operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
                     else "bytes")
+        if kernel_path(q, k) != "wgmma":
+            fail(f"flash at {model}'s serving shapes does not take the wgmma kernel")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        k_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True), 5)
-        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        (k1, k2), (l1, l2) = in_turns(
+            torch, lambda: flash_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True), 10)
+        k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
         p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True), 3)
         log(f"kernels: flash_attention {model} serving shapes (B {B}, S {S}, heads "
             f"{Hq}/{Hkv}, hd {hd}, bf16, causal; {flops / 1e9:.1f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, sdpa "
-            f"{l_ms:.3f} ms, bound {bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of "
+            f"{nbytes / 1e6:.1f} MB): path wgmma; in turns kernel "
+            f"{k1:.3f} ms, sdpa {l1:.3f} ms, sdpa {l2:.3f} ms, kernel {k2:.3f} ms "
+            f"({flops / k_ms / 1e9:.0f} TFLOP/s; {k_ms / l_ms:.2f}x sdpa); plain "
+            f"{p_ms:.3f} ms; bound {bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of "
             f"it; fp32 CUDA-core floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms); max "
             f"abs err {err:.3g}")
         if row is None:
@@ -329,6 +398,7 @@ def phase_flash(torch):
                        library_ms=l_ms)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    log(f"kernels: flash_attention ptxas: {ptxas_note(ptxas, 'flash_')}")
     row["max_abs_err"] = max_err
     return row
 
@@ -421,10 +491,10 @@ def router_group_sizes(torch, cfg, tokens: int, seed: int):
     return torch.bincount(idx.reshape(-1), minlength=cfg.moe_num_experts).int()
 
 
-def phase_gmm(torch):
+def phase_gmm(torch, ptxas):
     """grouped_matmul against grouped_matmul_ref; returns the JSON row
     (dbrx's prefill w1/w3 shape, bf16)."""
-    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.grouped_matmul import grouped_matmul, kernel_path
     from repro_torch.kernels.ref import grouped_matmul_ref
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -467,7 +537,8 @@ def phase_gmm(torch):
                 flops, nbytes)
 
     def library(x, w, sizes):
-        """torch._grouped_mm on the same inputs, or why it cannot take them."""
+        """torch._grouped_mm on the same inputs as a callable, or None, and
+        what it gives (or why it cannot take them)."""
         if x.dtype != torch.bfloat16:
             return None, "torch._grouped_mm takes bf16 only"
         if not hasattr(torch, "_grouped_mm"):
@@ -482,8 +553,7 @@ def phase_gmm(torch):
         lib_err = float((lib[:tail].float() - grouped_matmul_ref(x, w, sizes)[:tail].float())
                         .abs().max()) if tail else 0.0
         del lib
-        ms = cuda_ms(torch, lambda: torch._grouped_mm(x, w, offs=offs), 3, warmup=1)
-        return ms, f"torch._grouped_mm {ms:.3f} ms (max abs diff {lib_err:.3g})"
+        return (lambda: torch._grouped_mm(x, w, offs=offs)), f"max abs diff {lib_err:.3g}"
 
     max_err = 0.0
     cases = [
@@ -509,10 +579,13 @@ def phase_gmm(torch):
             b_ms, b_by, _, _ = bound(x, w, gs, x.element_size())
             k_ms = cuda_ms(torch, lambda: grouped_matmul(x, w, gs), 5)
             p_ms = cuda_ms(torch, lambda: grouped_matmul_ref(x, w, gs), 3)
-            _, lib_note = library(x, w, gs)
-            log(f"kernels: grouped_matmul {label} {dname}: agrees (max abs err {err:.3g}; "
-                f"rows past the groups are 0); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"{lib_note}; bound {b_ms:.5f} ms by {b_by}")
+            lib_fn, lib_note = library(x, w, gs)
+            if lib_fn is not None:
+                lib_note = (f"torch._grouped_mm {cuda_ms(torch, lib_fn, 3, warmup=1):.4f} "
+                            f"ms ({lib_note})")
+            log(f"kernels: grouped_matmul {label} {dname} ({kernel_path(x, w)}): agrees "
+                f"(max abs err {err:.3g}; rows past the groups are 0); kernel {k_ms:.4f} "
+                f"ms, plain {p_ms:.4f} ms, {lib_note}; bound {b_ms:.5f} ms by {b_by}")
 
     # dbrx-132b's shapes, group sizes from a router pass
     cfg = dbrx_serving_config()
@@ -534,28 +607,39 @@ def phase_gmm(torch):
         for dname in dnames:
             dtype = dtypes[dname]
             x, w = inputs(M, K, N, E, dtype, 1.0 / math.sqrt(K))
-            # the kernel's rule: bf16 with K and N multiples of 8 on the tensor cores
-            tensor_cores = dname == "bfloat16" and K % 8 == 0 and N % 8 == 0
-            path = "tensor cores" if tensor_cores else "scalar"
+            path = kernel_path(x, w)
+            if path != ("wgmma" if dname == "bfloat16" else "scalar"):
+                fail(f"grouped_matmul {label} {dname} takes the {path} kernel")
             err = check(label, dname, x, w, gs)
             max_err = max(max_err, err)
             b_ms, b_by, flops, nbytes = bound(x, w, gs, x.element_size())
-            iters = 3 if dname == "bfloat16" else 2
-            k_ms = cuda_ms(torch, lambda: grouped_matmul(x, w, gs), iters, warmup=1)
+            iters = 3 if M > P_dec else 10
+            run = lambda: grouped_matmul(x, w, gs)
+            lib_fn, lib_note = library(x, w, gs)
+            l_ms = None
+            if lib_fn is not None:       # kernel, library, library, kernel
+                (k1, k2), (l1, l2) = in_turns(torch, run, lib_fn, iters, warmup=1)
+                k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
+                times = (f"in turns kernel {k1:.3f} ms, torch._grouped_mm {l1:.3f} ms, "
+                         f"torch._grouped_mm {l2:.3f} ms, kernel {k2:.3f} ms "
+                         f"({k_ms / l_ms:.2f}x the library; library {lib_note})")
+            else:
+                k_ms = cuda_ms(torch, run, iters if dname == "bfloat16" else 2, warmup=1)
+                times = f"kernel {k_ms:.3f} ms; {lib_note}"
             p_ms = cuda_ms(torch, lambda: grouped_matmul_ref(x, w, gs), 2, warmup=1)
-            l_ms, lib_note = library(x, w, gs)
             floor = ("" if dname == "float32" else
                      f"; fp32 CUDA-core floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms")
             log(f"kernels: grouped_matmul {label} ({M} x {K} -> {N}, {E} groups) {dname} "
-                f"({path}; {flops / 1e12:.3f} TFLOP, "
-                f"{nbytes / 1e9:.3f} GB): agrees (max abs err {err:.3g}); kernel "
-                f"{k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.3f} ms, "
-                f"{lib_note}; bound {b_ms:.3f} ms by {b_by} ({b_ms / k_ms:.1%} of it{floor})")
+                f"(path {path}; {flops / 1e12:.3f} TFLOP, "
+                f"{nbytes / 1e9:.3f} GB): agrees (max abs err {err:.3g}); {times}; "
+                f"{flops / k_ms / 1e9:.1f} TFLOP/s; plain {p_ms:.3f} ms; bound {b_ms:.3f} "
+                f"ms by {b_by} ({b_ms / k_ms:.1%} of it{floor})")
             if row is None:                         # the first: prefill w1/w3, bf16
                 row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                            library_ms=l_ms)
             del x, w
             torch.cuda.empty_cache()
+    log(f"kernels: grouped_matmul ptxas: {ptxas_note(ptxas, 'gmm_')}")
     row["max_abs_err"] = max_err
     return row
 
@@ -928,7 +1012,7 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_start = time.perf_counter()
 
-    phase_build()
+    ptxas = phase_build()
 
     cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=2)
     plan = plan_matcha(named_graph("paper8", NODES, seed=3), 0.5, seed=0)
@@ -937,9 +1021,9 @@ def main() -> None:
         for path, (shape, _) in flatten(Model(cfg).param_shapes()).items()
     }
     row = phase_kernels(torch, leaf_shapes, float(plan.alpha))
-    fa_row = phase_flash(torch)
+    fa_row = phase_flash(torch, ptxas)
     ss_row = phase_ssm(torch)
-    gm_row = phase_gmm(torch)
+    gm_row = phase_gmm(torch, ptxas)
     launches = phase_main(torch, cfg, plan)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(torch)

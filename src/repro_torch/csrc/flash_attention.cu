@@ -14,41 +14,61 @@
 // What bounds it on this card: arithmetic. A causal prefill at the serving
 // path's shapes (B 8, S 2048, 16 query heads, hd 128) does 4 * hd flops per
 // live (query, key) pair, ~137 GFLOP, against ~200 MB of q, k, v and out:
-// ~680 flops per byte, above the H100's ridge. This first kernel does its
-// products as scalar fp32 FMAs on the CUDA cores (67 TFLOP/s peak, not the
-// 989 TFLOP/s of the bf16 tensor cores; wgmma is later work), so its floor
-// is ~2 ms per call, and shared-memory traffic is what keeps it above that.
+// ~680 flops per byte, far above the H100's ridge. Only the bf16 tensor
+// cores (989 TFLOP/s) can approach the 0.14 ms bound; scalar fp32 FMAs on
+// the CUDA cores (67 TFLOP/s) cannot go below ~2 ms.
 //
-// What the design does about it:
-//   * one block of 256 threads per (q tile of 64 rows, q head, batch); the
-//     block walks the k tiles itself from the window's first live tile to
-//     the causal diagonal (and kv_len), which replaces the TPU's sequential
-//     k grid axis and its pl.when tile skip. Blocks of the costliest q
-//     tiles (the last, under a causal mask) are launched first;
-//   * the Q tile stays in shared memory for the whole walk (fp32, scaled by
-//     1/sqrt(hd) once, stored transposed); each k tile's K (transposed) and
-//     V are loaded once into shared memory as fp32;
-//   * each thread owns a 4 x 4 block of the 64 x 64 score tile and a 4 x
-//     (hd/16) block of the output: 16 (resp. 4 * hd/16) FMAs per pair of
-//     vector loads from shared memory. Its four rows' running max and sum
-//     live in registers; a row's reductions run over the 16 lanes that
-//     share it with warp shuffles;
-//   * masking is per element against the row's and column's absolute
-//     index, so there is no padding: the ragged q and k edges, kv_len,
-//     causal and window masks all take the same path. A masked score never
-//     reaches exp(): its probability is set to 0 outright, and the running
-//     max starts at the finite NEG_INF, so a row that is fully masked in a
-//     tile (or everywhere) stays at sum 0 and writes 0, never NaN.
+// Two kernels, chosen by one rule (wgmma_path below):
 //
-// Shared memory: (2 * hd * 64 + 64 * hd + 64 * 64) * 4 bytes, 112 KB at
-// hd 128, so the kernel opts in to more than 48 KB of dynamic shared
-// memory. Head widths 32, 64 and 128 are compiled; any other width is
-// refused with cudaErrorInvalidValue (the Python wrapper raises first).
+// * bf16 with hd 64 or 128 (the serving path): the wgmma kernel. One
+//   warpgroup per (q tile of 64 rows, q head, batch), costliest q tiles
+//   launched first. One thread issues TMA loads through 4-D tensor maps
+//   (hd, heads, S, B), so a tile never reads another batch's or head's rows
+//   and keys past Sk arrive as zeros: the Q tile once, then K and V tiles of
+//   64 keys through a 2-stage ring, completion on mbarriers; the next tile's
+//   loads overlap this tile's products. Tiles land 128-byte swizzled (hd
+//   128 is two 64-column boxes), which is the layout wgmma reads without
+//   bank conflicts. S = Q K^T is a wgmma m64n64k16 with both operands in
+//   shared memory (K is K-major as stored). The online softmax runs on the
+//   fp32 accumulator fragments: each thread holds 2 rows x 16 keys and
+//   reduces a row over the 4 lanes that share it. On the card it costs
+//   about as much as the products, so it is lean: the running max stays in
+//   raw scores, each p is one FFMA (the 1/sqrt(hd) scale folded into log2
+//   units) and one ex2.approx, and only tiles that cross the causal
+//   diagonal, the window edge or kv_len mask per element, from each
+//   register's (row, key). P is packed to bf16
+//   straight from the S fragments into wgmma's register A operand, and
+//   O += P V is a wgmma m64n{hd}k16 with V read MN-major (hd contiguous:
+//   the transpose bit). P is rounded to bf16 before P V; the row sums l
+//   add the fp32 p. Products, softmax and the next tile's wait run one
+//   after another inside a warpgroup; two blocks share an SM so that one's
+//   softmax overlaps the other's products;
+// * fp32 (the parity runs), bf16 hd 32, and a k/v with no keys: the scalar
+//   kernel, fp32 FMAs on the CUDA cores. One block of 256 threads per tile
+//   as above walks the k tiles; Q (transposed, pre-scaled), K and V tiles
+//   live in shared memory as fp32 and each thread computes a 4 x 4 block of
+//   scores and a 4 x hd/16 block of the output. bf16 hd 32 stays here: its
+//   64-byte rows would need the 64-byte swizzle, a second descriptor layout
+//   that no serving model needs.
+//
+// Both walk the k tiles of a q tile from the window's first live tile to
+// the causal diagonal and kv_len (the TPU's sequential k grid axis and its
+// pl.when tile skip), mask per element against absolute indices (so no
+// caller pads), never take exp() of a masked score (its probability is 0
+// outright; the running max starts at the finite NEG_INF), and write 0 for
+// a row with no live key, never NaN.
+//
+// Shared memory: scalar (2 * hd * 64 + 64 * hd + 64 * 64) * 4 bytes, 112 KB
+// at hd 128; wgmma 5 tiles of 64 x hd bf16, 80 KB at hd 128 (two blocks per
+// SM). Head widths 32, 64 and 128 are compiled; any other width is refused
+// with cudaErrorInvalidValue (the Python wrapper raises first).
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -108,7 +128,7 @@ struct Params {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(Params prm) {
+flash_scalar_kernel(Params prm) {
   constexpr int kPer = Elem<T>::kPer16;
   constexpr int kCols = HD / 16;  // output columns per thread
 
@@ -289,11 +309,11 @@ cudaError_t launch(const Params& prm, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(2 * HD * kBQ + kBK * HD + kBK * kBQ) *
                       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_scalar_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((prm.Sq + kBQ - 1) / kBQ, prm.Hq, prm.B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(prm);
+  flash_scalar_kernel<T, HD><<<grid, kThreads, smem, stream>>>(prm);
   return cudaGetLastError();
 }
 
@@ -305,6 +325,292 @@ cudaError_t dispatch_hd(int hd, const Params& prm, cudaStream_t stream) {
     case 128: return launch<T, 128>(prm, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma path: bf16, hd 64 or 128
+// ---------------------------------------------------------------------------
+constexpr int kWgThreads = 128;                 // one warpgroup
+constexpr int kWgStages = 2;                    // K/V ring depth
+constexpr int kBoxBytes = 64 * 128;             // 64 rows x 128 B, one TMA box
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct WgLayout {
+  static constexpr int kBoxes = HD / 64;        // 64-column boxes per row
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // 64 rows x HD bf16
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTileBytes;               // [kWgStages] tiles
+  static constexpr int kV = kK + kWgStages * kTileBytes;   // [kWgStages] tiles
+  static constexpr int kBar = kV + kWgStages * kTileBytes; // q_full, kv_full[2]
+  static constexpr int kSmem = kBar + 64 + 1024;           // + slack to align
+};
+
+// O += P V for one k16 slice: A = P from registers, B = V MN-major.
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&p)[4],
+                                         uint64_t desc_v) {
+  if constexpr (HD == 128) {
+    hopper::wgmma_m64n128k16_rs<1>(o, p, desc_v, 1);
+  } else {
+    hopper::wgmma_m64n64k16_rs<1>(o, p, desc_v, 1);
+  }
+}
+
+// 2^x in one MUFU op, denormals flushed (exp2f adds range handling)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one 64 x 64 tile on its S accumulator fragments: the
+// raw scores in sc become p = 2^((s - m) * scale), the running max m (raw
+// units) and this thread's share l of each row sum move on, and alpha is the
+// factor O must take. Thread rows qrow and qrow + 8; its keys kcol + 8i +
+// {0, 1}. Only EDGE tiles (crossing the causal diagonal, the window edge
+// or kv_len) mask, per element; a masked score never reaches exp2: its p
+// is 0 outright.
+template <bool EDGE>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const Params& prm,
+                                             int qrow, int kcol, float scale) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = qrow + 8 * hh;
+    uint32_t live = 0xffffffffu;                // bit 2i + e: key kcol + 8i + e
+    float mx = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = sc[4 * i + 2 * hh + e];
+        if (EDGE) {
+          const int kj = kcol + 8 * i + e;
+          bool ok = kj < prm.kv_len;
+          if (prm.causal) ok = ok && kj <= qi;
+          if (prm.window > 0) ok = ok && (qi - kj < prm.window);
+          if (ok) {
+            mx = fmaxf(mx, x);
+          } else {
+            live &= ~(1u << (2 * i + e));
+          }
+        } else {
+          mx = fmaxf(mx, x);
+        }
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hh], mx);
+    alpha[hh] = fast_exp2((m[hh] - m_new) * scale);   // 1 while nothing is live
+    m[hh] = m_new;
+    const float ms = m_new * scale;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * i + 2 * hh + e];
+        if (EDGE) {
+          x = ((live >> (2 * i + e)) & 1u) ? fast_exp2(fmaf(x, scale, -ms)) : 0.f;
+        } else {
+          x = fast_exp2(fmaf(x, scale, -ms));
+        }
+        sum += x;
+      }
+    }
+    l[hh] = l[hh] * alpha[hh] + sum;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, Params prm) {
+  using L = WgLayout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries (of the shared window)
+  uint8_t* smem = smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* kv_full = q_full + 1;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;   // costliest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (prm.Hq / prm.Hkv);
+  const int q0 = qt * kBQ;
+
+  // k range of this q tile, in whole tiles of kBK keys
+  const int kv_len = prm.kv_len;
+  const int q_last = min(q0 + kBQ, prm.Sq) - 1;
+  int k_end = kv_len;
+  if (prm.causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (prm.window > 0) k_begin = max(0, q0 - prm.window + 1);
+  k_begin = (k_begin / kBK) * kBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) hopper::mbar_init(&kv_full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one thread issues every load: K and V of k tile j into stage j % 2
+  auto load_kv = [&](int j) {
+    const int s = j % kWgStages;
+    const int kt0 = k_begin + j * kBK;
+    uint8_t* ks = smem + L::kK + s * L::kTileBytes;
+    uint8_t* vs = smem + L::kV + s * L::kTileBytes;
+    hopper::mbar_arrive_expect_tx(&kv_full[s], 2 * L::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < L::kBoxes; ++c) {
+      hopper::tma_load_4d(ks + c * kBoxBytes, &k_map, &kv_full[s], 64 * c, hk, kt0, b);
+      hopper::tma_load_4d(vs + c * kBoxBytes, &v_map, &kv_full[s], 64 * c, hk, kt0, b);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    hopper::mbar_arrive_expect_tx(q_full, L::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < L::kBoxes; ++c)
+      hopper::tma_load_4d(smem + L::kQ + c * kBoxBytes, &q_map, q_full, 64 * c, h, q0, b);
+    load_kv(0);
+  }
+
+  // this thread's rows of the tile (fragment layout: see hopper.cuh)
+  const int warp = tid / 32, lane = tid % 32;
+  const int row_in = 16 * warp + lane / 4;      // and row_in + 8
+  const int col_in = 2 * (lane & 3);            // within each n8 block
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};              // running max of the raw scores
+  float l[2] = {0.f, 0.f};                      // this thread's share of the row sum
+  float sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  const float scale = prm.sm_scale * kLog2e;
+
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kWgStages;
+    const int kt0 = k_begin + j * kBK;
+    // stage (j + 1) % 2 was freed by the barrier that ended tile j - 1
+    if (tid == 0 && j + 1 < n_tiles) load_kv(j + 1);
+    hopper::mbar_wait(&kv_full[s], (j / kWgStages) & 1);
+    const uint8_t* ks = smem + L::kK + s * L::kTileBytes;
+    const uint8_t* vs = smem + L::kV + s * L::kTileBytes;
+
+    // ---- S = Q K^T: hd / 16 k16 slices; K-major operands advance 32 B a
+    // slice inside a 128 B swizzled row, the next 64 columns a box later
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < HD / 16; ++t) {
+      const int off = (t / 4) * kBoxBytes + (t % 4) * 32;
+      hopper::wgmma_m64n64k16_ss<0>(
+          sc, hopper::smem_desc_sw128(smem + L::kQ + off, 16, 1024),
+          hopper::smem_desc_sw128(ks + off, 16, 1024), t > 0 ? 1 : 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // ---- mask, online softmax, P -> bf16 A fragments
+    const bool edge = kt0 + kBK > kv_len || (prm.causal && kt0 + kBK - 1 > q0) ||
+                      (prm.window > 0 && q0 + kBQ - 1 - kt0 >= prm.window);
+    float alpha[2];
+    if (edge) {
+      softmax_tile<true>(sc, m, l, alpha, prm, q0 + row_in, kt0 + col_in, scale);
+    } else {
+      softmax_tile<false>(sc, m, l, alpha, prm, q0 + row_in, kt0 + col_in, scale);
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      o[4 * i + 0] *= alpha[0];
+      o[4 * i + 1] *= alpha[0];
+      o[4 * i + 2] *= alpha[1];
+      o[4 * i + 3] *= alpha[1];
+    }
+    // the S fragment of keys 16t..16t+15 is the A fragment of k slice t
+    uint32_t p[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[t][r] = hopper::pack_bf16(sc[8 * t + 2 * r], sc[8 * t + 2 * r + 1]);
+    }
+
+    // ---- O += P V: 4 k16 slices of 16 keys, V MN-major (16 rows = 2048 B
+    // a slice; the next 64 hd columns one box, LBO, later)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      wgmma_pv<HD>(o, p[t], hopper::smem_desc_sw128(vs + t * 2048, kBoxBytes, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) hopper::fence_regs(p[t]);
+    __syncthreads();   // every product that read stage s is done: it may refill
+  }
+
+  // ---- out = O / l; a row with no live key (l == 0) writes 0
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(prm.out);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = sum == 0.f ? 0.f : 1.f / sum;
+    const int qi = q0 + row_in + 8 * hh;
+    if (qi >= prm.Sq) continue;
+    __nv_bfloat16* orow =
+        out + ((static_cast<int64_t>(b) * prm.Sq + qi) * prm.Hq + h) * HD + col_in;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+          hopper::pack_bf16(o[4 * i + 2 * hh] * inv, o[4 * i + 2 * hh + 1] * inv);
+  }
+}
+
+// A 4-D tensor map over a contiguous (B, S, H, hd) bf16 tensor, dims
+// innermost first (hd, H, S, B), boxes of 64 columns x 1 head x 64 rows.
+bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int hd) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(hd), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t row = static_cast<uint64_t>(hd) * 2;
+  const uint64_t strides[3] = {row, row * H, row * H * S};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(kBQ), 1};
+  return hopper::make_tensor_map_bf16(map, base, 4, dims, strides, box);
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const Params& prm, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!make_bshd_map(&qm, prm.q, prm.B, prm.Sq, prm.Hq, HD) ||
+      !make_bshd_map(&km, prm.k, prm.B, prm.Sk, prm.Hkv, HD) ||
+      !make_bshd_map(&vm, prm.v, prm.B, prm.Sk, prm.Hkv, HD))
+    return cudaErrorInvalidValue;
+  const int smem = WgLayout<HD>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((prm.Sq + kBQ - 1) / kBQ, prm.Hq, prm.B);
+  flash_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(qm, km, vm, prm);
+  return cudaGetLastError();
+}
+
+// The rule: bf16 with hd 64 or 128 and at least one key takes the wgmma
+// kernel; everything else (fp32, bf16 hd 32, Sk 0) the scalar one. The
+// wrapper has already checked contiguity and 16-byte alignment, which
+// TMA needs too.
+bool wgmma_path(int dtype, int hd, int Sk) {
+  return dtype == 1 && (hd == 64 || hd == 128) && Sk > 0;
 }
 
 }  // namespace
@@ -323,7 +629,15 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   Params prm{q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
              kv_len <= 0 ? Sk : kv_len, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma_path(dtype, hd, Sk))
+    return static_cast<int>(hd == 128 ? launch_wgmma<128>(prm, s) : launch_wgmma<64>(prm, s));
   if (dtype == 0) return static_cast<int>(dispatch_hd<float>(hd, prm, s));
   if (dtype == 1) return static_cast<int>(dispatch_hd<__nv_bfloat16>(hd, prm, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Which kernel flash_attention_launch takes for these operands: 1 the
+// wgmma kernel, 0 the scalar one.
+extern "C" int flash_attention_path(int dtype, int hd, int Sk) {
+  return wgmma_path(dtype, hd, Sk) ? 1 : 0;
 }

@@ -21,8 +21,8 @@
 //   * each output tile belongs to one group. The Pallas grid visits all G
 //     groups for every row block and masks the rows it does not own; here a
 //     block of row tiles is counted per group instead: group g owns
-//     ceil(size_g / BM) row tiles that start at its own first row, so a tile
-//     never straddles two experts and never multiplies masked rows. Warp 0
+//     ceil(size_g / BM) row tiles that start at its own first row, so the
+//     rows a tile stores never straddle two experts. Warp 0
 //     finds the block's (group, rows) from the device-side sizes with a warp
 //     scan, 32 groups per step. ceil(M / BM) + G row tiles cover every group
 //     and, after the last group, the rows past sum(group_sizes), which are
@@ -31,14 +31,25 @@
 //     tiles and a run of w's column tiles stay in the 50 MB L2 while the band
 //     sweeps across N, instead of every row tile reading all of w[g] from
 //     device memory;
-//   * bf16 (the serving path): 128 x 128 output tiles, 8 warps of 64 x 32,
-//     products on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-//     accumulators in registers), operands fed by ldmatrix from padded
-//     (conflict-free) shared memory, and a 3-stage cp.async ring that loads
-//     the next k slices while the current one is multiplied; rows outside
-//     the tile's group and k or n past the edge are zero-filled by the copy
-//     itself. wgmma and TMA are later work. It needs K and N multiples of 8
-//     and 16-byte aligned operands;
+//   * bf16 (the serving path): 128 x 256 output tiles on the tensor cores
+//     through wgmma, fed by TMA. A producer warpgroup (one thread issuing,
+//     its registers handed to the others with setmaxnreg) keeps a 4-stage
+//     ring of 64-deep k slices full: x through a 2-D tensor map (K, M), a
+//     tile of up to 128 rows from the group's first row; w through a 3-D
+//     map (N, K, G) with the group as a coordinate, so one descriptor serves
+//     every expert, in 4 boxes of 64 columns. Both land 128-byte swizzled;
+//     full and empty mbarriers pass the stages between the roles. Two
+//     consumer warpgroups each run wgmma m64n256k16 on 64 of the rows with
+//     both operands in shared memory (w is N-major: the transpose bit),
+//     fp32 accumulators in registers. Rows of a tile past its group belong
+//     to the next group or lie past M (zeros): they are multiplied and never
+//     stored, which is exact because each output row depends on its own x
+//     row alone; so no load needs a mask. K past its edge arrives as zeros,
+//     and the epilogue stores only rows [row0, row1) and columns < N. Each
+//     consumer keeps one k slice's products in flight while it waits for
+//     the next (wgmma_wait<1>), then hands the finished slice's stage back.
+//     It needs K and N multiples of 8 and 16-byte aligned operands, TMA's
+//     stride and address rules;
 //   * fp32 (the parity runs), and bf16 shapes the tensor-core path does not
 //     take: scalar FMAs on the CUDA cores, 64 x 64 tiles, 4 x 4 outputs per
 //     thread, any K and N.
@@ -47,6 +58,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -215,63 +228,21 @@ gmm_scalar_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16, mma.sync m16n8k16, fp32 accumulators.
+// Tensor-core path: bf16, wgmma m64n256k16 fed by TMA, fp32 accumulators.
 // ---------------------------------------------------------------------------
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kLdA = kBK + 8;   // bf16 per A row in shared memory (80 B)
-constexpr int kLdB = kBN + 8;   // bf16 per B row (272 B)
-constexpr int kStageA = kBM * kLdA;
-constexpr int kStageB = kBK * kLdB;
-constexpr int kMmaSmemBytes = kStages * (kStageA + kStageB) * 2;
+constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4;
+constexpr int kWgThreads = 384;                 // producer + 2 consumer warpgroups
+constexpr int kBoxBytes = 64 * 128;             // one TMA box: 64 rows x 128 B
+constexpr int kStageA = kBM * kBK * 2;          // x tile, 16 KB: K-major
+constexpr int kStageB = kBK * kBN * 2;          // w tile, 32 KB: 4 boxes of 64 n
+constexpr int kWgSmemBytes = kStages * (kStageA + kStageB) + 2 * kStages * 8 + 1024;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w,
-               const int* __restrict__ sizes, __nv_bfloat16* __restrict__ out,
-               int M, int K, int N, int G, int n_row_tiles, int n_col_tiles) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* As = smem;                       // [kStages][kBM][kLdA]
-  __nv_bfloat16* Bs = smem + kStages * kStageA;   // [kStages][kBK][kLdB]
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap w_map,
+                 const int* __restrict__ sizes, __nv_bfloat16* __restrict__ out, int M,
+                 int K, int N, int G, int n_row_tiles, int n_col_tiles) {
+  extern __shared__ uint8_t smem_raw[];
   __shared__ TileInfo info;
   int rt, ct;
   tile_coords(n_row_tiles, n_col_tiles, &rt, &ct);
@@ -283,97 +254,96 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int n0 = ct * kBN;
   if (ti.kind == 2) {
     const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int e = tid; e < kBM * kBN / 8; e += kThreads) {
+    for (int e = tid; e < kBM * kBN / 8; e += kWgThreads) {
       const int r = ti.row0 + e / (kBN / 8), c = n0 + (e % (kBN / 8)) * 8;
       if (r < ti.row1 && c < N)
         *reinterpret_cast<uint4*>(out + static_cast<int64_t>(r) * N + c) = zero;
     }
     return;
   }
-  const __nv_bfloat16* wg = w + static_cast<int64_t>(ti.group) * K * N;
+
+  // swizzled tiles start on 1024-byte boundaries (of the shared window)
+  uint8_t* smem = smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* As = smem;                                  // [kStages][128 rows][128 B]
+  uint8_t* Bs = smem + kStages * kStageA;              // [kStages][4 boxes][64 k][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kStageB);
+  uint64_t* empty = full + kStages;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);      // the producer's expect-tx arrival
+      hopper::mbar_init(&empty[s], 2);     // one arrival per consumer warpgroup
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
   const int KT = (K + kBK - 1) / kBK;
 
-  // one k slice into stage s: A 128 x 32 and B 32 x 128, 16-byte copies,
-  // two of each per thread
-  auto load_stage = [&](int s, int kt) {
-    const int k0 = kt * kBK;
-    __nv_bfloat16* as = As + s * kStageA;
-    __nv_bfloat16* bs = Bs + s * kStageB;
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      hopper::tma_prefetch_desc(&x_map);
+      hopper::tma_prefetch_desc(&w_map);
+      int s = 0, phase = 0;
+      for (int kt = 0; kt < KT; ++kt) {
+        hopper::mbar_wait(&empty[s], phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], kStageA + kStageB);
+        // up to 128 rows from the group's first row: rows past the group
+        // are multiplied and never stored; past M and K they are zeros
+        hopper::tma_load_2d(As + s * kStageA, &x_map, &full[s], kt * kBK, ti.row0);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads;
-      const int r = v / (kBK / 8), c = (v % (kBK / 8)) * 8;
-      const int gr = ti.row0 + r, gk = k0 + c;
-      const bool ok = gr < ti.row1 && gk < K;
-      cp_async16(as + r * kLdA + c, ok ? x + static_cast<int64_t>(gr) * K + gk : x, ok);
-      const int kr = v / (kBN / 8), nc = (v % (kBN / 8)) * 8;
-      const bool okb = k0 + kr < K && n0 + nc < N;
-      cp_async16(bs + kr * kLdB + nc,
-                 okb ? wg + static_cast<int64_t>(k0 + kr) * N + n0 + nc : w, okb);
-    }
-  };
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / 4) * 64;   // warp's rows in the tile
-  const int wn = (warp % 4) * 32;   // warp's columns
-  float acc[4][4][4] = {};          // [m16 tile][n8 tile][fragment]
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // slice kt landed; every warp is done with slice kt-1
-    const int nk = kt + kStages - 1;
-    if (nk < KT) load_stage(nk % kStages, nk);
-    cp_async_commit();
-    const __nv_bfloat16* as = As + (kt % kStages) * kStageA;
-    const __nv_bfloat16* bs = Bs + (kt % kStages) * kStageB;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4], b[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // matrices: rows 0-7 / 8-15 (lane bit 3) x k 0-7 / 8-15 (lane bit 4)
-        const int r = wm + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = kk + (lane >> 4) * 8;
-        ldmatrix_x4(a[mi], as + r * kLdA + c);
+        for (int j = 0; j < kBN / 64; ++j)
+          hopper::tma_load_3d(Bs + s * kStageB + j * kBoxBytes, &w_map, &full[s],
+                              n0 + 64 * j, kt * kBK, ti.group);
+        if (++s == kStages) { s = 0; phase ^= 1; }
       }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        // matrices: k 0-7 / 8-15 (lane bit 3) x n 0-7 / 8-15 (lane bit 4),
-        // transposed so each thread holds (k, k+1) pairs of one n
-        const int r = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = wn + nj * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(b[nj], bs + r * kLdB + c);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
-                   b[ni / 2][(ni % 2) * 2 + 1]);
     }
-  }
-  cp_async_wait<0>();
-
-  // C fragment: (row lane/4, cols 2*(lane%4) + {0, 1}) and row + 8
-  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  } else {
+    // ---- consumer warpgroups: rows 64c..64c+63 of the tile each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = tid / 128 - 1;
+    float acc[kBN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    const bool leader = tid % 128 == 0;
+    int s = 0, phase = 0, prev = 0;
+    for (int kt = 0; kt < KT; ++kt) {
+      hopper::mbar_wait(&full[s], phase);
+      const uint8_t* as = As + s * kStageA + c * 64 * 128;
+      const uint8_t* bs = Bs + s * kStageB;
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = ti.row0 + wm + mi * 16 + fr + half * 8;
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // x K-major: a k16 slice is 32 B into the swizzled row; w MN-major:
+        // 16 k rows = 2048 B, the next 64 columns one box (LBO) on
+        hopper::wgmma_m64n256k16_ss<1>(
+            acc, hopper::smem_desc_sw128(as + kk * 32, 16, 1024),
+            hopper::smem_desc_sw128(bs + kk * 2048, kBoxBytes, 1024), 1);
+      }
+      hopper::wgmma_commit();
+      // keep this slice's products in flight; the previous slice's are
+      // done, so its stage goes back to the producer
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (kt > 0 && leader) hopper::mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == kStages) { s = 0; phase ^= 1; }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    // C fragment: warp w rows 16w + lane/4 (+ 8), cols 8i + 2(lane%4) + {0, 1}
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = ti.row0 + 64 * c + 16 * warp + lane / 4 + 8 * hh;
       if (r >= ti.row1) continue;
+      __nv_bfloat16* orow = out + static_cast<int64_t>(r) * N;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = n0 + wn + ni * 8 + fc;
-        if (c >= N) continue;
-        const __nv_bfloat162 v = __floats2bfloat162_rn(acc[mi][ni][half * 2],
-                                                       acc[mi][ni][half * 2 + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(r) * N + c) = v;
+      for (int i = 0; i < kBN / 8; ++i) {
+        const int col = n0 + 8 * i + 2 * (lane & 3);
+        if (col < N)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              hopper::pack_bf16(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
       }
     }
   }
@@ -394,26 +364,40 @@ cudaError_t launch_scalar(const void* x, const void* w, const int* sizes, void* 
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma(const void* x, const void* w, const int* sizes, void* out,
-                       int M, int K, int N, int G, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* x, const void* w, const int* sizes, void* out,
+                         int M, int K, int N, int G, cudaStream_t stream) {
+  // x: 2-D map (K, M), boxes of 64 k x 128 rows; w: 3-D map (N, K, G), the
+  // group a coordinate, boxes of 64 n x 64 k x 1 group
+  CUtensorMap xm, wm;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t x_box[2] = {kBK, kBM};
+  const uint64_t w_dims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(G)};
+  const uint64_t w_strides[2] = {static_cast<uint64_t>(N) * 2,
+                                 static_cast<uint64_t>(N) * K * 2};
+  const uint32_t w_box[3] = {64, kBK, 1};
+  if (!hopper::make_tensor_map_bf16(&xm, x, 2, x_dims, x_strides, x_box) ||
+      !hopper::make_tensor_map_bf16(&wm, w, 3, w_dims, w_strides, w_box))
+    return cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory only by opting in (per device)
   const cudaError_t err = cudaFuncSetAttribute(
-      gmm_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmemBytes);
+      gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
   if (err != cudaSuccess) return err;
   const int n_row = (M + kBM - 1) / kBM + G;
   const int n_col = (N + kBN - 1) / kBN;
-  gmm_mma_kernel<<<n_row * n_col, kThreads, kMmaSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      sizes, static_cast<__nv_bfloat16*>(out), M, K, N, G, n_row, n_col);
+  gmm_wgmma_kernel<<<n_row * n_col, kWgThreads, kWgSmemBytes, stream>>>(
+      xm, wm, sizes, static_cast<__nv_bfloat16*>(out), M, K, N, G, n_row, n_col);
   return cudaGetLastError();
 }
 
-// The bf16 tensor-core path takes K and N multiples of 8 and 16-byte
-// aligned operands; everything else runs on the scalar path.
+// The bf16 tensor-core path takes K and N multiples of 8 (K > 0) and
+// 16-byte aligned operands, which are also TMA's rules for a tensor map's
+// strides and base; everything else runs on the scalar path.
 bool tensor_core_path(int dtype, const void* x, const void* w, const void* out,
                       int K, int N) {
-  return dtype == 1 && K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w) &&
-         aligned16(out);
+  return dtype == 1 && K > 0 && K % 8 == 0 && N % 8 == 0 && aligned16(x) &&
+         aligned16(w) && aligned16(out);
 }
 
 }  // namespace
@@ -429,10 +413,17 @@ extern "C" int grouped_matmul_launch(int dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sz = static_cast<const int*>(sizes);
   if (tensor_core_path(dtype, x, w, out, K, N))
-    return static_cast<int>(launch_mma(x, w, sz, out, M, K, N, G, s));
+    return static_cast<int>(launch_wgmma(x, w, sz, out, M, K, N, G, s));
   if (dtype == 0)
     return static_cast<int>(launch_scalar<float>(x, w, sz, out, M, K, N, G, s));
   if (dtype == 1)
     return static_cast<int>(launch_scalar<__nv_bfloat16>(x, w, sz, out, M, K, N, G, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Which kernel grouped_matmul_launch takes for these operands: 1 the wgmma
+// kernel, 0 the scalar one.
+extern "C" int grouped_matmul_path(int dtype, const void* x, const void* w,
+                                   const void* out, int K, int N) {
+  return tensor_core_path(dtype, x, w, out, K, N) ? 1 : 0;
 }

@@ -1,11 +1,14 @@
 """Flash attention (forward): the Hopper kernel's wrapper.
 
-The port of ``repro.kernels.flash_attention``. The CUDA C++ kernel
-(``csrc/flash_attention.cu``) computes blocked online-softmax attention
+The port of ``repro.kernels.flash_attention``. The CUDA C++ kernels
+(``csrc/flash_attention.cu``) compute blocked online-softmax attention
 with causal and sliding-window masks, GQA (query head h reads kv head
 ``h // (Hq // Hkv)``) and ``kv_len`` masking of padded keys, with fp32
 running statistics; a row with no live key is written as 0.
-``repro_torch.kernels.ref.attention_ref`` is its plain PyTorch version.
+``repro_torch.kernels.ref.attention_ref`` is their plain PyTorch version.
+bf16 with head_dim 64 or 128 runs on the tensor cores (wgmma fed by
+TMA); fp32 and bf16 head_dim 32 on the scalar kernel. ``kernel_path``
+says which a call takes; the rule lives in the CUDA source.
 
 It masks the ragged q and k edges itself, so unlike the JAX wrapper no
 caller pads to block multiples. It has no backward: the serving prefill
@@ -30,7 +33,12 @@ HEAD_DIMS = (32, 64, 128)
 
 
 def _library():
-    fn = build.load("flash_attention").flash_attention_launch
+    lib = build.load("flash_attention")
+    path = lib.flash_attention_path
+    if path.argtypes is None:
+        path.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]   # dtype, hd, Sk
+        path.restype = ctypes.c_int
+    fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_int,                                        # dtype
@@ -42,7 +50,15 @@ def _library():
             ctypes.c_float, ctypes.c_void_p,                     # sm_scale, stream
         ]
         fn.restype = ctypes.c_int
-    return fn
+    return lib
+
+
+def kernel_path(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel ``flash_attention(q, k, v)`` launches for these
+    operands: ``"wgmma"`` (tensor cores, TMA) or ``"scalar"``."""
+    _check(q, k, k, 0)
+    code = _library().flash_attention_path(_DTYPE_CODES[q.dtype], q.shape[3], k.shape[1])
+    return "wgmma" if code else "scalar"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int) -> None:
@@ -94,7 +110,7 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    launch = _library()
+    launch = _library().flash_attention_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(

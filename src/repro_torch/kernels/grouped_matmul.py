@@ -11,9 +11,11 @@ PyTorch version.
 ``group_sizes`` stays on the card: the kernel reads it itself, so the
 wrapper never synchronizes with the host (the MoE layers call it three
 times per layer, in every decode step too). bf16 operands whose K and N
-are multiples of 8 take the tensor-core path; fp32, and any other bf16
-shape, the scalar one. It has no backward: the serving path runs it,
-and ``ops.grouped_matmul`` refuses autograd on the card.
+are multiples of 8 take the tensor-core path (wgmma fed by TMA); fp32,
+and any other bf16 shape, the scalar one. ``kernel_path`` says which a
+call takes; the rule lives in the CUDA source. It has no backward: the
+serving path runs it, and ``ops.grouped_matmul`` refuses autograd on the
+card.
 
 The wrapper launches on PyTorch's current stream and counts its
 launches in ``grouped_matmul.launches``. It raises on anything the
@@ -43,7 +45,26 @@ def _library():
             ctypes.c_int, ctypes.c_void_p,                       # G, stream
         ]
         fn.restype = ctypes.c_int
+    path = lib.grouped_matmul_path
+    if path.argtypes is None:
+        path.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,      # dtype, x, w
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,         # out, K, N
+        ]
+        path.restype = ctypes.c_int
     return lib
+
+
+def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel ``grouped_matmul(x, w, sizes)`` launches for these
+    operands: ``"wgmma"`` (tensor cores, TMA) or ``"scalar"``. The output
+    is the wrapper's own fresh (aligned) allocation, so only x and w
+    decide: a null pointer stands in for it."""
+    _check(x, w, torch.zeros(w.shape[0], dtype=torch.int32, device=x.device))
+    K, N = x.shape[1], w.shape[2]
+    code = _library().grouped_matmul_path(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), 0, K, N)
+    return "wgmma" if code else "scalar"
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:

@@ -166,6 +166,66 @@ def test_flash_kernel_fully_masked_rows_are_zero_and_wrapper_dispatches(sm90):
         flash_attention(q.transpose(1, 2), k, v)
 
 
+# The tensor-core kernel (bf16, hd 64 and 128): one 64 x 64 tile, lengths
+# that are not multiples of the 64-key tile and cross it with B > 1 (a
+# tile's tail must not read the next batch's keys), and the serving shapes.
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv", [
+    (1, 64, 64, 1, 1),            # a single tile
+    (3, 150, 150, 4, 2),          # 2.3 tiles, batch edges
+    (2, 70, 200, 2, 1),           # Sq < Sk, both off the tile
+    (2, 200, 70, 6, 2),           # Sq > Sk
+    (2, 129, 129, 2, 2),          # one key into the third tile
+])
+@pytest.mark.parametrize("causal,window,kv_len", [
+    (True, 0, 0), (False, 0, 0), (True, 40, 0), (False, 0, 67),
+])
+def test_flash_wgmma_kernel_tiles_and_edges(sm90, hd, B, Sq, Sk, Hq, Hkv, causal,
+                                            window, kv_len):
+    from repro_torch.kernels.flash_attention import kernel_path
+
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, seed=Sq + Sk)
+    assert kernel_path(q, k) == "wgmma"
+    kv_len = min(kv_len, Sk)
+    got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    n = kv_len or Sk
+    want = attention_ref(q, k[:, :n], v[:, :n], causal=causal, window=window)
+    live = _live(Sq, Sk, causal, window, kv_len).any(1).cuda()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got[:, live].float(), want[:, live].float(),
+                               **FA_TOL[torch.bfloat16])
+    assert bool((got[:, ~live] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", [(16, 8), (48, 8)], ids=["internlm2", "dbrx"])
+def test_flash_wgmma_kernel_at_the_serving_shapes(sm90, Hq, Hkv):
+    q, k, v = _qkv(8, 2048, 2048, Hq, Hkv, 128, torch.bfloat16, seed=Hq)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_path_rule(sm90):
+    from repro_torch.kernels.flash_attention import kernel_path
+
+    # bf16 hd 64 / 128 on the tensor cores; fp32, and bf16 hd 32, scalar
+    for dtype, hd, path in [(torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+                            (torch.bfloat16, 32, "scalar"), (torch.float32, 128, "scalar"),
+                            (torch.float32, 64, "scalar")]:
+        q, k, _ = _qkv(1, 8, 8, 2, 1, hd, dtype)
+        assert kernel_path(q, k) == path, (dtype, hd)
+    # bf16 hd 32 on the scalar kernel agrees all the same
+    q, k, v = _qkv(2, 100, 100, 4, 2, 32, torch.bfloat16, seed=5)
+    torch.testing.assert_close(flash_attention(q, k, v).float(),
+                               attention_ref(q, k, v).float(), **FA_TOL[torch.bfloat16])
+
+
 def _ssm_inputs(B, S, H, P, N, dtype, seed=0, a_scale=1.0):
     rng = np.random.default_rng(seed)
     f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
@@ -297,6 +357,53 @@ def test_gmm_paths_wrapper_and_refusals(sm90):
         grouped_matmul(x, w[:2], gs)
     with pytest.raises(ValueError, match="contiguous"):
         grouped_matmul(x.T.contiguous().T, w, gs)
+
+
+# The tensor-core kernel (wgmma, 128 x 256 tiles, 64-deep k slices): groups
+# that end mid-tile beside a non-empty group (the tile multiplies the next
+# group's rows and must not store them), K not a multiple of 64, N not a
+# multiple of 256, and decode-like shapes (a few rows over 16 groups).
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,sizes", [
+    (300, 128, 256, [70, 100, 130]),          # every group ends mid-tile
+    (400, 64, 512, [1, 127, 129, 143]),       # 1 row, then tiles of 127 / 129
+    (260, 200, 136, [130, 0, 130]),           # K 200 = 3 slices + 8, N 136
+    (512, 72, 264, [256, 0, 100, 56, 100]),   # K 72, N one column tile + 8
+    (32, 512, 520, [2, 3, 0, 1, 4, 2, 2, 0, 3, 1, 2, 4, 3, 0, 2, 3]),   # decode-like
+    (32, 1024, 1024, [0] * 15 + [32]),        # all rows in the last group
+    (96, 256, 384, [10, 20, 30]),             # rows past the groups
+])
+def test_gmm_wgmma_kernel_tiles_and_edges(sm90, M, K, N, sizes):
+    from repro_torch.kernels.grouped_matmul import kernel_path
+
+    x, w, gs = _gmm_inputs(M, K, N, sizes, torch.bfloat16, seed=M + K)
+    assert kernel_path(x, w) == "wgmma"
+    want = grouped_matmul_ref(x, w, gs)
+    for _ in range(3):             # tiles land in another order each time
+        got = grouped_matmul(x, w, gs)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[torch.bfloat16])
+        assert bool((got[sum(sizes):] == 0).all())
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_path_rule(sm90):
+    from repro_torch.kernels.grouped_matmul import kernel_path
+
+    x, w, _ = _gmm_inputs(64, 32, 48, [20, 0, 44], torch.bfloat16, seed=3)
+    assert kernel_path(x, w) == "wgmma"
+    assert kernel_path(x, w[..., :44].contiguous()) == "scalar"      # N % 8
+    assert kernel_path(x[:, :20].contiguous(), w[:, :20].contiguous()) == "scalar"   # K % 8
+    assert kernel_path(x.float(), w.float()) == "scalar"
+    off = torch.empty(64 * 32 + 4, dtype=torch.bfloat16, device="cuda")[4:].view(64, 32)
+    off.copy_(x)
+    assert kernel_path(off, w) == "scalar"                           # 8-byte aligned x
+    torch.testing.assert_close(grouped_matmul(off, w, torch.tensor(
+        [20, 0, 44], dtype=torch.int32, device="cuda")).float(),
+        grouped_matmul(x, w, torch.tensor([20, 0, 44], dtype=torch.int32,
+                                          device="cuda")).float(),
+        **GMM_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
