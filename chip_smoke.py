@@ -15,10 +15,14 @@ non-zero exit:
            the card, at the shapes its main path gives it and on edge
            cases; times of the kernel, the plain version and the
            one-call PyTorch yardstick (where there is one) beside the
-           bound: gossip_axpy (odd sizes, misaligned views, in place),
+           bound: gossip_axpy (odd sizes, misaligned views, in place; at
+           the training step's leaves in turns with torch.lerp),
            flash_attention (odd and unequal lengths, kv_len, windows,
            GQA groups 1 and 2, fully masked rows, fp32 and bf16),
-           ssm_scan (chunk halving, fp32 and bf16, decays that underflow)
+           ssm_scan (chunk halving, fp32 and bf16, decays that underflow,
+           the path each case takes; at mamba2-370m's serving shapes the
+           tensor-core kernel in turns with the scalar kernel, which takes
+           a 2-byte-offset copy of x)
            and grouped_matmul (the sweep of tests/test_kernels.py, empty
            groups, ragged tails, rows past the groups, in fp32 and bf16;
            dbrx-132b's prefill shapes, 65,536 sorted rows x 6144 x 10752
@@ -52,7 +56,9 @@ non-zero exit:
            steps, and for internlm2, mamba2 and dbrx with 16 experts and
            top-4 (the ragged MoE branch) a prefill, one decode step and
            every cache; then the training CLI ``repro_torch.launch.train``
-           must train on the card.
+           must train on the card;
+6. tests   the card-only tests (``pytest -m cuda
+           tests/test_torch_kernels_cuda.py``) in a child process.
 
 Then it prints the card's name and power limit, one JSON line with every
 ported kernel's numbers, and, last, the device JSON line.
@@ -248,12 +254,14 @@ def phase_kernels(torch, leaf_shapes, alpha: float):
         fail(f"kernel on {big}: not bit-equal to the plain version")
     del got
     leaf_bound = 12 * n / HBM_BYTES_PER_S * 1e3
-    k_ms = cuda_ms(torch, lambda: gossip_axpy(x, y, alpha), 10)
-    l_ms = cuda_ms(torch, lambda: torch.lerp(x, y, alpha), 10)
+    (k1, k2), (l1, l2) = in_turns(torch, lambda: gossip_axpy(x, y, alpha),
+                                  lambda: torch.lerp(x, y, alpha), 10)
+    k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
     p_ms = cuda_ms(torch, lambda: gossip_axpy_ref(x, y, alpha), 5)
-    log(f"kernels: gossip_axpy largest leaf {big} fp32: kernel {k_ms:.3f} ms, "
-        f"torch.lerp {l_ms:.3f} ms, plain {p_ms:.3f} ms, bound {leaf_bound:.3f} ms "
-        f"({leaf_bound / k_ms:.1%} of the HBM roofline)")
+    log(f"kernels: gossip_axpy largest leaf {big} fp32: in turns kernel {k1:.3f} ms, "
+        f"torch.lerp {l1:.3f} ms, torch.lerp {l2:.3f} ms, kernel {k2:.3f} ms "
+        f"({k_ms / l_ms:.3f}x lerp), plain {p_ms:.3f} ms, bound {leaf_bound:.3f} ms "
+        f"({leaf_bound / k_ms:.1%} of the HBM roofline; lerp {leaf_bound / l_ms:.1%})")
     del x, y
     torch.cuda.empty_cache()
 
@@ -272,13 +280,15 @@ def phase_kernels(torch, leaf_shapes, alpha: float):
         return run
 
     step_bound = 12 * elems / HBM_BYTES_PER_S * 1e3
-    k_ms = cuda_ms(torch, all_leaves(lambda a, b: gossip_axpy(a, b, alpha)), 10)
-    l_ms = cuda_ms(torch, all_leaves(lambda a, b: torch.lerp(a, b, alpha)), 10)
+    (k1, k2), (l1, l2) = in_turns(torch, all_leaves(lambda a, b: gossip_axpy(a, b, alpha)),
+                                  all_leaves(lambda a, b: torch.lerp(a, b, alpha)), 10)
+    k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
     p_ms = cuda_ms(torch, all_leaves(lambda a, b: gossip_axpy_ref(a, b, alpha)), 5)
     log(f"kernels: gossip_axpy one step ({len(xs)} leaves, {elems} elements, "
-        f"{12 * elems / 1e9:.1f} GB): kernel {k_ms:.3f} ms, torch.lerp {l_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms, bound {step_bound:.3f} ms "
-        f"({step_bound / k_ms:.1%} of the HBM roofline)")
+        f"{12 * elems / 1e9:.1f} GB): in turns kernel {k1:.3f} ms, torch.lerp "
+        f"{l1:.3f} ms, torch.lerp {l2:.3f} ms, kernel {k2:.3f} ms ({k_ms / l_ms:.3f}x "
+        f"lerp), plain {p_ms:.3f} ms, bound {step_bound:.3f} ms "
+        f"({step_bound / k_ms:.1%} of the HBM roofline; lerp {step_bound / l_ms:.1%})")
     del xs, ys
     torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
@@ -403,13 +413,13 @@ def phase_flash(torch, ptxas):
     return row
 
 
-def phase_ssm(torch):
+def phase_ssm(torch, ptxas):
     """ssm_scan against ssm_scan_ref; returns the JSON row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssm_scan_ref
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import kernel_path, ssm_scan
 
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -444,32 +454,70 @@ def phase_ssm(torch):
             x, dt, A, Bm, Cm = inputs(B, S, H, P, N, dtype, a_scale)
             got = ops.ssd(x, dt, A, Bm, Cm, chunk=128)
             torch.cuda.synchronize()
-            max_err = max(max_err, check(label, dname, got, ssm_scan_ref(x, dt, A, Bm, Cm)))
+            chunk = min(128, S)
+            while S % chunk:
+                chunk //= 2
+            path = kernel_path(x, Bm, chunk, Cm)
+            max_err = max(max_err, check(f"{label} ({path})", dname, got,
+                                         ssm_scan_ref(x, dt, A, Bm, Cm)))
 
     # the serving path's shapes: mamba2-370m prefill, bf16 x/B/C, fp32 dt/A
     B, S, H, P, N, Q = SERVE_BATCH, SERVE_PROMPT, 32, 64, 128, 128
     x, dt, A, Bm, Cm = inputs(B, S, H, P, N, torch.bfloat16)
-    got = ssm_scan(x, dt, A, Bm, Cm, chunk=Q)
-    max_err = max(max_err, check("serving shapes", "bfloat16", got,
-                                 ssm_scan_ref(x, dt, A, Bm, Cm)))
-    del got
+    path = kernel_path(x, Bm, Q, Cm)
+    if path != "mma":
+        fail(f"ssm_scan at the serving shapes takes the {path} kernel, not mma")
+    # the same x at a 2-byte offset is contiguous but not 16-byte aligned,
+    # so the scalar kernel takes it: both are timed at the serving shapes
+    x_off = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape)
+    x_off.copy_(x)
+    if kernel_path(x_off, Bm, Q, Cm) != "scalar":
+        fail("ssm_scan: a 2-byte-offset x does not take the scalar kernel")
+    want = ssm_scan_ref(x, dt, A, Bm, Cm)
+    max_err = max(max_err, check("serving shapes (mma)", "bfloat16",
+                                 ssm_scan(x, dt, A, Bm, Cm, chunk=Q), want))
+    max_err = max(max_err, check("serving shapes (scalar)", "bfloat16",
+                                 ssm_scan(x_off, dt, A, Bm, Cm, chunk=Q), want))
+    del want
     tri = Q * (Q + 1) // 2
     flops = B * H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
     nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
               + 2 * Bm.numel() * 2 + B * H * N * P * 4)
     bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
-    k_ms = cuda_ms(torch, lambda: ssm_scan(x, dt, A, Bm, Cm, chunk=Q), 5)
+    (k1, k2), (s1, s2) = in_turns(torch, lambda: ssm_scan(x, dt, A, Bm, Cm, chunk=Q),
+                                  lambda: ssm_scan(x_off, dt, A, Bm, Cm, chunk=Q), 5)
+    k_ms, sc_ms = (k1 + k2) / 2, (s1 + s2) / 2
     p_ms = cuda_ms(torch, lambda: ssm_scan_ref(x, dt, A, Bm, Cm), 2, warmup=1)
     log(f"kernels: ssm_scan serving shapes (B {B}, S {S}, H {H}, P {P}, N {N}, "
-        f"chunk {Q}, bf16; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, no single PyTorch call computes the "
-        f"SSD, bound {bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of it; fp32 "
-        f"CUDA-core floor {flops / FP32_FLOP_PER_S * 1e3:.3f} ms)")
-    del x, dt, A, Bm, Cm
+        f"chunk {Q}, bf16; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): path mma; "
+        f"in turns mma {k1:.4f} ms, scalar {s1:.4f} ms, scalar {s2:.4f} ms, mma "
+        f"{k2:.4f} ms ({sc_ms / k_ms:.1f}x faster than the scalar kernel); plain "
+        f"{p_ms:.3f} ms; no single PyTorch call computes the SSD; bound {bound:.4f} ms "
+        f"by {bound_by} ({bound / k_ms:.1%} of it; fp32 CUDA-core floor "
+        f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms)")
+    log(f"kernels: ssm_scan ptxas: {ptxas_note(ptxas, 'ssd_')}")
+    del x, x_off, dt, A, Bm, Cm
     torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=None)
+
+
+def phase_tests():
+    """The card-only tests (``-m cuda``), in a child process."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-m", "cuda",
+         os.path.join("tests", "test_torch_kernels_cuda.py")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+    )
+    lines = res.stdout.strip().splitlines()
+    for line in lines[-15:] if res.returncode else lines[-1:]:
+        log(f"tests: {line}")
+    log(f"tests: card tests took {time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0:
+        fail(f"card tests failed (pytest exit code {res.returncode})")
 
 
 def dbrx_serving_config():
@@ -1022,7 +1070,7 @@ def main() -> None:
     }
     row = phase_kernels(torch, leaf_shapes, float(plan.alpha))
     fa_row = phase_flash(torch, ptxas)
-    ss_row = phase_ssm(torch)
+    ss_row = phase_ssm(torch, ptxas)
     gm_row = phase_gmm(torch, ptxas)
     launches = phase_main(torch, cfg, plan)
     torch.cuda.empty_cache()
@@ -1030,6 +1078,7 @@ def main() -> None:
     phase_profile(torch)
     phase_check(torch, plan)
     phase_serve_check(torch)
+    phase_tests()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     kernels = [

@@ -35,7 +35,7 @@ def _library():
             ctypes.c_int, ctypes.c_int,                      # x, y dtype codes
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, y, out
             ctypes.c_int64, ctypes.c_float,                  # n, alpha
-            ctypes.c_int, ctypes.c_void_p,                   # device, stream
+            ctypes.c_void_p,                                 # stream
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -78,7 +78,7 @@ def gossip_axpy(
         err = launch(
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[y.dtype],
             x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            n, float(alpha), x.device.index, stream,
+            n, float(alpha), stream,
         )
     if err:
         raise RuntimeError(f"gossip_axpy launch failed: cudaError {err}")

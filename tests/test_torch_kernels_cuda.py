@@ -82,6 +82,25 @@ def test_cuda_kernel_in_place_and_rejects_bad_operands(sm90):
         gossip_axpy(x.half(), y, 0.25)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,y_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+])
+def test_cuda_kernel_bit_equal_in_place_across_tiles(sm90, x_dtype, y_dtype):
+    # sizes around the kernel's tile (256 threads x 4 vectors) and past one
+    # tile per resident block, at aligned and misaligned offsets, in place
+    tx, ty = DTYPES[x_dtype], DTYPES[y_dtype]
+    for n in (1, 7, 4095, 4096 * 4 + 3, 8192 * 4 - 1, 132 * 8 * 1024 * 4 + 13):
+        x, y = _pair((n + 8,), seed=n)
+        for offset in (0, 1, 8):
+            xc = torch.from_numpy(x).to("cuda", tx)[offset:offset + n]
+            yc = torch.from_numpy(y).to("cuda", ty)[offset:offset + n]
+            want = gossip_axpy_ref(xc, yc, 0.3)
+            out = gossip_axpy(xc, yc, 0.3, inplace=True)
+            assert out.data_ptr() == xc.data_ptr()
+            torch.testing.assert_close(xc, want, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # flash attention and the SSD chunk scan
 #
@@ -272,6 +291,112 @@ def test_ssd_wrapper_halves_the_chunk_and_survives_underflow(sm90, S):
     torch.testing.assert_close(h, h_ref, **SSM_TOL[torch.float32])
     with pytest.raises(ValueError, match="divide"):
         ssm_scan(x, dt, A, Bm, Cm, chunk=48 if S % 48 else 56)
+
+
+# The tensor-core kernel (bf16, P in (16, 32, 48, 64, 128), N a multiple of
+# 16 up to 128, chunk a multiple of 16): chunks in parallel, the state handed
+# on through a ring under flags. 1, 2, 16 and 17 chunks; H not a multiple of
+# the 2 heads a block takes (P <= 64), P 128 (one head a block), chunk 96, P
+# and N 48, and decays that underflow.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk,a_scale", [
+    (1, 64, 2, 64, 128, 64, 1.0),        # 1 chunk
+    (2, 128, 3, 32, 32, 64, 1.0),        # 2 chunks, H odd
+    (1, 256, 4, 16, 16, 16, 1.0),        # 16 chunks
+    (2, 272, 3, 64, 64, 16, 1.0),        # 17 chunks, H odd
+    (1, 192, 2, 128, 64, 64, 1.0),       # P 128: one head a block
+    (1, 192, 3, 128, 32, 32, 1.0),       # P 128, H odd
+    (2, 256, 5, 32, 32, 128, 60.0),      # A * dt up to ~200: decays underflow
+    (1, 96, 3, 32, 16, 96, 1.0),         # chunk 96
+    (1, 384, 2, 48, 48, 128, 1.0),       # P, N 48
+])
+def test_ssm_mma_kernel_chunks_heads_and_decays(sm90, B, S, H, P, N, chunk, a_scale):
+    from repro_torch.kernels.ssm_scan import kernel_path
+
+    x, dt, A, Bm, Cm = _ssm_inputs(B, S, H, P, N, torch.bfloat16, seed=S + H, a_scale=a_scale)
+    assert kernel_path(x, Bm, chunk) == "mma"
+    before = ssm_scan.launches
+    y, h = ssm_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    y_ref, h_ref = ssm_scan_ref(x, dt, A, Bm, Cm)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y.float(), y_ref.float(), **SSM_TOL[torch.bfloat16])
+    torch.testing.assert_close(h, h_ref.float(), **SSM_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_ssm_mma_kernel_at_the_serving_shapes(sm90):
+    from repro_torch.kernels.ssm_scan import kernel_path
+
+    x, dt, A, Bm, Cm = _ssm_inputs(8, 2048, 32, 64, 128, torch.bfloat16, seed=7)
+    assert kernel_path(x, Bm, 128) == "mma"
+    y, h = ssm_scan(x, dt, A, Bm, Cm, chunk=128)
+    torch.cuda.synchronize()
+    y_ref, h_ref = ssm_scan_ref(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y.float(), y_ref.float(), **SSM_TOL[torch.bfloat16])
+    torch.testing.assert_close(h, h_ref.float(), **SSM_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_ssm_kernel_path_rule(sm90):
+    from repro_torch.kernels.ssm_scan import kernel_path
+
+    # bf16 with P in (16, 32, 48, 64, 128), N a multiple of 16 up to 128 and
+    # the chunk a multiple of 16 on the tensor cores; fp32, N 8 or 144, P 24,
+    # chunk 100 or 52, and a misaligned x or C on the scalar kernel
+    for dtype, (S, P, N, chunk), path in [
+        (torch.bfloat16, (256, 64, 128, 128), "mma"),
+        (torch.bfloat16, (96, 32, 16, 96), "mma"),
+        (torch.bfloat16, (256, 128, 64, 64), "mma"),
+        (torch.float32, (256, 64, 128, 128), "scalar"),
+        (torch.bfloat16, (64, 16, 8, 16), "scalar"),
+        (torch.bfloat16, (64, 24, 16, 16), "scalar"),
+        (torch.bfloat16, (64, 64, 144, 64), "scalar"),
+        (torch.bfloat16, (200, 16, 16, 100), "scalar"),
+        (torch.bfloat16, (52, 64, 128, 52), "scalar"),
+    ]:
+        x, _, _, Bm, _ = _ssm_inputs(1, S, 2, P, N, dtype)
+        assert kernel_path(x, Bm, chunk) == path, (dtype, S, P, N, chunk)
+    # a 2-byte-offset copy of x is contiguous but not 16-byte aligned: the
+    # scalar kernel takes it, and both kernels agree with the plain version
+    x, dt, A, Bm, Cm = _ssm_inputs(2, 256, 3, 32, 32, torch.bfloat16, seed=4)
+    def offset_copy(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:].view(t.shape)
+        return out.copy_(t)
+
+    x_off = offset_copy(x)
+    assert kernel_path(x_off, Bm, 64) == "scalar" and kernel_path(x, Bm, 64) == "mma"
+    assert kernel_path(x, Bm, 64, offset_copy(Cm)) == "scalar"
+    y_ref, h_ref = ssm_scan_ref(x, dt, A, Bm, Cm)
+    for xi in (x, x_off):
+        y, h = ssm_scan(xi, dt, A, Bm, Cm, chunk=64)
+        torch.testing.assert_close(y.float(), y_ref.float(), **SSM_TOL[torch.bfloat16])
+        torch.testing.assert_close(h, h_ref.float(), **SSM_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_ssm_mma_kernel_calls_in_a_row(sm90):
+    # each call leaves its flags and ticket zeroed for the next: a larger
+    # call after a smaller one, the smaller again, and a repeat that must
+    # give the same bits (no float atomics)
+    shapes = [(1, 128, 2, 32, 32, 64), (2, 512, 6, 64, 128, 64), (1, 128, 2, 32, 32, 64)]
+    outs = []
+    for i, (B, S, H, P, N, chunk) in enumerate(shapes):
+        x, dt, A, Bm, Cm = _ssm_inputs(B, S, H, P, N, torch.bfloat16, seed=i % 2)
+        y, h = ssm_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ssm_scan_ref(x, dt, A, Bm, Cm)
+        torch.testing.assert_close(y.float(), y_ref.float(), **SSM_TOL[torch.bfloat16])
+        torch.testing.assert_close(h, h_ref.float(), **SSM_TOL[torch.bfloat16])
+        outs.append((y, h))
+    assert torch.equal(outs[0][0], outs[2][0]) and torch.equal(outs[0][1], outs[2][1])
+    # many calls back to back on one stream, no synchronize between them
+    x, dt, A, Bm, Cm = _ssm_inputs(2, 512, 6, 64, 128, torch.bfloat16, seed=1)
+    for _ in range(20):
+        y, h = ssm_scan(x, dt, A, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(y, outs[1][0]) and torch.equal(h, outs[1][1])
 
 
 # ---------------------------------------------------------------------------
