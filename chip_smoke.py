@@ -18,7 +18,11 @@ non-zero exit:
            bound: gossip_axpy (odd sizes, misaligned views, in place; at
            the training step's leaves in turns with torch.lerp),
            flash_attention (odd and unequal lengths, kv_len, windows,
-           GQA groups 1 and 2, fully masked rows, fp32 and bf16),
+           GQA groups 1 and 2, fully masked rows, fp32 and bf16; the
+           registry's other head widths at B 2, S 2048, causal, in bf16
+           and fp32, in turns with sdpa: nemotron-4-340b 96/8 heads of
+           192, kimi-k2 64/8 of 112, gemma3-4b 8/4 of 256, also with a
+           1024 window),
            ssm_scan (chunk halving, fp32 and bf16, decays that underflow,
            the path each case takes; at mamba2-370m's serving shapes the
            tensor-core kernel in turns with the scalar kernel, which takes
@@ -33,10 +37,16 @@ non-zero exit:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
            paper8, MATCHA budget 0.5, masked gossip, SGD lr 0.05 momentum
-           0.9, 4 x 128 tokens per node, 5 steps; launch counts, per-step
-           and per-phase times, peak memory, loss and consensus; then one
-           more step whose gossip runs through the kernel and through
-           the plain version from the same state, which must agree;
+           0.9, 4 x 128 tokens per node, 5 steps, then 2 faulted steps
+           (link drops at p_drop 0.35, per-node bits); launch counts,
+           per-step and per-phase times, dropped exchanges, peak memory,
+           loss and consensus; then one more step whose gossip runs
+           through the kernel and through the plain version from the same
+           state, with the schedule row and with faulted bits, which must
+           agree bit for bit, as must all-ones gates and the unfaulted
+           gossip; then the first two nodes' params and velocities (8.1
+           GB) through save_run_step and restore_run to the card, bit for
+           bit, with the save and restore rates;
 4. serve   the serving path (``repro_torch.launch.serve``) at full
            published width: internlm2-1.8b (24 layers), mamba2-370m (48
            layers, d 1024, 32 SSM heads of 64, state 128, vocab 50280) and
@@ -56,7 +66,10 @@ non-zero exit:
            steps, and for internlm2, mamba2 and dbrx with 16 experts and
            top-4 (the ragged MoE branch) a prefill, one decode step and
            every cache; then the training CLI ``repro_torch.launch.train``
-           must train on the card;
+           must train on the card, and with link drops (--p-drop 0.35) a
+           run that checkpoints every 3 steps and crashes after step 4
+           must, resumed with --resume auto, end where an uninterrupted
+           run ends;
 6. tests   the card-only tests (``pytest -m cuda
            tests/test_torch_kernels_cuda.py``) in a child process.
 
@@ -78,6 +91,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at the 700 W limit
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor cores, same source
 FP32_FLOP_PER_S = 67e12         # fp32 on the CUDA cores, same source
 NODES, BATCH, SEQ, STEPS = 8, 4, 128, 5
+FAULTED_STEPS, P_DROP = 2, 0.35  # faulted steps after the masked ones, drop rate
+CKPT_NODES = 2                  # nodes whose full-width state is checkpointed
 SMALL_TOL = 1e-4                # card vs CPU, fp32 tiny preset, 2 steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
 # kernel vs plain version on the card: the kernels sum in another order
@@ -90,6 +105,14 @@ SERVE_TOL = 1e-4                # card (kernels) vs CPU (plain), fp32 tiny servi
 # in bf16 both round an fp32 sum once, one bf16 step apart at most
 GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DBRX_LAYERS = 3                 # dbrx-132b depth on one card (40 published)
+# the registry's other head widths, on the scalar flash kernel: (model,
+# query heads, kv heads, head_dim, window)
+FLASH_WIDE = [
+    ("nemotron-4-340b", 96, 8, 192, 0),
+    ("kimi-k2", 64, 8, 112, 0),
+    ("gemma3-4b", 8, 4, 256, 0),
+    ("gemma3-4b local", 8, 4, 256, 1024),
+]
 
 
 def fail(msg: str) -> None:
@@ -408,9 +431,60 @@ def phase_flash(torch, ptxas):
                        library_ms=l_ms)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    max_err = max(max_err, flash_wide(torch, qkv))
     log(f"kernels: flash_attention ptxas: {ptxas_note(ptxas, 'flash_')}")
     row["max_abs_err"] = max_err
     return row
+
+
+def flash_wide(torch, qkv) -> float:
+    """flash_attention at the registry's other head widths (the scalar
+    kernel): B 2, S 2048, causal, in bf16 and fp32, against attention_ref,
+    timed in turns with sdpa; returns the max abs error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_path
+    from repro_torch.kernels.ref import attention_ref
+
+    B, S = 2, SERVE_PROMPT
+    max_err = 0.0
+    for model, Hq, Hkv, hd, window in FLASH_WIDE:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v = qkv(B, S, S, Hq, Hkv, hd, dtype)
+            run = lambda: flash_attention(q, k, v, causal=True, window=window)
+            got = run()
+            want = attention_ref(q, k, v, causal=True, window=window)
+            err = close(torch, got, want, FA_TOL[dname], FA_TOL[dname])
+            if not math.isfinite(err):
+                fail(f"flash at {model}'s widths ({hd}) {dname}: disagrees with attention_ref")
+            max_err = max(max_err, err)
+            del got, want
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask_kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                          **mask_kw)
+            (k1, k2), (l1, l2) = in_turns(torch, run, sdpa, 5, warmup=1)
+            p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window),
+                           2, warmup=1)
+            flops = 4 * hd * B * Hq * flash_pairs(S, S, True, window, 0)
+            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+            t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+            bound = max(t_ops, t_bytes) * 1e3
+            k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
+            log(f"kernels: flash_attention {model} widths (B {B}, S {S}, heads {Hq}/{Hkv}, "
+                f"hd {hd}, {dname}, causal{f', window {window}' if window else ''}; "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): path {kernel_path(q, k)}; "
+                f"in turns kernel {k1:.3f} ms, sdpa {l1:.3f} ms, sdpa {l2:.3f} ms, kernel "
+                f"{k2:.3f} ms ({k_ms / l_ms:.2f}x sdpa; {flops / k_ms / 1e9:.1f} TFLOP/s); "
+                f"plain {p_ms:.3f} ms; bound {bound:.4f} ms by "
+                f"{'operations' if t_ops >= t_bytes else 'bytes'} ({bound / k_ms:.1%} of it); "
+                f"max abs err {err:.3g}")
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    return max_err
 
 
 def phase_ssm(torch, ptxas):
@@ -899,10 +973,11 @@ def phase_serve_check(torch):
 
 
 def phase_main(torch, cfg, plan):
-    """The full-width decentralized trainer; returns the kernel launches."""
+    """The full-width decentralized trainer: masked steps, then faulted
+    steps; returns the kernel launches of both."""
     from repro_torch.data.pipeline import DecentralizedBatches
     from repro_torch.dist import decen_train as dt
-    from repro_torch.dist.gossip import mix_matchings_masked
+    from repro_torch.faults import FaultSpec, make_fault_schedule
     from repro_torch.kernels.gossip_axpy import gossip_axpy
     from repro_torch.models.transformer import Model
     from repro_torch.optim.optimizers import sgd
@@ -913,25 +988,32 @@ def phase_main(torch, cfg, plan):
         f"{cfg.num_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} vocab "
         f"{cfg.vocab_size}; reduced: num_layers 24 -> {cfg.num_layers} "
         f"(dataclasses.replace); {model.num_params()} params per replica")
-    schedule = plan.schedule(STEPS + 1, seed=0)
+    total = STEPS + FAULTED_STEPS + 1
+    schedule = plan.schedule(total, seed=0)
     t0 = time.perf_counter()
     params = dt.init_stacked_params(model, NODES, seed=0, device="cuda")
     opt = sgd(0.05, momentum=0.9)
     opt_state = dt.init_stacked_opt_state(opt, model, NODES, device="cuda")
     data = DecentralizedBatches(cfg, NODES, BATCH, SEQ, seed=0, device="cuda")
-    batches = [next(data) for _ in range(STEPS + 1)]
+    batches = [next(data) for _ in range(total)]
     torch.cuda.synchronize()
     log(f"main: set-up (init {NODES} replicas + optimizer state, draw "
-        f"{STEPS + 1} batches of {NODES}x{BATCH}x{SEQ} tokens) "
+        f"{total} batches of {NODES}x{BATCH}x{SEQ} tokens) "
         f"{time.perf_counter() - t0:.1f} s")
 
-    step = dt.make_train_step(model, opt, plan, gossip_mode="masked")
+    fault_sched = make_fault_schedule(plan, total, FaultSpec(p_drop=P_DROP, seed=0))
+    steps = {False: dt.make_train_step(model, opt, plan, gossip_mode="masked"),
+             True: dt.make_train_step(model, opt, plan, gossip_mode="masked", faulted=True)}
     n_leaves = len(flatten(params))
     torch.cuda.reset_peak_memory_stats()
     gossip_axpy.launches = 0
     step_ms, phase_ms = [], []
-    for k in range(STEPS):
-        bits = torch.as_tensor(schedule.activations[k].astype("float32"), device="cuda")
+    for k in range(STEPS + FAULTED_STEPS):
+        faulted = k >= STEPS
+        row = schedule.activations[k].astype("float32")
+        bits = torch.as_tensor(fault_sched.node_bits(row, k) if faulted else row,
+                               device="cuda")
+        step = steps[faulted]
         before = gossip_axpy.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -943,10 +1025,13 @@ def phase_main(torch, cfg, plan):
         phase_ms.append(phases)
         loss = float(losses.mean())
         cons = float(dt.consensus_distance(params))
+        faults_note = (f" faulted (p_drop {P_DROP}): {fault_sched.dropped_links(row, k)} "
+                       f"node-exchanges dropped, straggler delay "
+                       f"{fault_sched.max_delay(k):g} units" if faulted else "")
         log(f"main: step {k} {step_ms[-1]:.1f} ms (fwd_bwd {phases['fwd_bwd']:.1f}, "
             f"optimizer {phases['optimizer']:.1f}, gossip {phases['gossip']:.1f} ms) "
             f"gossip_axpy launches {launched} loss {loss:.4f} consensus {cons:.4e} "
-            f"active {len(schedule.active_indices(k))}/{plan.num_matchings}")
+            f"active {len(schedule.active_indices(k))}/{plan.num_matchings}{faults_note}")
         if launched != n_leaves:
             fail(f"step {k}: {launched} gossip_axpy launches, expected {n_leaves}")
         if not (math.isfinite(loss) and math.isfinite(cons)):
@@ -956,29 +1041,102 @@ def phase_main(torch, cfg, plan):
     # step 0 pays the first-call set-up of the GEMM libraries
     steady = sorted(range(1, STEPS), key=lambda k: step_ms[k])
     mid = steady[len(steady) // 2]
-    log(f"main: median step over steps 1..{STEPS - 1}: {step_ms[mid]:.1f} ms "
+    log(f"main: median masked step over steps 1..{STEPS - 1}: {step_ms[mid]:.1f} ms "
         + ", ".join(f"{name} {ms:.1f}" for name, ms in phase_ms[mid].items())
-        + f" ms; step 0 {step_ms[0]:.1f} ms")
-    log(f"main: gossip_axpy launches {launches} over {STEPS} steps; peak memory "
-        f"allocated {peak / 1e9:.2f} GB")
-    if launches != n_leaves * STEPS:
-        fail(f"{launches} launches on the main path, expected {n_leaves * STEPS}")
+        + f" ms; step 0 {step_ms[0]:.1f} ms; faulted steps "
+        + ", ".join(f"{step_ms[k]:.1f} (gossip {phase_ms[k]['gossip']:.1f})"
+                    for k in range(STEPS, STEPS + FAULTED_STEPS)) + " ms")
+    log(f"main: gossip_axpy launches {launches} over {STEPS} masked and "
+        f"{FAULTED_STEPS} faulted steps; peak memory allocated {peak / 1e9:.2f} GB")
+    if launches != n_leaves * (STEPS + FAULTED_STEPS):
+        fail(f"{launches} launches on the main path, expected "
+             f"{n_leaves * (STEPS + FAULTED_STEPS)}")
 
-    # one more step: local SGD, then its gossip from the same state twice
+    # one more step: local SGD, then its gossip from the same state
+    # through the kernel and through the plain version, plain and faulted
+    k = STEPS + FAULTED_STEPS
     local = dt.make_train_step(model, opt, plan, gossip_mode="none")
-    bits = torch.as_tensor(schedule.activations[STEPS].astype("float32"), device="cuda")
-    params, opt_state, _, _ = local(params, opt_state, batches[STEPS], bits)
-    for path, leaf in flatten(params).items():
-        got = mix_matchings_masked({path: leaf}, plan.alpha, plan.permutations,
-                                   bits, impl="cuda")[path]
-        want = mix_matchings_masked({path: leaf}, plan.alpha, plan.permutations,
-                                    bits, impl="torch")[path]
-        if not torch.equal(got, want):
-            fail(f"extra step: {path} differs between kernel and plain gossip")
-        del got, want
-    log("main: extra step: gossip through the kernel and through the plain "
-        "version from the same state agree bit for bit on every leaf")
+    row = schedule.activations[k].astype("float32")
+    params, opt_state, _, _ = local(params, opt_state, batches[k], None)
+    check_gossip(torch, plan, params, row, fault_sched.node_bits(row, k))
+    check_checkpoint(torch, params, opt_state)
     return launches
+
+
+def check_gossip(torch, plan, params, row, node_bits):
+    """Gossip of every leaf, one at a time: kernel against plain version,
+    bit for bit, for the schedule row and for the faulted per-node bits;
+    and all-ones gates against the row, bit for bit."""
+    import numpy as np
+
+    from repro_torch.dist.gossip import mix_matchings_masked
+    from repro_torch.tree import flatten
+
+    dev = lambda b: torch.as_tensor(b, device="cuda")
+    ones = np.tile(row, (NODES, 1))
+    for path, leaf in flatten(params).items():
+        mix = lambda bits, impl: mix_matchings_masked({path: leaf}, plan.alpha,
+                                                      plan.permutations, dev(bits),
+                                                      impl=impl)[path]
+        for label, bits in (("plain", row), ("faulted", node_bits)):
+            got, want = mix(bits, "cuda"), mix(bits, "torch")
+            if not torch.equal(got, want):
+                fail(f"extra step: {path} differs between kernel and plain {label} gossip")
+            del got, want
+        got, want = mix(ones, "cuda"), mix(row, "cuda")
+        if not torch.equal(got, want):
+            fail(f"extra step: {path} with all-ones gates differs from unfaulted gossip")
+        del got, want
+    log("main: extra step: gossip through the kernel and through the plain version "
+        "from the same state agree bit for bit on every leaf, for the schedule row and "
+        f"for the faulted per-node bits ({int((node_bits == 0).sum())} of "
+        f"{node_bits.size} gates 0); all-ones gates equal the unfaulted gossip bit for bit")
+
+
+def check_checkpoint(torch, params, opt_state):
+    """The first two nodes' full-width state through save_run_step and
+    restore_run(device="cuda") in a temp directory, every leaf compared
+    with torch.equal; the directory is deleted afterwards."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.tree import flatten, tree_map
+
+    part = lambda tree: tree_map(lambda a: a[:CKPT_NODES], tree)
+    p2, s2 = part(params), part(opt_state)
+    nbytes = sum(t.numel() * t.element_size() for t in flatten({"p": p2, "s": s2}).values())
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    free = shutil.disk_usage(parent).free
+    if free < 1.2 * nbytes:
+        fail(f"checkpoint of {nbytes / 1e9:.2f} GB: {parent} has {free / 1e9:.2f} GB free")
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=parent)
+    try:
+        t0 = time.perf_counter()
+        d = ckpt.save_run_step(root, p2, s2, step=STEPS + FAULTED_STEPS + 1)
+        t_save = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        t0 = time.perf_counter()
+        r_params, r_state, step = ckpt.restore_run(d, device="cuda")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        got, want = flatten({"p": r_params, "s": r_state}), flatten({"p": p2, "s": s2})
+        if got.keys() != want.keys() or step != STEPS + FAULTED_STEPS + 1:
+            fail(f"checkpoint: restored step {step} / leaves {sorted(got)[:4]}...")
+        for path, t in want.items():
+            g = got[path]
+            if g.device.type != "cuda" or g.dtype != t.dtype or not torch.equal(g, t):
+                fail(f"checkpoint: {path} does not come back bit-equal on the card")
+        log(f"main: checkpoint of the first {CKPT_NODES} nodes' params and velocities "
+            f"({len(want)} leaves, {nbytes / 1e9:.2f} GB; {on_disk / 1e9:.2f} GB on disk, "
+            f"{free / 1e9:.0f} GB free before): save_run_step {t_save:.2f} s "
+            f"({nbytes / 1e9 / t_save:.2f} GB/s), restore_run to the card {t_restore:.2f} s "
+            f"({nbytes / 1e9 / t_restore:.2f} GB/s); every leaf bit-equal (torch.equal)")
+        del r_params, r_state, got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def phase_check(torch, plan):
@@ -1031,6 +1189,61 @@ def phase_check(torch, plan):
         fail("launch.train run: non-finite loss or consensus")
     if abs(rows[0]["loss"] - 6.26) > 0.1:
         fail(f"launch.train run: step-0 loss {rows[0]['loss']} is not near 6.26")
+    check_crash_resume(torch)
+
+
+def check_crash_resume(torch):
+    """The training CLI on the card with link drops: an uninterrupted run,
+    a run that checkpoints every 3 steps and crashes after step 4, and its
+    --resume auto, which must end where the uninterrupted run ends."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.faults import SimulatedCrash
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.launch import train
+
+    base = ["--preset", "tiny", "--steps", "8", "--p-drop", str(P_DROP)]
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli-ckpt-", dir=parent)
+    try:
+        ck = ["--ckpt-dir", root, "--ckpt-every", "3"]
+        gossip_axpy.launches = 0
+        whole = train.main(base)
+        launches = [gossip_axpy.launches]
+        gossip_axpy.launches = 0
+        try:
+            train.main(base + ck + ["--crash-at-step", "4"])
+            fail("launch.train --crash-at-step 4 did not crash")
+        except SimulatedCrash as crash:
+            if crash.step != 4:
+                fail(f"launch.train crashed after step {crash.step}, not 4")
+        launches.append(gossip_axpy.launches)
+        resumable = ckpt.find_resumable(root)
+        if resumable is None or not resumable.endswith("step_00000003"):
+            fail(f"after the crash, find_resumable gives {resumable}, not step_00000003")
+        gossip_axpy.launches = 0
+        resumed = train.main(base + ck + ["--resume", "auto"])
+        launches.append(gossip_axpy.launches)
+        final = ckpt.find_resumable(root)
+        if final is None or not final.endswith("step_00000008"):
+            fail(f"after the resumed run, find_resumable gives {final}, not step_00000008")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = whole[-1], resumed[-1]
+    gaps = {key: abs(b[key] - a[key]) for key in ("loss", "consensus")}
+    log(f"check: launch.train --preset tiny --steps 8 --p-drop {P_DROP} on the card: "
+        f"uninterrupted, crashed after step 4 (checkpoint every 3), then --resume auto "
+        f"from step_00000003: gossip_axpy launches {launches}; final step {b['step']} loss "
+        f"{b['loss']:.7f} vs {a['loss']:.7f} (gap {gaps['loss']:.3g}), consensus "
+        f"{b['consensus']:.7e} vs {a['consensus']:.7e} (gap {gaps['consensus']:.3g}); "
+        f"tolerance rtol 1e-5, atol 1e-7")
+    if launches != [8 * 12, 5 * 12, 5 * 12]:
+        fail(f"crash and resume runs: gossip_axpy launches {launches}, expected [96, 60, 60]")
+    if b["step"] != a["step"] or any(gaps[key] > 1e-7 + 1e-5 * abs(a[key]) for key in gaps):
+        fail("the resumed run does not end where the uninterrupted run ends")
 
 
 def main() -> None:

@@ -43,13 +43,19 @@
 //   add the fp32 p. Products, softmax and the next tile's wait run one
 //   after another inside a warpgroup; two blocks share an SM so that one's
 //   softmax overlaps the other's products;
-// * fp32 (the parity runs), bf16 hd 32, and a k/v with no keys: the scalar
-//   kernel, fp32 FMAs on the CUDA cores. One block of 256 threads per tile
-//   as above walks the k tiles; Q (transposed, pre-scaled), K and V tiles
-//   live in shared memory as fp32 and each thread computes a 4 x 4 block of
-//   scores and a 4 x hd/16 block of the output. bf16 hd 32 stays here: its
+// * fp32 (the parity runs), bf16 hd 32, 112, 192 and 256, and a k/v with
+//   no keys: the scalar kernel, fp32 FMAs on the CUDA cores. One block of
+//   256 threads per tile as above walks the k tiles; Q (transposed,
+//   pre-scaled), K and V tiles live in shared memory as fp32 and each
+//   thread computes a 4 x 4 block of scores and a 4 x hd/16 block of the
+//   output. The tile loads stride a tile's 16-byte chunks over the 256
+//   threads, so a chunk count that 256 does not divide (hd 112: 14 or 28 a
+//   row) leaves some threads a chunk short. bf16 hd 32 stays here: its
 //   64-byte rows would need the 64-byte swizzle, a second descriptor layout
-//   that no serving model needs.
+//   that no serving model needs. bf16 hd 112, 192 and 256 (kimi-k2,
+//   nemotron-4-340b, gemma3-4b) stay here until the wgmma kernel takes
+//   them: 112 is not a multiple of the 64-column box, and 192 / 256 need
+//   a wider accumulator than its 2 blocks an SM leave registers for.
 //
 // Both walk the k tiles of a q tile from the window's first live tile to
 // the causal diagonal and kv_len (the TPU's sequential k grid axis and its
@@ -59,9 +65,12 @@
 // a row with no live key, never NaN.
 //
 // Shared memory: scalar (2 * hd * 64 + 64 * hd + 64 * 64) * 4 bytes, 112 KB
-// at hd 128; wgmma 5 tiles of 64 x hd bf16, 80 KB at hd 128 (two blocks per
-// SM). Head widths 32, 64 and 128 are compiled; any other width is refused
-// with cudaErrorInvalidValue (the Python wrapper raises first).
+// at hd 128 and 208 KB at hd 256 (one block an SM, under the 227 KB
+// opt-in); wgmma 5 tiles of 64 x hd bf16, 80 KB at hd 128 (two blocks per
+// SM). At hd 256 a scalar thread holds 64 fp32 accumulators. Head widths
+// 32, 64, 112, 128, 192 and 256 (every head_dim of the model registry) are
+// compiled; any other width is refused with cudaErrorInvalidValue (the
+// Python wrapper raises first).
 
 #include <cstdint>
 
@@ -322,7 +331,10 @@ cudaError_t dispatch_hd(int hd, const Params& prm, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<T, 32>(prm, stream);
     case 64: return launch<T, 64>(prm, stream);
+    case 112: return launch<T, 112>(prm, stream);
     case 128: return launch<T, 128>(prm, stream);
+    case 192: return launch<T, 192>(prm, stream);
+    case 256: return launch<T, 256>(prm, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,8 +13,12 @@ Gossip modes (paper Section 3.3):
     "static"  only the activated subset is exchanged
     "none"    local SGD only (the no-communication baseline)
 
-The JAX package's "overlap" mode and its fault-injected (``faulted``)
-steps are not ported yet (ROADMAP queue 1, items 11 and 10).
+``faulted=True`` builds the link-failure-tolerant step, as in the JAX
+package: ``bits`` is then the ``(nodes, M)`` per-node effective
+activation array (``repro_torch.faults.FaultSchedule.node_bits``), which
+masked gossip takes as it is and static gossip as its ``gate_bits``.
+The JAX package's "overlap" mode is not ported yet (ROADMAP queue 1,
+item 11).
 """
 from __future__ import annotations
 
@@ -119,13 +123,14 @@ class TrainStep:
     ``params``/``opt_state`` are updated in place (and returned);
     ``batch`` leaves are (nodes, per_node_batch, ...); ``bits`` is the
     (M,) activation row of the a-priori schedule (ignored by "static"
-    and "none"). ``losses`` and each metric come back per node, shape
-    (nodes,). After a call, ``last_phases.ms()`` splits its time into
-    fwd_bwd, optimizer and gossip.
+    and "none"), or with ``faulted`` the (nodes, M) per-node effective
+    bits (the gates of "static"). ``losses`` and each metric come back
+    per node, shape (nodes,). After a call, ``last_phases.ms()`` splits
+    its time into fwd_bwd, optimizer and gossip.
     """
 
     def __init__(self, model, opt: Optimizer, plan, *, gossip_mode: str,
-                 active: Sequence[int], grad_clip: float):
+                 active: Sequence[int], grad_clip: float, faulted: bool):
         self.model = model
         self.opt = opt
         self.gossip_mode = gossip_mode
@@ -133,6 +138,7 @@ class TrainStep:
         self.alpha = float(plan.alpha)
         self.active = tuple(int(j) for j in active)
         self.grad_clip = grad_clip
+        self.faulted = faulted
         self.last_phases = None
 
     def _local_sgd(self, params, opt_state, batch, i: int, phases: PhaseTimes):
@@ -156,6 +162,10 @@ class TrainStep:
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     def __call__(self, params, opt_state, batch, bits):
+        ndim, want = (2, "(nodes, M)") if self.faulted else (1, "(M,)")
+        if self.gossip_mode != "none" and np.ndim(bits) != ndim:
+            raise ValueError(f"a step built with faulted={self.faulted} takes "
+                             f"{want} bits, got shape {tuple(np.shape(bits))}")
         device = tree_leaves(params)[0].device
         phases = PhaseTimes(device)
         per_node = [
@@ -168,7 +178,8 @@ class TrainStep:
             if self.gossip_mode == "masked":
                 mix_matchings_masked(params, self.alpha, self.perms, bits, inplace=True)
             elif self.gossip_mode == "static":
-                mix_matchings(params, self.alpha, self.perms, self.active, inplace=True)
+                mix_matchings(params, self.alpha, self.perms, self.active,
+                              gate_bits=bits if self.faulted else None, inplace=True)
         self.last_phases = phases
         losses = torch.stack([loss for loss, _ in per_node])
         metrics = {
@@ -185,8 +196,13 @@ def make_train_step(
     gossip_mode: str = "masked",
     active: Sequence[int] = (),
     grad_clip: float = 0.0,
+    faulted: bool = False,
 ) -> TrainStep:
-    """Build the decentralized step (see :class:`TrainStep`)."""
+    """Build the decentralized step (see :class:`TrainStep`).
+    ``faulted=True`` takes per-node ``(nodes, M)`` bits; with all-ones
+    gates a masked step's results are bit-equal to the default step's
+    (static gossip sums gated deltas where its plain path sums partners,
+    as in the JAX package: fp32 rounding apart)."""
     if gossip_mode == "sequential":   # the JAX package's other spelling
         gossip_mode = "masked"
     if gossip_mode == "overlap":
@@ -196,4 +212,4 @@ def make_train_step(
     if gossip_mode not in ("masked", "static", "none"):
         raise ValueError(f"unknown gossip_mode {gossip_mode!r}")
     return TrainStep(model, opt, plan, gossip_mode=gossip_mode,
-                     active=active, grad_clip=grad_clip)
+                     active=active, grad_clip=grad_clip, faulted=faulted)

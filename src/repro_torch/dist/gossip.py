@@ -138,23 +138,38 @@ def mix_matchings_masked(
     stacked: PyTree,
     alpha: float,
     permutations,                         # (M, m) involutions
-    bits,                                 # (M,) activation bits
+    bits,                                 # (M,) activation bits, or (m, M) per node
     *,
     impl: str = "auto",
     inplace: bool = False,
 ) -> PyTree:
     """Masked gossip: every matching's exchange runs, each delta scaled
     by its activation bit — the JAX package's one-executable schedule
-    mode, and the main path's gossip."""
-    num = np.shape(permutations)[0]
+    mode, and the main path's gossip.
+
+    ``bits`` is the (M,) schedule row, or the faulted step's ``(nodes,
+    M)`` per-node effective bits (``FaultSchedule.node_bits``: the row
+    times the step's edge-symmetric link-survival gates), which scale
+    node i's delta for matching j by ``bits[i, j]``. A dropped exchange
+    then zeroes the delta at both endpoints: self-weight
+    renormalization, which keeps the effective mixing matrix symmetric
+    and doubly stochastic. With all-ones gates the result is bit-equal
+    to the (M,) row's."""
+    num, m = np.shape(permutations)
+    per_node = np.ndim(bits) == 2
 
     def target(x):
         idx = _gather_index(permutations, x)
-        b = _as_f32(bits, x.device, (num,), "activation bits")
+        if per_node:
+            b = _as_f32(bits, x.device, (m, num), "per-node bits")
+            scale = [_node_view(b[:, j], x.dim()) for j in range(num)]
+        else:
+            b = _as_f32(bits, x.device, (num,), "activation bits")
+            scale = [b[j] for j in range(num)]
         xf = x.float()
         delta = torch.zeros_like(xf)
         for j in range(num):
-            delta.add_(_partner(x, idx[j]).sub_(xf).mul_(b[j]))
+            delta.add_(_partner(x, idx[j]).sub_(xf).mul_(scale[j]))
         # y with x + alpha*(y - x) == x + alpha * sum_j b_j (partner_j - x),
         # kept fp32: rounding it to x's dtype would make masked and static
         # modes diverge for bf16 params

@@ -7,8 +7,10 @@ with causal and sliding-window masks, GQA (query head h reads kv head
 running statistics; a row with no live key is written as 0.
 ``repro_torch.kernels.ref.attention_ref`` is their plain PyTorch version.
 bf16 with head_dim 64 or 128 runs on the tensor cores (wgmma fed by
-TMA); fp32 and bf16 head_dim 32 on the scalar kernel. ``kernel_path``
-says which a call takes; the rule lives in the CUDA source.
+TMA); fp32, and bf16 at the other widths of ``HEAD_DIMS``, on the scalar
+kernel. ``HEAD_DIMS`` holds every ``head_dim`` of the model registry.
+``kernel_path`` says which a call takes; the rule lives in the CUDA
+source.
 
 It masks the ragged q and k edges itself, so unlike the JAX wrapper no
 caller pads to block multiples. It has no backward: the serving prefill
@@ -29,7 +31,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128, 192, 256)
 
 
 def _library():

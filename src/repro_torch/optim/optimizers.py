@@ -1,6 +1,7 @@
 """Optimizers as functional transforms over nested dicts of tensors.
 
-The port of ``repro.optim.optimizers`` (SGD part). The same
+The port of ``repro.optim.optimizers``: SGD (the paper's optimizer),
+AdamW, the LR schedules and ``make_optimizer``. The same
 ``(init, update)`` pattern as the JAX package:
 
     opt = sgd(lr=..., momentum=...)
@@ -8,13 +9,14 @@ The port of ``repro.optim.optimizers`` (SGD part). The same
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-State and updates are fp32 whatever the parameter dtype;
-``apply_updates`` casts back to it. AdamW and the LR schedules are not
-ported yet (ROADMAP queue 1, item 6).
+State and updates are fp32 whatever the parameter dtype, with an int32
+``step``; ``apply_updates`` casts back to the parameter dtype. A
+schedule is a function of the int32 step tensor that computes in fp32.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple, Union
 
 import torch
@@ -83,3 +85,101 @@ def sgd(
         return updates, new_state
 
     return Optimizer(init=init, update=update)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+def adamw(
+    learning_rate: Union[Callable[[torch.Tensor], Any], float],
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> Optimizer:
+    """AdamW with fp32 moments ``mu`` / ``nu``, bias correction and
+    decoupled weight decay, for the transformer workloads."""
+    lr_fn = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+
+    def init(params):
+        leaf = tree_leaves(params)[0]
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        return {
+            "step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+            "mu": tree_map(zeros, params),
+            "nu": tree_map(zeros, params),
+        }
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr = lr_fn(step)
+        g = tree_map(lambda x: x.float(), grads)
+        mu = tree_map(lambda m, gi: b1 * m + (1 - b1) * gi, state["mu"], g)
+        nu = tree_map(lambda n, gi: b2 * n + (1 - b2) * torch.square(gi), state["nu"], g)
+        bc1 = 1 - b1 ** step.float()
+        bc2 = 1 - b2 ** step.float()
+
+        def upd(m, n, p):
+            u = (m / bc1) / (torch.sqrt(n / bc2) + eps)
+            if weight_decay:
+                u = u + weight_decay * p.float()
+            return -lr * u
+
+        updates = tree_map(upd, mu, nu, params)
+        return updates, {"step": step, "mu": mu, "nu": nu}
+
+    return Optimizer(init=init, update=update)
+
+
+# ---------------------------------------------------------------------------
+# LR schedules: functions of the int32 step tensor, computed in fp32
+# ---------------------------------------------------------------------------
+def constant_schedule(lr: float):
+    return lambda step: torch.tensor(lr, dtype=torch.float32, device=step.device)
+
+
+def step_decay_schedule(lr: float, boundaries, factor: float = 0.1):
+    """The paper's CIFAR schedule: decay by 10x at epochs 100/150."""
+    bounds = [int(b) for b in boundaries]
+
+    def fn(step):
+        bs = torch.tensor(bounds, dtype=step.dtype, device=step.device)
+        k = torch.sum(step >= bs).float()
+        return torch.tensor(lr, dtype=torch.float32, device=step.device) * factor ** k
+
+    return fn
+
+
+def cosine_schedule(lr: float, total_steps: int, warmup_steps: int = 0,
+                    min_ratio: float = 0.1):
+    def fn(step):
+        step = step.float()
+        warm = torch.clamp(step / max(warmup_steps, 1), max=1.0)
+        t = torch.clamp((step - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        cos = min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+        return torch.tensor(lr, dtype=torch.float32, device=step.device) * warm * cos
+
+    return fn
+
+
+def make_optimizer(train_cfg) -> Optimizer:
+    """Build from a ``repro_torch.configs.base.TrainConfig``."""
+    if train_cfg.lr_schedule == "constant":
+        sched = constant_schedule(train_cfg.learning_rate)
+    elif train_cfg.lr_schedule == "cosine":
+        sched = cosine_schedule(
+            train_cfg.learning_rate, train_cfg.steps, train_cfg.warmup_steps
+        )
+    elif train_cfg.lr_schedule == "step":
+        sched = step_decay_schedule(
+            train_cfg.learning_rate,
+            [train_cfg.steps // 2, 3 * train_cfg.steps // 4],
+        )
+    else:
+        raise ValueError(train_cfg.lr_schedule)
+    if train_cfg.optimizer == "sgd":
+        return sgd(sched, momentum=train_cfg.momentum,
+                   weight_decay=train_cfg.weight_decay)
+    if train_cfg.optimizer == "adamw":
+        return adamw(sched, weight_decay=train_cfg.weight_decay)
+    raise ValueError(train_cfg.optimizer)

@@ -6,7 +6,10 @@ kernel run through ``repro.kernels.ops.attention(impl="interpret")`` and
 to the JAX oracle ``repro.kernels.ref.attention_ref``, on the same numpy
 inputs and the shapes of ``tests/test_kernels.py``: the block sweep, the
 padding wrapper, pad masking under causal and window masks, and rows
-that are fully masked within a tile.
+that are fully masked within a tile. Every ``head_dim`` of the model
+registry is one of the kernel's compiled widths, and the smoke
+nemotron, kimi and gemma3 models at their published widths (192, 112,
+256) prefill through ``ops.attention`` in agreement with JAX.
 
 Tolerances: fp32 2e-5 abs and rel (summation order only, as in
 ``tests/test_kernels.py``); bf16 inputs 2e-2 (the outputs are rounded to
@@ -94,3 +97,57 @@ def test_attention_dispatch_modes():
     with pytest.raises(ValueError, match="unknown impl"):
         ops.attention(*tx, impl="pallas")
     assert jax.default_backend() == "cpu"
+
+
+def test_every_registry_head_dim_is_a_compiled_width():
+    """The card's kernel is compiled for each width it may be handed: a
+    registry model whose head_dim is missing would raise at its prefill."""
+    from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    widths = {get_config(a).head_dim for a in ARCH_IDS if get_config(a).num_heads}
+    widths |= {get_smoke_config(a).head_dim for a in ARCH_IDS if get_smoke_config(a).num_heads}
+    assert {112, 192, 256} <= widths
+    assert widths <= set(HEAD_DIMS), sorted(widths - set(HEAD_DIMS))
+
+
+@pytest.mark.parametrize("arch,hd", [("nemotron_4_340b", 192), ("kimi_k2_1t_a32b", 112),
+                                     ("gemma3_4b", 256)])
+def test_prefill_at_the_wide_registry_widths_matches_jax(monkeypatch, arch, hd):
+    """The smoke model at its published head_dim, fp32: the port's
+    prefill runs each layer's attention through ``ops.attention`` (the
+    kernel's plain version on the CPU) and agrees with the JAX
+    ``serve_forward`` (2e-5 abs, 1e-5 rel: summation order, as in
+    ``tests/test_torch_serve.py``)."""
+    import dataclasses
+
+    from repro.configs.registry import get_smoke_config as jax_smoke_config
+    from repro.models.transformer import Model as JaxModel
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.dist import serve as sv
+    from repro_torch.models.transformer import Model
+
+    over = dict(head_dim=hd, compute_dtype="float32")
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **over)
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    jm, model = JaxModel(jcfg), Model(cfg)
+    jparams = jm.init(jax.random.key(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    B, S, max_len = 2, 24, 32
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    widths = []
+    attention = ops.attention
+
+    def spy(q, k, v, **kw):
+        widths.append(q.shape[-1])
+        return attention(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "attention", spy)
+    got, _ = sv.make_prefill_step(model, max_len=max_len)(
+        params, torch.as_tensor(toks), model.init_cache(B, max_len, device="cpu"))
+    assert widths == [hd] * cfg.num_layers
+    want, _ = jm.serve_forward(jparams, jnp.asarray(toks), jm.init_cache(B, max_len),
+                               start_position=0, max_len=max_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-5)

@@ -1,9 +1,12 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 An AST scan of every module under ``src/repro_torch`` and of
-``chip_smoke.py`` for imports of ``jax``/``jaxlib`` or of ``repro``
-(whose ``__init__`` imports JAX), and a subprocess that imports every
-port module and then finds neither in ``sys.modules``.
+``chip_smoke.py`` for imports of ``jax``/``jaxlib``, of ``repro``
+(whose ``__init__`` imports JAX), and of ``msgpack`` / ``ml_dtypes``
+(which the JAX package's checkpoints use and the machines the port runs
+on need not have: the port carries its own MessagePack codec and bit
+views), and a subprocess that imports every port module and then finds
+none of them in ``sys.modules``.
 """
 import ast
 import os
@@ -13,7 +16,7 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes"}
 
 
 def _port_files():

@@ -101,6 +101,45 @@ def test_cuda_kernel_bit_equal_in_place_across_tiles(sm90, x_dtype, y_dtype):
             torch.testing.assert_close(xc, want, rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_faulted_masked_gossip_through_the_kernel_is_bit_equal(sm90, dtype):
+    # per-node effective bits at p_drop 0.35 (paper8, 6 matchings): the
+    # kernel and the plain version from the same fp32 targets; and
+    # all-ones gates give the unfaulted row's result bit for bit
+    from repro_torch import core, faults
+    from repro_torch.dist.gossip import mix_matchings_masked
+
+    plan = core.plan_matcha(core.named_graph("paper8", 8, seed=3), 0.5,
+                            budget_steps=400, seed=0)
+    sched = plan.schedule(4, seed=1)
+    fs = faults.make_fault_schedule(plan, 4, faults.FaultSpec(p_drop=0.35, seed=0))
+    rng = np.random.default_rng(0)
+    x = {"w": torch.from_numpy(rng.standard_normal((8, 333, 65)).astype(np.float32)).to(
+             "cuda", dtype),
+         "b": torch.from_numpy(rng.standard_normal((8, 4099)).astype(np.float32)).to(
+             "cuda", dtype),
+         "n": torch.arange(8, device="cuda")}
+    mix = lambda bits, impl: mix_matchings_masked(x, plan.alpha, plan.permutations,
+                                                  torch.as_tensor(bits, device="cuda"),
+                                                  impl=impl)
+    dropped = 0
+    for k in range(4):
+        row = sched.activations[k].astype(np.float32)
+        bits = fs.node_bits(row, k)
+        dropped += fs.dropped_links(row, k)
+        before = gossip_axpy.launches
+        got = mix(bits, "cuda")
+        assert gossip_axpy.launches == before + 2
+        want = mix(bits, "torch")
+        ones, plain = mix(np.tile(row, (8, 1)), "cuda"), mix(row, "cuda")
+        torch.cuda.synchronize()
+        for key in x:
+            assert torch.equal(got[key], want[key]), (k, key)
+            assert torch.equal(ones[key], plain[key]), (k, key)
+    assert dropped > 0
+
+
 # ---------------------------------------------------------------------------
 # flash attention and the SSD chunk scan
 #
@@ -152,6 +191,37 @@ def _live(Sq, Sk, causal, window, kv_len):
 def test_flash_kernel_matches_plain_version(sm90, dtype, B, Sq, Sk, Hq, Hkv, hd,
                                             causal, window, kv_len):
     q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype)
+    kv_len = min(kv_len, Sk)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    n = kv_len or Sk
+    want = attention_ref(q, k[:, :n], v[:, :n], causal=causal, window=window)
+    live = _live(Sq, Sk, causal, window, kv_len).any(1).cuda()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got[:, live].float(), want[:, live].float(), **FA_TOL[dtype])
+    assert bool((got[:, ~live] == 0).all())
+
+
+# Every other head_dim of the model registry (kimi-k2 112, nemotron-4-340b
+# 192, gemma3-4b 256) on the scalar kernel: 7, 12 and 16 output columns a
+# thread, 14 / 28 chunks a row at 112 (256 threads do not divide them),
+# 208 KB of shared memory at 256. Heads in the models' ratios, cut down.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hd,Hq,Hkv", [(112, 8, 1), (192, 12, 1), (256, 4, 2)],
+                         ids=["kimi", "nemotron", "gemma3"])
+@pytest.mark.parametrize("B,Sq,Sk", [(2, 150, 150), (1, 37, 130), (2, 130, 37)])
+@pytest.mark.parametrize("causal,window,kv_len", [
+    (True, 0, 0), (True, 24, 0), (False, 0, 0), (False, 24, 0), (True, 0, 31), (False, 0, 31),
+])
+def test_flash_kernel_at_every_registry_width(sm90, dtype, hd, Hq, Hkv, B, Sq, Sk,
+                                              causal, window, kv_len):
+    from repro_torch.kernels.flash_attention import kernel_path
+
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype, seed=hd + Sq)
+    assert kernel_path(q, k) == "scalar"
     kv_len = min(kv_len, Sk)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
@@ -233,10 +303,12 @@ def test_flash_wgmma_kernel_at_the_serving_shapes(sm90, Hq, Hkv):
 def test_flash_kernel_path_rule(sm90):
     from repro_torch.kernels.flash_attention import kernel_path
 
-    # bf16 hd 64 / 128 on the tensor cores; fp32, and bf16 hd 32, scalar
+    # bf16 hd 64 / 128 on the tensor cores; fp32, and bf16 at 32, 112,
+    # 192 and 256, scalar
     for dtype, hd, path in [(torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
                             (torch.bfloat16, 32, "scalar"), (torch.float32, 128, "scalar"),
-                            (torch.float32, 64, "scalar")]:
+                            (torch.float32, 64, "scalar"), (torch.bfloat16, 112, "scalar"),
+                            (torch.bfloat16, 192, "scalar"), (torch.bfloat16, 256, "scalar")]:
         q, k, _ = _qkv(1, 8, 8, 2, 1, hd, dtype)
         assert kernel_path(q, k) == path, (dtype, hd)
     # bf16 hd 32 on the scalar kernel agrees all the same

@@ -6,8 +6,10 @@ smoke models alike, print the JAX CLI's step lines and write its CSV
 columns; its step-0 loss must sit near the JAX CLI's ~6.26 (about ln
 512 for the smoke vocab; not bit-equal, since the port initializes from
 its own generator; tolerance 0.1). Without a card and without ``--device cpu``
-it must refuse to run, and every flag it has not ported must exit with
-the ROADMAP item that ports it.
+it must refuse to run, every flag it has not ported must exit with
+the ROADMAP item that ports it, and ``--resume auto`` without
+``--ckpt-dir`` must exit (the fault and checkpoint flags themselves run
+in ``tests/test_torch_faults.py``).
 """
 import csv
 import math
@@ -92,13 +94,22 @@ def test_library_entry_points_default_to_the_card(entry):
 @pytest.mark.parametrize("flags,item", [
     (["--shard", "2"], "item 15"),
     (["--model-par", "2"], "item 15"),
+    (["--stream-layers"], "item 15"),
+    (["--no-stream-scan"], "item 15"),
     (["--gossip-mode", "overlap"], "item 11"),
-    (["--p-drop", "0.1"], "item 10"),
-    (["--crash-at-step", "3"], "item 10"),
-    (["--ckpt-dir", "ck"], "item 9"),
-    (["--resume", "auto"], "item 9"),
+    (["--gossip-mode", "overlap", "--p-drop", "0.1"], "item 11"),
     (["--trace", "tr"], "item 14"),
+    (["--trace", "tr", "--ckpt-dir", "ck", "--resume", "auto"], "item 14"),
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=item):
+        train.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--resume", "auto"],
+    ["--resume", "auto", "--p-drop", "0.35", "--ckpt-every", "3"],
+])
+def test_resume_auto_without_ckpt_dir_exits(flags):
+    with pytest.raises(SystemExit, match="--resume auto requires --ckpt-dir"):
         train.main(["--device", "cpu", *flags])
