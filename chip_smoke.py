@@ -36,7 +36,9 @@ non-zero exit:
 3. main    the decentralized trainer at full published width:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
-           paper8, MATCHA budget 0.5, masked gossip, SGD lr 0.05 momentum
+           paper8, MATCHA budget 0.5; first each matching's gather probe
+           over the (8, params per node) fp32 buffer; then masked gossip,
+           SGD lr 0.05 momentum
            0.9, 4 x 128 tokens per node, 5 steps, then 2 faulted steps
            (link drops at p_drop 0.35, per-node bits); launch counts,
            per-step and per-phase times, dropped exchanges, peak memory,
@@ -46,7 +48,14 @@ non-zero exit:
            agree bit for bit, as must all-ones gates and the unfaulted
            gossip; then the first two nodes' params and velocities (8.1
            GB) through save_run_step and restore_run to the card, bit for
-           bit, with the save and restore rates;
+           bit, with the save and restore rates; then from that state 5
+           overlap steps (the exchange on a side CUDA stream), 2 faulted
+           overlap steps and the flush: step times against the masked
+           median, overlap_ratio, the gossip_launch span, the launch
+           alone, peak memory, the GossipState bytes, 12 gossip_axpy
+           launches a step and 12 for the flush, and the pending
+           correction through the kernel and the plain version from the
+           same state, bit for bit;
 4. serve   the serving path (``repro_torch.launch.serve``) at full
            published width: internlm2-1.8b (24 layers), mamba2-370m (48
            layers, d 1024, 32 SSM heads of 64, state 128, vocab 50280) and
@@ -65,11 +74,15 @@ non-zero exit:
            the CPU from the same weights must agree: two masked training
            steps, and for internlm2, mamba2 and dbrx with 16 experts and
            top-4 (the ragged MoE branch) a prefill, one decode step and
-           every cache; then the training CLI ``repro_torch.launch.train``
-           must train on the card, and with link drops (--p-drop 0.35) a
+           every cache; three overlap steps and the flush; then the
+           training CLI ``repro_torch.launch.train``
+           must train on the card, and with link drops (--p-drop 0.35),
+           and with --gossip-mode overlap, a
            run that checkpoints every 3 steps and crashes after step 4
            must, resumed with --resume auto, end where an uninterrupted
-           run ends;
+           run ends (overlap: bit for bit); --trace on the training CLI
+           (masked and overlap) and the serving CLI must write files the
+           port's readers load;
 6. tests   the card-only tests (``pytest -m cuda
            tests/test_torch_kernels_cuda.py``) in a child process.
 
@@ -93,6 +106,8 @@ FP32_FLOP_PER_S = 67e12         # fp32 on the CUDA cores, same source
 NODES, BATCH, SEQ, STEPS = 8, 4, 128, 5
 FAULTED_STEPS, P_DROP = 2, 0.35  # faulted steps after the masked ones, drop rate
 CKPT_NODES = 2                  # nodes whose full-width state is checkpointed
+OVERLAP_STEPS, OVERLAP_FAULTED = 5, 2  # overlap steps at full width, then faulted ones
+PROBE_ITERS = 3                 # timed repetitions of each matching's gather probe
 SMALL_TOL = 1e-4                # card vs CPU, fp32 tiny preset, 2 steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
 # kernel vs plain version on the card: the kernels sum in another order
@@ -973,8 +988,10 @@ def phase_serve_check(torch):
 
 
 def phase_main(torch, cfg, plan):
-    """The full-width decentralized trainer: masked steps, then faulted
-    steps; returns the kernel launches of both."""
+    """The full-width decentralized trainer: the per-matching probes,
+    masked steps, faulted steps, then overlap steps (plain and faulted)
+    and the flush; returns the kernel launches of the masked and the
+    overlap path, each counted from 0."""
     from repro_torch.data.pipeline import DecentralizedBatches
     from repro_torch.dist import decen_train as dt
     from repro_torch.faults import FaultSpec, make_fault_schedule
@@ -988,6 +1005,7 @@ def phase_main(torch, cfg, plan):
         f"{cfg.num_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} vocab "
         f"{cfg.vocab_size}; reduced: num_layers 24 -> {cfg.num_layers} "
         f"(dataclasses.replace); {model.num_params()} params per replica")
+    probe_rows = phase_probes(torch, model, plan)
     total = STEPS + FAULTED_STEPS + 1
     schedule = plan.schedule(total, seed=0)
     t0 = time.perf_counter()
@@ -1060,7 +1078,184 @@ def phase_main(torch, cfg, plan):
     params, opt_state, _, _ = local(params, opt_state, batches[k], None)
     check_gossip(torch, plan, params, row, fault_sched.node_bits(row, k))
     check_checkpoint(torch, params, opt_state)
+    torch.cuda.empty_cache()
+    masked = dict(step_ms=step_ms[mid], phases=phase_ms[mid], peak=peak)
+    overlap_launches = phase_overlap(torch, model, opt, plan, params, opt_state, batches,
+                                     probe_rows, masked)
+    return launches + overlap_launches
+
+
+def phase_probes(torch, model, plan):
+    """Each matching's gather ``x[pi_j]`` over the (nodes, params per
+    node) fp32 buffer at full width, timed by CUDA events, before any
+    training state exists; returns the probe rows."""
+    from repro_torch.telemetry import StepTimer, TraceRecorder
+    from repro_torch.telemetry import probes as tprobes
+
+    rec = TraceRecorder()
+    elems = model.num_params()
+    t0 = time.perf_counter()
+    rows = tprobes.measure_matchings(plan, per_node_elements=elems, timer=StepTimer(rec),
+                                     iters=PROBE_ITERS, device="cuda")
+    secs = time.perf_counter() - t0
+    events = rec.events()
+    if [e.name for e in events] != [f"gossip/matching{r['matching']}" for r in rows
+                                    for _ in range(PROBE_ITERS)]:
+        fail(f"probes: events {[e.name for e in events][:8]}... do not follow the rows")
+    # a gather reads the buffer once and writes one copy
+    bound = 2 * 4 * NODES * elems / HBM_BYTES_PER_S * 1e3
+    log(f"probes: per-matching gather of ({NODES}, {elems}) fp32 "
+        f"({4 * NODES * elems / 1e9:.2f} GB), {PROBE_ITERS} timed of each after 1 warm-up, "
+        f"{secs:.1f} s with set-up: " + ", ".join(
+            f"m{r['matching']} mean {r['mean_ms']:.3f} (p50 {r['p50_ms']:.3f}, p95 "
+            f"{r['p95_ms']:.3f})" for r in rows)
+        + f" ms; bound {bound:.3f} ms (bytes); events {len(events)} (cat comm, tid 1)")
+    if not all(math.isfinite(r["mean_ms"]) and r["mean_ms"] > 0 for r in rows):
+        fail(f"probes: bad times {rows}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_rows, masked):
+    """Overlap steps at full width from the masked run's state, then
+    faulted overlap steps and the flush: step times against the masked
+    median, overlap_ratio, the gossip_launch span on the side stream,
+    peak memory and the GossipState bytes; the gossip_axpy launches (12 a
+    step, 12 for the flush) are returned. Before the flush, the pending
+    correction lands through the kernel and through the plain version
+    from the same state, leaf by leaf, bit for bit."""
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist.gossip import delayed_delta_inplace
+    from repro_torch.faults import FaultSpec, make_fault_schedule
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.telemetry import StepTimer, TraceRecorder
+    from repro_torch.telemetry import probes as tprobes
+    from repro_torch.tree import flatten
+
+    total = OVERLAP_STEPS + OVERLAP_FAULTED
+    schedule = plan.schedule(total, seed=1)
+    fault_sched = make_fault_schedule(plan, total, FaultSpec(p_drop=P_DROP, seed=1))
+    bplan = dt.param_bucket_plan(model)
+    rec = TraceRecorder()
+    timer = StepTimer(rec)
+    steps = {f: dt.make_train_step(model, opt, plan, gossip_mode="overlap", bucket_plan=bplan,
+                                   faulted=f, timer=timer) for f in (False, True)}
+    flush = dt.make_gossip_flush(plan, bplan)
+    probe_ms = {r["matching"]: r["mean_ms"] for r in probe_rows}
+    n_leaves = len(flatten(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gstate = dt.init_gossip_state(plan, bplan, device="cuda")
+    log(f"overlap: {bplan.num_buckets} buckets (largest {max(bplan.bucket_sizes)} elements a "
+        f"node), GossipState {gstate.nbytes / 1e9:.2f} GB; memory allocated before the first "
+        f"step {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    gossip_axpy.launches = 0
+    step_ms, apply_ms = [], []
+    for k in range(total):
+        faulted = k >= OVERLAP_STEPS
+        row = schedule.activations[k].astype("float32")
+        bits = torch.as_tensor(fault_sched.node_bits(row, k) if faulted else row, device="cuda")
+        step = steps[faulted]
+        before = gossip_axpy.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer.phase("step", cat="step", step=k) as span:
+            params, opt_state, gstate, losses, _ = step(
+                params, opt_state, gstate, batches[k % len(batches)], bits, step=k)
+            span.fence(losses)       # a device-wide synchronize: the side stream too
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step.record_launch_spans(wait=True)
+        launched = gossip_axpy.launches - before
+        phases = step.last_phases.ms()
+        apply_ms.append(phases["gossip_apply"])
+        events = rec.events()
+        step_ev = [e for e in events if e.name == "step" and e.step == k][-1]
+        launch_ev = [e for e in events if e.name == "gossip_launch" and e.step == k][-1]
+        begin = (launch_ev.ts_us - step_ev.ts_us) / 1e3
+        active = schedule.active_indices(k)
+        m = tprobes.step_metrics(step=k, step_ms=step_ms[-1],
+                                 comm_ms=sum(probe_ms[j] for j in active), gossip_mode="overlap")
+        loss = float(losses.mean())
+        cons = float(dt.consensus_distance(params))
+        main_ms = sum(phases.values())
+        faults_note = (f" faulted (p_drop {P_DROP}): {fault_sched.dropped_links(row, k)} "
+                       f"node-exchanges dropped" if faulted else "")
+        log(f"overlap: step {k} {step_ms[-1]:.1f} ms (main stream: gossip_apply "
+            f"{phases['gossip_apply']:.1f}, fwd_bwd {phases['fwd_bwd']:.1f}, optimizer "
+            f"{phases['optimizer']:.1f} ms); gossip_launch on the side stream "
+            f"{step.last_launch_ms:.1f} ms, from {begin:.1f} to "
+            f"{begin + step.last_launch_ms:.1f} ms of the step; both streams busy "
+            f"{main_ms + step.last_launch_ms - step_ms[-1]:.1f} ms; probes of the "
+            f"{len(active)} active matchings {m['comm_ms']:.2f} ms, overlap_ratio "
+            f"{m['overlap_ratio']:.4f}; gossip_axpy launches {launched} loss {loss:.4f} "
+            f"consensus {cons:.4e}{faults_note}")
+        if launched != n_leaves:
+            fail(f"overlap step {k}: {launched} gossip_axpy launches, expected {n_leaves}")
+        if not (math.isfinite(loss) and math.isfinite(cons)):
+            fail(f"overlap step {k}: loss {loss} / consensus {cons} not finite")
+    peak = torch.cuda.max_memory_allocated()
+    counted = gossip_axpy.launches
+    check_overlap_apply(torch, bplan, float(plan.alpha), params, gstate)
+    gossip_axpy.launches = counted       # the comparison's launches are not the path's
+    t0 = time.perf_counter()
+    params = flush(params, gstate, inplace=True)
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    launches = gossip_axpy.launches
+    cons = float(dt.consensus_distance(params))
+    # the launch alone, on an idle card, for the hidden share below
+    perms = torch.as_tensor(plan.permutations, dtype=torch.int64, device="cuda")
+    ones = torch.ones(plan.num_matchings, device="cuda")
+    alone = cuda_ms(torch, lambda: delayed_delta_inplace(gstate.delta, ones, perms), 2, 1)
+    launch_bound = 2 * gstate.nbytes / HBM_BYTES_PER_S * 1e3
+    steady = sorted(range(1, OVERLAP_STEPS), key=lambda k: step_ms[k])
+    mid = steady[len(steady) // 2]
+    main_alone = masked["phases"]["fwd_bwd"] + masked["phases"]["optimizer"]
+    serial = apply_ms[mid] + main_alone + alone
+    log(f"overlap: median step over steps 1..{OVERLAP_STEPS - 1}: {step_ms[mid]:.1f} ms "
+        f"against the masked median {masked['step_ms']:.1f} ms of this run "
+        f"({step_ms[mid] / masked['step_ms']:.3f}x); step 0 {step_ms[0]:.1f} ms; faulted "
+        f"overlap steps " + ", ".join(f"{step_ms[k]:.1f}" for k in range(OVERLAP_STEPS, total))
+        + f" ms; flush {flush_ms:.1f} ms, consensus after it {cons:.4e}")
+    log(f"overlap: the launch alone on an idle card {alone:.1f} ms (bound {launch_bound:.2f} ms: "
+        f"read the snapshot, write the delta); serial estimate of the median step (its "
+        f"gossip_apply {apply_ms[mid]:.1f} + the masked median's fwd_bwd and optimizer "
+        f"{main_alone:.1f} + the launch alone) {serial:.1f} ms, so "
+        f"{(serial - step_ms[mid]) / alone:.1%} of the launch was hidden")
+    log(f"overlap: peak memory allocated over the overlap steps {peak / 1e9:.2f} GB (masked "
+        f"steps {masked['peak'] / 1e9:.2f}"
+        f" GB), GossipState {gstate.nbytes / 1e9:.2f} GB; gossip_axpy launches {launches} over "
+        f"{total} overlap steps and the flush")
+    if launches != n_leaves * (total + 1):
+        fail(f"{launches} launches on the overlap path, expected {n_leaves * (total + 1)}")
+    if not math.isfinite(cons):
+        fail(f"overlap: consensus {cons} after the flush")
     return launches
+
+
+def check_overlap_apply(torch, bplan, alpha, params, gstate):
+    """The pending correction landed on every leaf through the kernel and
+    through the plain version, out of place, from the same state: bit
+    for bit."""
+    import functools
+
+    from repro_torch.dist import bucketing
+    from repro_torch.dist.decen_train import apply_delayed_leaf
+
+    gstate.wait()
+    n = 0
+    for i, bkt, off, size in bucketing.leaf_slices(bplan, gstate.delta):
+        path = bplan.treedef[i]
+        x = functools.reduce(lambda t, key: t[key], path, params)
+        d = bkt[:, off:off + size]
+        got = apply_delayed_leaf(x, d, alpha, impl="cuda")
+        want = apply_delayed_leaf(x, d, alpha, impl="torch")
+        if not torch.equal(got, want):
+            fail(f"overlap: {'.'.join(path)} differs between kernel and plain delayed apply")
+        n += 1
+        del got, want
+    log(f"overlap: the pending correction through the kernel and through the plain version "
+        f"from the same state agree bit for bit on all {n} leaves")
 
 
 def check_gossip(torch, plan, params, row, node_bits):
@@ -1177,6 +1372,7 @@ def phase_check(torch, plan):
         f"{worst:.2e}, losses max rel err {loss_err:.2e} (tolerance {SMALL_TOL:g})")
     if not (worst <= SMALL_TOL and loss_err <= SMALL_TOL):
         fail("the card disagrees with the CPU on the small input")
+    check_overlap_small(torch, model, opt, plan, data)
 
     gossip_axpy.launches = 0
     rows = train.main(["--preset", "tiny", "--steps", "3"])
@@ -1190,6 +1386,155 @@ def phase_check(torch, plan):
     if abs(rows[0]["loss"] - 6.26) > 0.1:
         fail(f"launch.train run: step-0 loss {rows[0]['loss']} is not near 6.26")
     check_crash_resume(torch)
+    check_overlap_crash_resume(torch)
+    check_traces(torch)
+
+
+def check_overlap_small(torch, model, opt, plan, data):
+    """Three tiny fp32 overlap steps and the flush on the card (side
+    stream, kernel) and on the CPU (in order, plain version), from the
+    same weights and batches: params, deltas and losses within
+    SMALL_TOL."""
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.tree import flatten, tree_map
+
+    steps = 3
+    sched = plan.schedule(steps, seed=2)
+    batches = [next(data) for _ in range(steps)]
+    bplan = dt.param_bucket_plan(model)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = dt.init_stacked_params(model, NODES, seed=0, device="cpu")
+        params = tree_map(lambda a: a.to(dev), params)
+        opt_state = dt.init_stacked_opt_state(opt, model, NODES, device=dev)
+        gstate = dt.init_gossip_state(plan, bplan, device=dev)
+        step = dt.make_train_step(model, opt, plan, gossip_mode="overlap", bucket_plan=bplan)
+        for k in range(steps):
+            batch = {key: v.to(dev) for key, v in batches[k].items()}
+            bits = torch.as_tensor(sched.activations[k].astype("float32"), device=dev)
+            params, opt_state, gstate, losses, _ = step(params, opt_state, gstate, batch, bits)
+        gstate.wait()
+        delta = [t.cpu() for t in gstate.delta]
+        params = dt.make_gossip_flush(plan, bplan)(params, gstate)
+        results[dev] = (flatten(params), delta, losses.cpu())
+    worst = 0.0
+    for path, want in results["cpu"][0].items():
+        got = results["cuda"][0][path].cpu()
+        worst = max(worst, float((got - want).norm() / want.norm()))
+    for got, want in zip(results["cuda"][1], results["cpu"][1]):
+        worst = max(worst, float((got - want).norm() / want.norm()))
+    loss_err = float(((results["cuda"][2] - results["cpu"][2]).abs()
+                      / results["cpu"][2].abs()).max())
+    log(f"check: tiny fp32, {steps} overlap steps and the flush, card (side stream) vs CPU: "
+        f"params and in-flight deltas max rel err {worst:.2e}, losses max rel err "
+        f"{loss_err:.2e} (tolerance {SMALL_TOL:g})")
+    if not (worst <= SMALL_TOL and loss_err <= SMALL_TOL):
+        fail("the card's overlap steps disagree with the CPU's on the small input")
+
+
+def check_overlap_crash_resume(torch):
+    """The training CLI on the card with --gossip-mode overlap: an
+    uninterrupted run, a run that checkpoints every 3 steps and crashes
+    after step 4, and its --resume auto; the final checkpoints must be
+    bit-equal."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.faults import SimulatedCrash
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten
+
+    base = ["--preset", "tiny", "--steps", "8", "--gossip-mode", "overlap"]
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli-overlap-", dir=parent)
+    try:
+        a, b = os.path.join(root, "a"), os.path.join(root, "b")
+        ck = ["--ckpt-dir", b, "--ckpt-every", "3"]
+        launches = []
+        gossip_axpy.launches = 0
+        whole = train.main(base + ["--ckpt-dir", a])
+        launches.append(gossip_axpy.launches)
+        gossip_axpy.launches = 0
+        try:
+            train.main(base + ck + ["--crash-at-step", "4"])
+            fail("launch.train --gossip-mode overlap --crash-at-step 4 did not crash")
+        except SimulatedCrash as crash:
+            if crash.step != 4:
+                fail(f"launch.train crashed after step {crash.step}, not 4")
+        launches.append(gossip_axpy.launches)
+        gossip_axpy.launches = 0
+        resumed = train.main(base + ck + ["--resume", "auto"])
+        launches.append(gossip_axpy.launches)
+        got = ckpt.restore_run(ckpt.find_resumable(b), device="cpu")
+        want = ckpt.restore_run(ckpt.find_resumable(a), device="cpu")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fa, fb = flatten({"p": want[0], "s": want[1]}), flatten({"p": got[0], "s": got[1]})
+    same = fa.keys() == fb.keys() and all(torch.equal(fb[k], t) for k, t in fa.items())
+    log(f"check: launch.train --preset tiny --steps 8 --gossip-mode overlap on the card: "
+        f"uninterrupted, crashed after step 4 (checkpoint every 3, flushed), then --resume "
+        f"auto: gossip_axpy launches {launches}; final loss {resumed[-1]['loss']:.7f} vs "
+        f"{whole[-1]['loss']:.7f}, consensus {resumed[-1]['consensus']:.7e} vs "
+        f"{whole[-1]['consensus']:.7e}; final checkpoints (step {got[2]} / {want[2]}) "
+        f"{'bit-equal' if same else 'DIFFER'} on {len(fa)} leaves")
+    # 12 leaves: a step lands 12, a checkpoint's flush 12, the final flush 12
+    if launches != [8 * 12 + 12, 5 * 12 + 12, 5 * 12 + 12 + 12]:
+        fail(f"overlap crash and resume runs: gossip_axpy launches {launches}, "
+             "expected [108, 72, 84]")
+    if not same or got[2] != want[2] or resumed[-1]["loss"] != whole[-1]["loss"]:
+        fail("the resumed overlap run does not end bit-equal to the uninterrupted run")
+
+
+def check_traces(torch):
+    """--trace on the card: train (masked and overlap) and serve write
+    events.jsonl, trace.json and (train) metrics.jsonl that the port's
+    readers load, with the spans each run must record."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve, train
+    from repro_torch.telemetry import read_jsonl
+    from repro_torch.telemetry.trace import read_chrome_trace
+
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="trace-", dir=parent)
+    try:
+        for mode, want in (("masked", {"step", "fwd_bwd", "optimizer", "gossip"}),
+                           ("overlap", {"step", "gossip_launch"})):
+            out = os.path.join(root, mode)
+            train.main(["--preset", "tiny", "--steps", "3", "--gossip-mode", mode,
+                        "--trace", out])
+            header, events = read_jsonl(os.path.join(out, "events.jsonl"))
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f]
+            names = {e.name for e in events}
+            if (header["meta"]["device"] != "cuda" or [m["step"] for m in metrics] != [0, 1, 2]
+                    or not want | {"gossip/matching0"} <= names
+                    or read_chrome_trace(os.path.join(out, "trace.json")) != events):
+                fail(f"train --trace ({mode}): {sorted(names)}, metrics {metrics}")
+            launch = [e for e in events if e.name == "gossip_launch"]
+            log(f"check: launch.train --trace ({mode}) on the card: {len(events)} events "
+                f"({sorted(names)}); metrics steps 0-2, step ms "
+                + ", ".join(f"{m['step_ms']:.1f}" for m in metrics)
+                + (", gossip_launch ms " + ", ".join(f"{e.dur_us / 1e3:.2f}" for e in launch)
+                   if launch else ""))
+        out = os.path.join(root, "serve")
+        serve.main(["--preset", "tiny", "--batch", "2", "--prompt-len", "32", "--gen", "4",
+                    "--trace", out])
+        _, events = read_jsonl(os.path.join(out, "events.jsonl"))
+        spans = [(e.name, e.step) for e in events]
+        if (spans != [("prefill", -1)] + [("decode", i) for i in range(3)]
+                or read_chrome_trace(os.path.join(out, "trace.json")) != events):
+            fail(f"serve --trace: spans {spans}")
+        log("check: launch.serve --trace on the card: prefill "
+            f"{events[0].dur_us / 1e3:.2f} ms, decode "
+            + ", ".join(f"{e.dur_us / 1e3:.2f}" for e in events[1:]) + " ms")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def check_crash_resume(torch):

@@ -11,27 +11,47 @@ Gossip modes (paper Section 3.3):
     "masked"  every matching exchanged, deltas scaled by the schedule
               bits (the main path)
     "static"  only the activated subset is exchanged
+    "overlap" one-step-delayed bucketed gossip: step k's exchange is
+              launched before step k's fwd/bwd and its correction lands
+              at step k+1. The step lands the pending correction, snapshots
+              the corrected params into the in-flight ``GossipState``
+              buffers, then computes the new correction over them on a
+              side CUDA stream while the main stream runs every node's
+              fwd/bwd (on the CPU the same operations run in order)
     "none"    local SGD only (the no-communication baseline)
 
 ``faulted=True`` builds the link-failure-tolerant step, as in the JAX
 package: ``bits`` is then the ``(nodes, M)`` per-node effective
 activation array (``repro_torch.faults.FaultSchedule.node_bits``), which
-masked gossip takes as it is and static gossip as its ``gate_bits``.
-The JAX package's "overlap" mode is not ported yet (ROADMAP queue 1,
-item 11).
+masked and overlap gossip take as it is and static gossip as its
+``gate_bits``.
+
+``make_phased_train_step`` is the telemetry variant: the same step with
+every phase span fenced and recorded into a ``StepTimer``
+(``repro_torch.telemetry``); overlap is refused there and timed whole
+step instead.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.gossip import mix_matchings, mix_matchings_masked
+from repro_torch.dist import bucketing
+from repro_torch.dist.gossip import (
+    delayed_delta_inplace,
+    mix_matchings,
+    mix_matchings_masked,
+)
+from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.telemetry.timers import StepTimer
+from repro_torch.telemetry.trace import TraceEvent
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -80,37 +100,160 @@ def consensus_distance(stacked_params: PyTree) -> torch.Tensor:
     return torch.sqrt(torch.mean(acc))
 
 
-class PhaseTimes:
-    """Time per phase of one step, summed over the phase's spans: CUDA
-    events on the card (read back lazily; reading synchronizes), the
-    host clock on the CPU."""
+# ---------------------------------------------------------------------------
+# In-flight gossip state (overlap mode)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class GossipState:
+    """The exchange in flight between two overlap steps.
 
-    def __init__(self, device):
-        self._cuda = torch.device(device).type == "cuda"
+    ``delta`` holds, per bucket of the run's ``BucketPlan``, the
+    node-stacked ``(nodes, bucket_size)`` fp32 one-step-delayed
+    correction ``sum_j b_j (pi_j(x) - x)`` of the params the exchange was
+    launched on: everything the next step needs to land
+    ``x <- x + alpha * delta``, and exactly one fp32 param copy per node
+    in flight, as in the JAX package. The buffers are updated in place
+    (each step snapshots its params into them, then overwrites the
+    snapshot with the correction), so their storage never changes.
+
+    ``done`` is the CUDA event the side stream records once the
+    correction is written (``None`` on the CPU, where the work ran in
+    order). Every reader of ``delta`` calls :meth:`wait` first.
+    """
+
+    delta: Tuple[torch.Tensor, ...]
+    done: Optional[Any] = None
+
+    def wait(self) -> None:
+        """Make the current stream wait for the launched correction (the
+        host does not block)."""
+        if self.done is not None:
+            torch.cuda.current_stream(self.delta[0].device).wait_event(self.done)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.delta)
+
+
+def param_bucket_plan(
+    model, *, target_bytes: int = bucketing.DEFAULT_TARGET_BYTES
+) -> bucketing.BucketPlan:
+    """Bucket layout of one node's (un-stacked) parameter tree."""
+    return bucketing.plan_buckets(model.param_shapes(), target_bytes=target_bytes)
+
+
+def init_gossip_state(plan, bplan: bucketing.BucketPlan, *, device="cuda") -> GossipState:
+    """Empty in-flight buffers: a zero delta, so the first step's delayed
+    correction is exactly zero."""
+    device = resolve_device(device)
+    n = int(np.shape(plan.permutations)[1])
+    return GossipState(delta=tuple(
+        torch.zeros((n, size), dtype=torch.float32, device=device)
+        for size in bplan.bucket_sizes
+    ))
+
+
+def apply_delayed_leaf(x: torch.Tensor, d: torch.Tensor, alpha: float, *,
+                       impl: str = "auto", inplace: bool = False) -> torch.Tensor:
+    """One stacked leaf ``x`` and its ``(nodes, size)`` slice ``d`` of the
+    delta buckets: ``x + alpha * d`` through ``ops.gossip_apply`` with the
+    fp32 target ``x + d``."""
+    target = (x.reshape(d.shape).float() + d).view(x.shape)
+    return ops.gossip_apply(x, target, alpha, impl=impl, inplace=inplace)
+
+
+def _apply_delayed(
+    p: PyTree,
+    delta_buckets: Tuple[torch.Tensor, ...],
+    bplan: bucketing.BucketPlan,
+    alpha: float,
+    *,
+    inplace: bool = False,
+) -> PyTree:
+    """Land an in-flight delayed correction on node-stacked params:
+    ``x <- x + alpha * delta`` through the gossip-axpy kernel, one leaf at
+    a time (one fp32 target alive). The one definition the train step
+    and the end-of-run flush use: they must stay identical for flushed
+    checkpoints to resume exactly."""
+    views = [None] * len(bplan.shapes)
+    for i, bkt, off, size in bucketing.leaf_slices(bplan, delta_buckets):
+        views[i] = bkt[:, off:off + size]
+    delta = bucketing.unflatten(bplan.treedef, views)
+    return tree_map(
+        lambda x, d: x if d is None else apply_delayed_leaf(x, d, alpha, inplace=inplace),
+        p, delta,
+    )
+
+
+def make_gossip_flush(plan, bplan: bucketing.BucketPlan):
+    """Land the exchange still in flight after the last overlap step:
+
+        params = flush(params, gstate)
+
+    Training in overlap mode leaves one delayed correction pending;
+    apply it before checkpointing or evaluating consensus so the final
+    replicas include every exchange the schedule paid for. New tensors,
+    as in the JAX package (a checkpoint saves them while the live run
+    keeps its correction pending); ``inplace=True`` writes over
+    ``params`` instead."""
+    alpha = float(plan.alpha)
+
+    def flush(params, gstate: GossipState, *, inplace: bool = False):
+        gstate.wait()
+        with torch.no_grad():
+            return _apply_delayed(params, gstate.delta, bplan, alpha, inplace=inplace)
+
+    return flush
+
+
+# ---------------------------------------------------------------------------
+# Train steps
+# ---------------------------------------------------------------------------
+class PhaseTimes:
+    """Time per phase of one step, summed over the phase's spans.
+
+    Without a timer: CUDA events on the card (read back lazily; reading
+    synchronizes), the host clock on the CPU, and nothing is fenced.
+    With a ``StepTimer`` (the phased step): every span ends with
+    ``torch.cuda.synchronize`` and is timed by the host clock, and an
+    enabled timer records it as one event (cat ``phase``, tid 0)."""
+
+    def __init__(self, device, timer=None, step: int = -1):
+        self._device = torch.device(device)
+        self._cuda = self._device.type == "cuda"
+        self._timer = timer
+        self._step = step
         self._spans = []
 
     @contextlib.contextmanager
-    def span(self, name: str):
-        if self._cuda:
+    def span(self, name: str, **args):
+        if self._timer is not None:
+            with self._timer.phase(name, cat="phase", step=self._step, tid=0, **args):
+                t0 = time.perf_counter()
+                yield
+                if self._cuda:
+                    torch.cuda.synchronize(self._device)
+                self._spans.append((name, (time.perf_counter() - t0) * 1e3))
+        elif self._cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             yield
             end.record()
+            self._spans.append((name, start, end))
         else:
-            start = time.perf_counter()
+            t0 = time.perf_counter()
             yield
-            end = time.perf_counter()
-        self._spans.append((name, start, end))
+            self._spans.append((name, (time.perf_counter() - t0) * 1e3))
 
     def ms(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
-        for name, start, end in self._spans:
-            if self._cuda:
-                end.synchronize()
-                dt = start.elapsed_time(end)
+        for name, *t in self._spans:
+            if len(t) == 2:
+                t[1].synchronize()
+                dt = t[0].elapsed_time(t[1])
             else:
-                dt = (end - start) * 1e3
+                dt = t[0]
             out[name] = out.get(name, 0.0) + dt
         return out
 
@@ -125,12 +268,17 @@ class TrainStep:
     (M,) activation row of the a-priori schedule (ignored by "static"
     and "none"), or with ``faulted`` the (nodes, M) per-node effective
     bits (the gates of "static"). ``losses`` and each metric come back
-    per node, shape (nodes,). After a call, ``last_phases.ms()`` splits
-    its time into fwd_bwd, optimizer and gossip.
+    per node, shape (nodes,). After a call, ``last_phases.ms()`` (or
+    ``last_phase_ms``) splits its time into fwd_bwd, optimizer and
+    gossip. With a ``timer`` every phase span is fenced and recorded
+    (``make_phased_train_step``); the arithmetic is the same, so the
+    results are bit-equal to the unphased step's. ``step=k`` names the
+    step in the recorded events.
     """
 
     def __init__(self, model, opt: Optimizer, plan, *, gossip_mode: str,
-                 active: Sequence[int], grad_clip: float, faulted: bool):
+                 active: Sequence[int], grad_clip: float, faulted: bool,
+                 timer=None):
         self.model = model
         self.opt = opt
         self.gossip_mode = gossip_mode
@@ -139,12 +287,23 @@ class TrainStep:
         self.active = tuple(int(j) for j in active)
         self.grad_clip = grad_clip
         self.faulted = faulted
+        self.timer = timer
         self.last_phases = None
+
+    @property
+    def last_phase_ms(self) -> Dict[str, float]:
+        return self.last_phases.ms() if self.last_phases is not None else {}
+
+    def _check_bits(self, bits) -> None:
+        ndim, want = (2, "(nodes, M)") if self.faulted else (1, "(M,)")
+        if self.gossip_mode != "none" and np.ndim(bits) != ndim:
+            raise ValueError(f"a step built with faulted={self.faulted} takes "
+                             f"{want} bits, got shape {tuple(np.shape(bits))}")
 
     def _local_sgd(self, params, opt_state, batch, i: int, phases: PhaseTimes):
         """Node i's fwd/bwd and SGD update, written into its slices.
         Only this node's grads are alive at a time."""
-        with phases.span("fwd_bwd"):
+        with phases.span("fwd_bwd", node=i):
             p_i = tree_map(lambda a: a[i].detach().requires_grad_(), params)
             b_i = {k: v[i] for k, v in batch.items()}
             loss, metrics = self.model.loss(p_i, b_i)
@@ -152,7 +311,7 @@ class TrainStep:
             g_i = tree_map(lambda _: next(grads), p_i)
             if self.grad_clip:
                 g_i = clip_by_global_norm(g_i, self.grad_clip)
-        with phases.span("optimizer"), torch.no_grad():
+        with phases.span("optimizer", node=i), torch.no_grad():
             p_view = tree_map(lambda a: a[i], params)
             s_view = tree_map(lambda a: a[i], opt_state)
             updates, s_new = self.opt.update(g_i, s_view, p_view)
@@ -161,17 +320,22 @@ class TrainStep:
             tree_map(lambda dst, src: dst.copy_(src), s_view, s_new)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def __call__(self, params, opt_state, batch, bits):
-        ndim, want = (2, "(nodes, M)") if self.faulted else (1, "(M,)")
-        if self.gossip_mode != "none" and np.ndim(bits) != ndim:
-            raise ValueError(f"a step built with faulted={self.faulted} takes "
-                             f"{want} bits, got shape {tuple(np.shape(bits))}")
-        device = tree_leaves(params)[0].device
-        phases = PhaseTimes(device)
+    def _every_node(self, params, opt_state, batch, phases: PhaseTimes):
         per_node = [
             self._local_sgd(params, opt_state, batch, i, phases)
             for i in range(self.perms.shape[1])
         ]
+        losses = torch.stack([loss for loss, _ in per_node])
+        metrics = {
+            k: torch.stack([m[k] for _, m in per_node]) for k in per_node[0][1]
+        }
+        return losses, metrics
+
+    def __call__(self, params, opt_state, batch, bits, *, step: int = -1):
+        self._check_bits(bits)
+        device = tree_leaves(params)[0].device
+        phases = PhaseTimes(device, self.timer, step)
+        losses, metrics = self._every_node(params, opt_state, batch, phases)
         with phases.span("gossip"), torch.no_grad():
             # in place: each leaf's fp32 target is complete before its
             # update overwrites the leaf, and nothing reads it afterwards
@@ -181,11 +345,128 @@ class TrainStep:
                 mix_matchings(params, self.alpha, self.perms, self.active,
                               gate_bits=bits if self.faulted else None, inplace=True)
         self.last_phases = phases
-        losses = torch.stack([loss for loss, _ in per_node])
-        metrics = {
-            k: torch.stack([m[k] for _, m in per_node]) for k in per_node[0][1]
-        }
         return params, opt_state, losses, metrics
+
+
+class OverlapStep(TrainStep):
+    """The overlap step (``gossip_mode="overlap"``):
+
+        params, opt_state, gstate, losses, metrics = step(
+            params, opt_state, gstate, batch, bits)
+
+    In order: land the pending correction in ``gstate`` (``x <- x +
+    alpha * delta`` through ``ops.gossip_apply``, the gossip-axpy kernel
+    on the card), snapshot every node's corrected params into
+    ``gstate``'s buffers, launch this step's exchange over the snapshot,
+    then run local SGD on the corrected params. ``gstate`` is updated in
+    place and returned.
+
+    On the card the launch runs on a side CUDA stream that waits for the
+    snapshot alone, so it can run under the main stream's fwd/bwd;
+    nothing in the step waits for it, and the next reader of ``gstate``
+    waits on its event. The optimizer writes params in place, which is
+    why the launch reads the snapshot and not the params. On the CPU the
+    same operations run in order.
+
+    Each launch is timed: by CUDA events on the side stream on the card
+    (read by ``record_launch_spans`` once they completed; the newest in
+    ``last_launch_ms``), by the host clock on the CPU. An enabled
+    ``timer`` records each as one ``gossip_launch`` event (cat ``comm``,
+    tid 1), placed on the host clock through an event recorded on the
+    main stream as the step starts: exact when the card is idle then,
+    as it is after a fenced step. Nothing is fenced for it.
+    """
+
+    def __init__(self, model, opt: Optimizer, plan, *, bucket_plan,
+                 grad_clip: float, faulted: bool, timer=None):
+        super().__init__(model, opt, plan, gossip_mode="overlap", active=(),
+                         grad_clip=grad_clip, faulted=faulted)
+        self.bplan = bucket_plan
+        self.launch_timer = timer if timer is not None and timer.enabled else None
+        self.last_launch_ms = None
+        self._side = {}          # device -> (side stream, permutations on it)
+        self._pending = []       # launches whose events have not been read
+
+    def record_launch_spans(self, *, wait: bool = False) -> None:
+        """Read the timing of every finished launch (every one, waiting
+        for the host, with ``wait``) into ``last_launch_ms`` and, with a
+        timer, the trace."""
+        keep = []
+        for step, anchor, start, done in self._pending:
+            if not wait and not done.query():
+                keep.append((step, anchor, start, done))
+                continue
+            done.synchronize()
+            # the start on the host clock: the anchor's host time plus the
+            # card's time from the anchor event to the launch
+            ts_us = anchor[0] + anchor[1].elapsed_time(start) * 1e3 if anchor else 0.0
+            self._finished(step, ts_us, start.elapsed_time(done))
+        self._pending = keep
+
+    def _finished(self, step: int, ts_us: float, ms: float) -> None:
+        self.last_launch_ms = ms
+        if self.launch_timer:
+            self.launch_timer.record(TraceEvent(
+                name="gossip_launch", cat="comm", ts_us=ts_us, dur_us=ms * 1e3,
+                step=step, pid=self.launch_timer.pid, tid=1,
+                args={"buckets": self.bplan.num_buckets},
+            ))
+
+    def _launch_cpu(self, gstate: GossipState, bits, step: int) -> None:
+        ts_us = self.launch_timer.recorder.now_us() if self.launch_timer else 0.0
+        t0 = time.perf_counter()
+        delayed_delta_inplace(gstate.delta, bits, self.perms)
+        gstate.done = None
+        self._finished(step, ts_us, (time.perf_counter() - t0) * 1e3)
+
+    def _launch_cuda(self, gstate: GossipState, bits, device, step: int,
+                     anchor) -> None:
+        if device not in self._side:
+            self._side[device] = (
+                torch.cuda.Stream(device),
+                torch.as_tensor(self.perms, dtype=torch.int64, device=device),
+            )
+        side, idx = self._side[device]
+        bits = torch.as_tensor(bits, dtype=torch.float32).to(device)
+        # the side stream starts once the snapshot is written; the
+        # tensors made on the main stream must outlive its work there
+        side.wait_stream(torch.cuda.current_stream(device))
+        for t in (bits, idx) + tuple(gstate.delta):
+            t.record_stream(side)
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            delayed_delta_inplace(gstate.delta, bits, idx)
+            done.record(side)
+        gstate.done = done
+        self._pending.append((step, anchor, start, done))
+
+    def __call__(self, params, opt_state, gstate: GossipState, batch, bits, *,
+                 step: int = -1):
+        self._check_bits(bits)
+        device = tree_leaves(params)[0].device
+        cuda = device.type == "cuda"
+        anchor = None
+        if cuda:
+            self.record_launch_spans()
+            if self.launch_timer:
+                ref = torch.cuda.Event(enable_timing=True)
+                anchor = (self.launch_timer.recorder.now_us(), ref)
+                ref.record()
+        phases = PhaseTimes(device)
+        with phases.span("gossip_apply"), torch.no_grad():
+            gstate.wait()
+            _apply_delayed(params, gstate.delta, self.bplan, self.alpha, inplace=True)
+            bucketing.ravel_stacked(self.bplan, params, out=gstate.delta)
+        with torch.no_grad():
+            if cuda:
+                self._launch_cuda(gstate, bits, device, step, anchor)
+            else:
+                self._launch_cpu(gstate, bits, step)
+        losses, metrics = self._every_node(params, opt_state, batch, phases)
+        self.last_phases = phases
+        return params, opt_state, gstate, losses, metrics
 
 
 def make_train_step(
@@ -196,20 +477,68 @@ def make_train_step(
     gossip_mode: str = "masked",
     active: Sequence[int] = (),
     grad_clip: float = 0.0,
+    bucket_plan: Optional[bucketing.BucketPlan] = None,
     faulted: bool = False,
+    timer=None,
 ) -> TrainStep:
-    """Build the decentralized step (see :class:`TrainStep`).
-    ``faulted=True`` takes per-node ``(nodes, M)`` bits; with all-ones
-    gates a masked step's results are bit-equal to the default step's
-    (static gossip sums gated deltas where its plain path sums partners,
-    as in the JAX package: fp32 rounding apart)."""
+    """Build the decentralized step (see :class:`TrainStep`; for
+    ``gossip_mode="overlap"`` :class:`OverlapStep`, which threads the
+    in-flight ``GossipState`` through the call, over ``bucket_plan``,
+    by default ``param_bucket_plan(model)``). ``faulted=True`` takes
+    per-node ``(nodes, M)`` bits; with all-ones gates a masked or overlap
+    step's results are bit-equal to the default step's (static gossip
+    sums gated deltas where its plain path sums partners, as in the JAX
+    package: fp32 rounding apart). ``timer`` (a ``StepTimer``) fences and
+    records the phases of a sequential step (``make_phased_train_step``)
+    and records an overlap step's launches without fencing anything."""
     if gossip_mode == "sequential":   # the JAX package's other spelling
         gossip_mode = "masked"
-    if gossip_mode == "overlap":
-        raise NotImplementedError(
-            "gossip_mode 'overlap' is not ported yet (ROADMAP queue 1, item 11)"
-        )
-    if gossip_mode not in ("masked", "static", "none"):
+    if gossip_mode not in ("masked", "static", "overlap", "none"):
         raise ValueError(f"unknown gossip_mode {gossip_mode!r}")
+    if gossip_mode == "overlap":
+        return OverlapStep(model, opt, plan,
+                           bucket_plan=bucket_plan or param_bucket_plan(model),
+                           grad_clip=grad_clip, faulted=faulted, timer=timer)
     return TrainStep(model, opt, plan, gossip_mode=gossip_mode,
-                     active=active, grad_clip=grad_clip, faulted=faulted)
+                     active=active, grad_clip=grad_clip, faulted=faulted,
+                     timer=timer)
+
+
+def make_phased_train_step(
+    model,
+    opt: Optimizer,
+    plan,
+    *,
+    timer=None,
+    gossip_mode: str = "masked",
+    active: Sequence[int] = (),
+    grad_clip: float = 0.0,
+    faulted: bool = False,
+) -> TrainStep:
+    """Telemetry variant of :func:`make_train_step`: the same update, with
+    every fwd_bwd, optimizer (one each per node) and gossip span fenced
+    (``torch.cuda.synchronize``) so the host clock attributes wall time
+    per phase, and recorded into ``timer`` (``None`` times without
+    recording). Same call as the sequential step, with ``step=k``; after
+    each call ``step.last_phase_ms`` holds the phase-name ->
+    milliseconds dict of that call, and its results are bit-equal to the
+    unphased step's.
+
+    The fences cost the overlap of host and card at every boundary, so
+    this step is built only when ``--trace`` is on. ``overlap`` mode is
+    refused: fencing its phases would serialize the very overlap being
+    measured; overlap runs are timed whole-step, with per-matching probes
+    and the launch's own span.
+    """
+    if gossip_mode == "sequential":
+        gossip_mode = "masked"
+    if gossip_mode not in ("masked", "static", "none"):
+        raise ValueError(
+            "make_phased_train_step supports gossip_mode in "
+            f"('masked', 'static', 'none'); got {gossip_mode!r} "
+            "(overlap runs are timed whole-step: fencing phases would "
+            "serialize the overlap being measured)"
+        )
+    return make_train_step(model, opt, plan, gossip_mode=gossip_mode,
+                           active=active, grad_clip=grad_clip, faulted=faulted,
+                           timer=timer or StepTimer())

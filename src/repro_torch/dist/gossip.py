@@ -19,6 +19,15 @@ consensus mass) and handed to ``ops.gossip_apply``, the hand-written
 gossip-axpy kernel on the card. Leaves are processed one at a time, so
 at most one leaf's fp32 target and one gathered partner are alive.
 
+``launch_matchings_masked`` and ``delayed_delta`` are the overlap
+mode's two halves on node-stacked fp32 buckets (``dist.bucketing``):
+the partners summed at launch, ``recv = sum_j b_j x[pi_j]``, and the
+one-step-delayed correction ``recv - (sum_j b_j) x`` the next step
+lands. ``delayed_delta_inplace`` is the two composed over column
+blocks of each bucket, written back over the bucket: the same
+operations in the same order, so the same bits, with temporaries of one
+block instead of whole buckets.
+
 ``mix_dense`` is the O(m^2) oracle the tests hold the others to.
 """
 from __future__ import annotations
@@ -47,8 +56,14 @@ def _canonical_active(active: Sequence[int], num_matchings: int) -> Tuple[int, .
 
 
 def _gather_index(permutations, x: torch.Tensor) -> torch.Tensor:
-    """The (M, m) permutations as an index tensor on x's device."""
-    idx = torch.as_tensor(np.asarray(permutations), dtype=torch.int64, device=x.device)
+    """The (M, m) permutations as an index tensor on x's device (no copy
+    when they are one already: the overlap step keeps its index on the
+    card, so its side stream never waits on a host-to-device copy)."""
+    if isinstance(permutations, torch.Tensor):
+        idx = permutations.to(device=x.device, dtype=torch.int64)
+    else:
+        idx = torch.as_tensor(np.asarray(permutations), dtype=torch.int64,
+                              device=x.device)
     if idx.dim() != 2 or idx.shape[1] != x.shape[0]:
         raise ValueError(
             f"permutations {tuple(idx.shape)} do not match a leaf of "
@@ -181,3 +196,94 @@ def mix_matchings_masked(
         return ops.gossip_apply(x, target(x), float(alpha), impl=impl, inplace=inplace)
 
     return tree_map(leaf, stacked)
+
+
+# ---------------------------------------------------------------------------
+# Overlapped (one-step-delayed, bucketed) gossip
+# ---------------------------------------------------------------------------
+DELTA_BLOCK = 1 << 24    # columns of a bucket per block of delayed_delta_inplace
+                         # (8 nodes: two 0.54 GB fp32 temporaries)
+
+
+def _bucket_bits(bits, num: int, m: int, device):
+    """Per-matching scales and the bit sum, shaped to broadcast against
+    a ``(nodes, size)`` bucket: the (M,) row gives 0-dim scalars, the
+    faulted step's ``(nodes, M)`` per-node bits give ``(nodes, 1)``
+    columns, so node i uses ``bits[i, j]`` and its own sum."""
+    if np.ndim(bits) == 2:
+        b = _as_f32(bits, device, (m, num), "per-node bits")
+        return [b[:, j:j + 1] for j in range(num)], b.sum(dim=1, keepdim=True)
+    b = _as_f32(bits, device, (num,), "activation bits")
+    return [b[j] for j in range(num)], b.sum()
+
+
+def _recv(sent: torch.Tensor, idx: torch.Tensor, scale) -> torch.Tensor:
+    """``sum_j b_j sent[pi_j]`` in fp32, j ascending, from zeros."""
+    acc = torch.zeros_like(sent)
+    for j, s in enumerate(scale):
+        acc.addcmul_(sent.index_select(0, idx[j]), s)
+    return acc
+
+
+def launch_matchings_masked(
+    buckets: Sequence[torch.Tensor],      # fp32 (nodes, B_i) buckets
+    bits,                                 # (M,) activation bits, or (m, M) per node
+    permutations,                         # (M, m) involutions
+) -> Tuple[torch.Tensor, ...]:
+    """The launch half of the overlap mode: every matching's partners
+    gathered along the node dim and pre-reduced,
+    ``recv_i = sum_j bits[j] * pi_j(bucket_i)``. ``delayed_delta`` turns
+    it into the correction the next step lands."""
+    num, m = np.shape(permutations)
+    out = []
+    for bkt in buckets:
+        idx = _gather_index(permutations, bkt)
+        scale, _ = _bucket_bits(bits, num, m, bkt.device)
+        out.append(_recv(bkt, idx, scale))
+    return tuple(out)
+
+
+def delayed_delta(
+    sent: Sequence[torch.Tensor],         # buckets snapshotted at launch
+    recv: Sequence[torch.Tensor],         # launch_matchings_masked output
+    bits,                                 # the bits the exchange was launched with
+) -> Tuple[torch.Tensor, ...]:
+    """Per-bucket one-step-delayed consensus delta:
+
+        delta = sum_j b_j (pi_j(x_delayed) - x_delayed)
+              = recv - (sum_j b_j) * sent
+
+    Applying ``x <- x + alpha * delta`` (``ops.gossip_apply`` with target
+    ``x + delta``) is the delayed analogue of the masked mode's in-step
+    correction; at consensus delta == 0 and the fixed points coincide.
+    With ``(nodes, M)`` bits node i subtracts its own bit sum."""
+    num = np.shape(bits)[-1]
+    out = []
+    for s, r in zip(sent, recv):
+        _, ksum = _bucket_bits(bits, num, s.shape[0], s.device)
+        out.append(r - s * ksum)
+    return tuple(out)
+
+
+def delayed_delta_inplace(
+    buckets: Sequence[torch.Tensor],      # fp32 (nodes, B_i), overwritten
+    bits,
+    permutations,
+) -> Sequence[torch.Tensor]:
+    """``delayed_delta(buckets, launch_matchings_masked(buckets, bits,
+    permutations), bits)`` written over ``buckets``, bit for bit. The
+    gather runs along the node dim only, so each block of columns
+    depends on that block alone and is written back as soon as it is
+    done: the temporaries are two blocks, not two copies of the params.
+    Runs on the current stream (the overlap step's side stream)."""
+    num, m = np.shape(permutations)
+    for bkt in buckets:
+        idx = _gather_index(permutations, bkt)
+        scale, ksum = _bucket_bits(bits, num, m, bkt.device)
+        for c0 in range(0, bkt.shape[1], DELTA_BLOCK):
+            part = bkt[:, c0:c0 + DELTA_BLOCK]
+            delta = _recv(part, idx, scale)
+            delta.sub_(part * ksum)
+            part.copy_(delta)
+            del delta    # freed before the next block allocates its own
+    return buckets

@@ -12,9 +12,13 @@ decode alike; the command prints each of the port's four kernels'
 launches in the prefill and in the decode (``gossip_axpy``, the
 training step's, stays at 0).
 
+``--trace DIR`` records one fenced span per prefill and per decode
+step (``repro_torch.telemetry``) and writes the JSONL event log and a
+Perfetto-loadable Chrome trace into DIR, as the JAX CLI does.
+
 Flags of the JAX CLI that the port does not implement yet exit with a
-message naming the ROADMAP item: ``--trace`` (item 14) and
-``--data-par`` / ``--model-par`` above 1 (item 15).
+message naming the ROADMAP item: ``--data-par`` / ``--model-par`` above
+1 (item 15).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \\
@@ -44,17 +48,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default="", metavar="DIR",
-                    help="telemetry (not ported)")
+                    help="record a fenced span per prefill / decoded "
+                         "token; write events.jsonl + trace.json "
+                         "(chrome://tracing / Perfetto) into DIR")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the run goes; the default needs a CUDA card")
     return ap
 
 
 def _reject_unported(args) -> None:
-    if args.trace:
-        raise SystemExit(
-            "--trace is not ported to repro_torch yet (ROADMAP queue 1, item 14)"
-        )
     for flag, value in (("--data-par", args.data_par), ("--model-par", args.model_par)):
         if value != 1:
             raise SystemExit(
@@ -71,14 +73,18 @@ def _sync(device) -> None:
 
 
 def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
-        device="cuda") -> dict:
+        device="cuda", timer=None) -> dict:
     """Serve ``batch`` prompts of ``prompt_len`` tokens from the synthetic
     corpus and decode ``gen`` tokens greedily, with random weights from
     ``seed``. Returns the prefill and per-token decode times (host clock
     around synchronized work), each kernel's launches in the prefill and
     in the decode, the generated ids (B, gen), the last logits and, on
-    the card, the peak memory allocated."""
+    the card, the peak memory allocated. An enabled ``timer``
+    (``repro_torch.telemetry.StepTimer``) records one fenced span per
+    prefill and per decode step."""
     import torch
+
+    from repro_torch.telemetry import StepTimer
 
     from repro_torch.data.pipeline import SyntheticCorpus
     from repro_torch.device import resolve_device
@@ -108,10 +114,13 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     def launches():
         return {name: fn.launches for name, fn in kernels.items()}
 
+    timer = timer or StepTimer()
     before = launches()
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, tokens, caches)
+    with timer.phase("prefill", cat="serve", tokens=batch * prompt_len) as sp:
+        logits, caches = prefill(params, tokens, caches)
+        sp.fence(logits)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     after_prefill = launches()
@@ -119,9 +128,11 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     out = [torch.argmax(logits[:, -1, :], dim=-1)]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = decode(params, out[-1][:, None].to(torch.int32), caches,
-                                prompt_len + i)
-        out.append(torch.argmax(logits[:, -1, :], dim=-1))
+        with timer.phase("decode", cat="serve", step=i) as sp:
+            logits, caches = decode(params, out[-1][:, None].to(torch.int32), caches,
+                                    prompt_len + i)
+            out.append(torch.argmax(logits[:, -1, :], dim=-1))
+            sp.fence(out[-1])
     _sync(device)
     t_decode = time.perf_counter() - t0
     after_decode = launches()
@@ -146,6 +157,7 @@ def main(argv=None) -> dict:
 
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.device import resolve_device
+    from repro_torch.telemetry import StepTimer, TraceRecorder
 
     try:
         device = resolve_device(args.device)
@@ -155,8 +167,16 @@ def main(argv=None) -> dict:
         get_smoke_config(args.arch) if args.preset == "tiny"
         else get_config(args.arch)
     )
+    recorder = None
+    if args.trace:
+        recorder = TraceRecorder(meta=dict(
+            arch=args.arch, preset=args.preset, batch=args.batch,
+            prompt_len=args.prompt_len, gen=args.gen,
+            data_par=args.data_par, model_par=args.model_par,
+            device=str(device),
+        ))
     res = run(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-              seed=args.seed, device=device)
+              seed=args.seed, device=device, timer=StepTimer(recorder))
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen} device={device}")
     print(f"prefill: {res['prefill_ms']:.1f} ms   decode: "
@@ -169,6 +189,10 @@ def main(argv=None) -> dict:
     print("generated token ids (first request):", res["generated"][0][:16], "...")
     if not bool(torch.isfinite(res["logits"]).all()):
         raise SystemExit("non-finite logits")
+    if recorder is not None:
+        jsonl_path, chrome_path = recorder.flush(args.trace)
+        print(f"wrote trace: {jsonl_path} + {chrome_path} "
+              f"({len(recorder.events())} events)")
     return res
 
 

@@ -20,6 +20,23 @@ steps and at the end (``--keep-last`` of them kept), in the JAX
 package's format, and ``--resume auto`` (or ``--resume DIR``) restarts
 from the newest complete one, replaying the batches already consumed.
 
+``--gossip-mode overlap`` runs the one-step-delayed bucketed exchange
+(``repro_torch.dist.decen_train.OverlapStep``): the simulated clock
+charges a step ``max(comm_units, 1)``, checkpoints hold the params with
+the pending exchange landed while the run keeps it pending (so a resumed
+run, starting from a zero ``GossipState``, ends bit-equal to an
+unbroken one), and the run ends by landing the last exchange.
+
+``--trace DIR`` measures the run: the sequential modes run the phased
+step (every fwd_bwd, optimizer and gossip span fenced), overlap runs are
+timed whole-step with their side-stream launch as a ``gossip_launch``
+span, each matching's gather is probed once up front, every step prints
+a metrics line (step ms, comm ms, overlap ratio, modeled bytes), and DIR
+receives ``events.jsonl``, ``trace.json`` and ``metrics.jsonl`` (schema
+``repro.telemetry/1``, which the JAX package's readers load). Fencing
+costs the overlap of host and card, so traced step times are an upper
+bound.
+
 Flags of the JAX CLI that the port does not implement yet exit with
 a message naming the ROADMAP item; none is silently ignored.
 
@@ -31,6 +48,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --preset tiny --steps 8 --p-drop 0.35 --ckpt-dir ck --ckpt-every 3 \
       --crash-at-step 4        # then the same with --resume auto
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --preset tiny --steps 4 --gossip-mode overlap --trace out/trace
 """
 from __future__ import annotations
 
@@ -95,7 +114,6 @@ _UNPORTED = {
     "shard": "queue 1, item 15 (multi-GPU, FSDP and tensor parallel)",
     "stream_layers": "queue 1, item 15 (multi-GPU, FSDP and tensor parallel)",
     "stream_scan": "queue 1, item 15 (multi-GPU, FSDP and tensor parallel)",
-    "trace": "queue 1, item 14 (telemetry)",
 }
 
 
@@ -106,11 +124,6 @@ def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
             raise SystemExit(
                 f"{flag} is not ported to repro_torch yet (ROADMAP {item})"
             )
-    if args.gossip_mode == "overlap":
-        raise SystemExit(
-            "--gossip-mode overlap is not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 11)"
-        )
 
 
 def main(argv=None):
@@ -228,25 +241,59 @@ def main(argv=None):
     print(f"repro_torch: {cfg.name} ({model.num_params()} params/node) on "
           f"{device}, {args.nodes} nodes, mode {args.mode}, gossip {gossip_mode}")
 
+    # --- telemetry (--trace DIR) -----------------------------------------
+    # A disabled StepTimer's spans are shared no-ops, so the untraced loop
+    # runs the same steps as before, unfenced.
+    from repro_torch.telemetry import StepTimer, TraceRecorder
+
+    traced = bool(args.trace)
+    recorder = None
+    if traced:
+        recorder = TraceRecorder(meta=dict(
+            arch=args.arch, preset=args.preset, graph=args.graph,
+            nodes=args.nodes, shard=args.shard, mode=args.mode,
+            gossip_mode=gossip_mode, budget=args.budget,
+            steps=args.steps, batch_per_node=args.batch_per_node,
+            seq=args.seq, p_drop=args.p_drop, fault_seed=args.fault_seed,
+            device=str(device),
+        ))
+    timer = StepTimer(recorder)
+    # phased steps (per-phase fenced timing) for the sequential modes;
+    # overlap keeps its step, since fencing its phases would serialize the
+    # very overlap being measured, and is timed whole-step with
+    # per-matching probes and its launch span instead
+    phased = traced and gossip_mode != "overlap"
+    gstate = flush = bplan = None
+    if gossip_mode == "overlap":
+        bplan = dt.param_bucket_plan(model)
+        gstate = dt.init_gossip_state(plan, bplan, device=device)
+        flush = dt.make_gossip_flush(plan, bplan)
     step_cache = {}
 
     def get_step(active):
         """static mode: one step per distinct activated subset."""
         key = tuple(active) if gossip_mode == "static" else gossip_mode
         if key not in step_cache:
-            step_cache[key] = dt.make_train_step(
-                model, opt, plan, gossip_mode=gossip_mode,
-                active=tuple(active) if gossip_mode == "static" else (),
-                faulted=faulted,
-            )
+            active = tuple(active) if gossip_mode == "static" else ()
+            if phased:
+                step_cache[key] = dt.make_phased_train_step(
+                    model, opt, plan, timer=timer, gossip_mode=gossip_mode,
+                    active=active, faulted=faulted,
+                )
+            else:
+                step_cache[key] = dt.make_train_step(
+                    model, opt, plan, gossip_mode=gossip_mode, active=active,
+                    bucket_plan=bplan, faulted=faulted,
+                    timer=timer if traced else None,
+                )
         return step_cache[key]
 
-    def save(step):
+    def save(step, p):
         # crash-safe history layout: each checkpoint lands in its own
         # step_XXXXXXXX/ dir, ckpt.json written last; "extra" is what a
         # --shard 1 run of the JAX CLI records, so that it resumes here
         retry_with_backoff(lambda: ckpt_lib.save_run_step(
-            args.ckpt_dir, params, opt_state, step=step,
+            args.ckpt_dir, p, opt_state, step=step,
             extra={"shard": args.shard,
                    "stream_layers": bool(args.stream_layers),
                    "stream_scan": bool(args.stream_scan)},
@@ -262,7 +309,29 @@ def main(argv=None):
     # would in an uninterrupted run (the pipeline is a seeded stream)
     for _ in range(start_step):
         next(it)
+
+    # comm probes: each matching's gather timed on its own (once, up
+    # front; "comm" lane in the trace), with the modeled per-matching
+    # bytes from analysis.bytes_model
+    matching_ms = {}
+    per_matching_bytes = 0
+    if traced:
+        from repro_torch.analysis import bytes_model
+        from repro_torch.telemetry import probes as tprobes
+
+        abs_local = model.param_shapes()
+        per_matching_bytes = bytes_model.tree_storage_bytes(abs_local)
+        probe_rows = tprobes.measure_matchings(
+            plan, per_node_elements=model.num_params(), timer=timer, iters=3,
+            device=device,
+        )
+        matching_ms = {r["matching"]: r["mean_ms"] for r in probe_rows}
+        print("trace: per-matching comm probes "
+              + " ".join(f"m{r['matching']}={r['mean_ms']:.2f}ms"
+                         for r in probe_rows))
+
     rows = []
+    trace_rows = []
     sim_time = 0.0
     t0 = time.time()
     for k in range(start_step, args.steps):
@@ -275,15 +344,54 @@ def main(argv=None):
             bits = fault_sched.node_bits(schedule.activations[k], k)
         else:
             bits = schedule.activations[k].astype(np.float32)
-        params, opt_state, losses, _ = get_step(active)(
-            params, opt_state, batch, torch.as_tensor(bits, device=device)
-        )
-        # paper's delay model: one unit per activated matching, +1 compute
-        sim_time += schedule.comm_units(k) + 1.0
+        bits = torch.as_tensor(bits, device=device)
+        stepf = get_step(active)
+        t0s = time.perf_counter()
+        with timer.phase("step", cat="step", step=k) as sp:
+            if gossip_mode == "overlap":
+                params, opt_state, gstate, losses, _ = stepf(
+                    params, opt_state, gstate, batch, bits, step=k
+                )
+                # delayed gossip hides behind compute: the step costs the
+                # slower of the two, not their sum
+                sim_time += max(schedule.comm_units(k), 1.0)
+            else:
+                params, opt_state, losses, _ = stepf(
+                    params, opt_state, batch, bits, step=k
+                )
+                # paper's delay model: one unit per activated matching,
+                # +1 compute
+                sim_time += schedule.comm_units(k) + 1.0
+            sp.fence((params, losses))
         if fault_sched is not None:
             # stragglers stretch the synchronous round: the step costs
             # the slowest node's extra units
-            sim_time += fault_sched.max_delay(k)
+            delay = fault_sched.max_delay(k)
+            sim_time += delay
+            if traced:
+                dropped = fault_sched.dropped_links(schedule.activations[k], k)
+                if dropped:
+                    tprobes.fault_event(recorder, step=k, kind="link_drop",
+                                        dropped_exchanges=dropped)
+                if delay:
+                    tprobes.fault_event(recorder, step=k, kind="straggler",
+                                        delay_units=delay)
+        if traced:
+            step_ms = (time.perf_counter() - t0s) * 1e3
+            if phased:
+                phase_ms = stepf.last_phase_ms
+                comm_ms = phase_ms.get("gossip", 0.0)
+            else:
+                comm_ms = sum(matching_ms.get(j, 0.0) for j in active)
+                phase_ms = None
+            mrec = tprobes.step_metrics(
+                step=k, step_ms=step_ms, comm_ms=comm_ms,
+                gossip_mode=gossip_mode,
+                comm_bytes=per_matching_bytes * len(active),
+                phase_ms=phase_ms,
+            )
+            trace_rows.append(mrec)
+            print(tprobes.format_metrics_line(mrec))
         if k % 10 == 0 or k == args.steps - 1:
             loss_mean = float(torch.mean(losses))
             cons = float(dt.consensus_distance(params))
@@ -297,13 +405,26 @@ def main(argv=None):
                 f"sim_time {sim_time:.0f}u active {len(active)}/{plan.num_matchings}"
             )
         if args.ckpt_every and args.ckpt_dir and (k + 1) % args.ckpt_every == 0:
-            save(k + 1)
+            # overlap: the checkpoint lands the in-flight exchange (the
+            # live run keeps it pending; resuming from a zero GossipState
+            # then replays the unbroken trajectory)
+            save(k + 1, flush(params, gstate) if gossip_mode == "overlap" else params)
         if fault_spec.crash_at_step == k:
+            if traced:
+                tprobes.fault_event(recorder, step=k, kind="crash")
             print(f"fault: simulated crash after completing step {k}")
             raise SimulatedCrash(k)
 
+    if gossip_mode == "overlap":
+        # land the exchange still in flight from the last step
+        params = flush(params, gstate, inplace=True)
+        cons = float(dt.consensus_distance(params))
+        print(f"flushed in-flight gossip: consensus {cons:.3e}")
+        if traced:
+            for stepf in step_cache.values():
+                stepf.record_launch_spans(wait=True)
     if args.ckpt_dir:
-        save(args.steps)
+        save(args.steps, params)
     if args.csv and rows:
         os.makedirs(os.path.dirname(args.csv) or ".", exist_ok=True)
         import csv as csvmod
@@ -313,6 +434,17 @@ def main(argv=None):
             w.writeheader()
             w.writerows(rows)
         print("wrote", args.csv)
+    if traced:
+        import json
+
+        jsonl_path, chrome_path = recorder.flush(args.trace)
+        metrics_path = os.path.join(args.trace, "metrics.jsonl")
+        with open(metrics_path, "w") as f:
+            for r in trace_rows:
+                f.write(json.dumps(r) + "\n")
+        print(f"wrote trace: {jsonl_path} + {chrome_path} "
+              f"({len(recorder.events())} events, "
+              f"{recorder.num_dropped} dropped) and {metrics_path}")
     return rows
 
 

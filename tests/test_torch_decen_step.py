@@ -216,7 +216,11 @@ def test_static_and_none_modes():
         mix_matchings(x, plan.alpha, plan.permutations, (plan.num_matchings,))
     with pytest.raises(ValueError, match="activation bits"):
         mix_matchings_masked(x, plan.alpha, plan.permutations, np.ones(2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dt.make_train_step(None, sgd(0.1), plan, gossip_mode="overlap")
+    # overlap is ported: its step threads the in-flight GossipState
+    from repro_torch.models.transformer import Model
+
+    model = Model(get_smoke_config("internlm2_1_8b"))
+    overlap = dt.make_train_step(model, sgd(0.1), plan, gossip_mode="overlap")
+    assert isinstance(overlap, dt.OverlapStep) and overlap.bplan == dt.param_bucket_plan(model)
     with pytest.raises(ValueError, match="unknown gossip_mode"):
         dt.make_train_step(None, sgd(0.1), plan, gossip_mode="ring")

@@ -17,7 +17,8 @@
   for JAX (tolerance 2e-2, as there).
 * ``python -m repro_torch.launch.serve --device cpu --preset tiny`` for
   internlm2, mamba2 and dbrx; without ``--device cpu`` and without a card it exits with
-  a message; unported flags exit naming their ROADMAP item.
+  a message; unported flags exit naming their ROADMAP item, and ``--trace``
+  writes spans the JAX package's readers load.
 """
 import dataclasses
 import os
@@ -32,6 +33,7 @@ import torch
 
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.models.transformer import Model as JaxModel
+from repro.telemetry.trace import read_chrome_trace, read_jsonl
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.convert import caches_from_numpy, caches_to_numpy, params_from_numpy
 from repro_torch.dist import serve as sv
@@ -154,13 +156,27 @@ def test_cli_without_a_card_needs_device_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--trace", "tr"], "item 14"),
+    (["--trace", "{tmp}/tr"], "ported"),
     (["--data-par", "2"], "item 15"),
     (["--model-par", "2"], "item 15"),
 ])
-def test_unported_flags_exit_naming_the_roadmap_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        serve.main(["--device", "cpu", *flags])
+def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path):
+    """Unported flags exit naming their ROADMAP item; ``--trace`` is
+    ported: one fenced prefill span and one decode span per
+    step, in files the JAX package's readers load."""
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    if item != "ported":
+        with pytest.raises(SystemExit, match=item):
+            serve.main(["--device", "cpu", *flags])
+        return
+    serve.main(["--device", "cpu", "--preset", "tiny", "--batch", "2",
+                "--prompt-len", "8", "--gen", "4", *flags])
+    header, events = read_jsonl(str(tmp_path / "tr" / "events.jsonl"))
+    assert header["schema"] == "repro.telemetry/1" and header["meta"]["gen"] == 4
+    assert events == read_chrome_trace(str(tmp_path / "tr" / "trace.json"))
+    assert [(e.name, e.cat, e.step) for e in events] == (
+        [("prefill", "serve", -1)] + [("decode", "serve", i) for i in range(3)])
+    assert events[0].args == {"tokens": 16} and all(e.dur_us > 0 for e in events)
 
 
 def test_run_reports_generated_ids_and_times():
