@@ -23,6 +23,11 @@ non-zero exit:
            and fp32, in turns with sdpa: nemotron-4-340b 96/8 heads of
            192, kimi-k2 64/8 of 112, gemma3-4b 8/4 of 256, also with a
            1024 window),
+           and at the new families' serving shapes, bf16, in turns with
+           sdpa: whisper-base's encoder (B 8, 1500 x 1500, 8/8 heads of
+           64, non-causal) and cross-attention (B 8, 384 queries over 1500
+           keys), gemma3-4b's prefill (B 8, S 2048, 8/4 heads of 256,
+           causal and with the 1024 window),
            ssm_scan (chunk halving, fp32 and bf16, decays that underflow,
            the path each case takes; at mamba2-370m's serving shapes the
            tensor-core kernel in turns with the scalar kernel, which takes
@@ -58,25 +63,43 @@ non-zero exit:
            same state, bit for bit;
 4. serve   the serving path (``repro_torch.launch.serve``) at full
            published width: internlm2-1.8b (24 layers), mamba2-370m (48
-           layers, d 1024, 32 SSM heads of 64, state 128, vocab 50280) and
+           layers, d 1024, 32 SSM heads of 64, state 128, vocab 50280),
            dbrx-132b (d 6144, 48 heads, 8 kv heads, head_dim 128, 16
            experts, top-4, expert d_ff 10752, vocab 100352; depth cut
-           40 -> 3 layers to fit one card), batch 8, prompt 2048, 32
-           generated tokens, random weights from seed 0; prefill and decode
-           times, peak memory, and all four kernels' launches, counted from
-           0 for each model (gossip_axpy none): internlm2 24 flash_attention per prefill,
-           mamba2 48 ssm_scan per prefill, none in decode; dbrx 3
-           flash_attention and 9 grouped_matmul per prefill and 9
-           grouped_matmul per decode step; then a profile of one prefill
-           and four decode steps of each model: device busy share, kernel
-           launches per step, the costliest kernels;
+           40 -> 3 layers to fit one card), gemma3-4b (34 layers: 5 x (5
+           local + 1 global) + 4 local, d 2560, 8/4 heads of 256, window
+           1024, vocab 262144), jamba-v0.1-52b (d 4096, 32/8 heads of 128,
+           16 experts top-2 of d_ff 14336, Mamba state 128, vocab 65536,
+           bf16 params; depth cut 32 -> 16 layers, two periods),
+           whisper-base (6 + 6 layers, d 512, 1500 zero encoder frames;
+           prompt 384, within max_position 448) and internvl2-1b (24
+           layers, d 896, 14/2 heads of 64, vocab 151655), batch 8,
+           prompt 2048, 32 generated tokens, random weights from seed 0;
+           prefill and decode times, peak memory, and all four kernels'
+           launches, counted from 0 for each model (gossip_axpy none):
+           internlm2 24 flash_attention per prefill, mamba2 48 ssm_scan
+           per prefill, none in decode; dbrx 3 flash_attention and 9
+           grouped_matmul per prefill and 9 grouped_matmul per decode
+           step; gemma3 34 flash_attention per prefill; jamba 2
+           flash_attention, 14 ssm_scan and 24 grouped_matmul per prefill
+           and 24 grouped_matmul per decode step; whisper 18
+           flash_attention per prefill (6 encoder, 6 causal self, 6
+           cross); internvl2 24 flash_attention per prefill; then a
+           profile of one prefill and four decode steps of each model:
+           device busy share, kernel launches per step, the costliest
+           kernels;
 5. check   small inputs (the tiny presets, fp32) run on the card and on
            the CPU from the same weights must agree: two masked training
            steps, and for internlm2, mamba2 and dbrx with 16 experts and
            top-4 (the ragged MoE branch) a prefill, one decode step and
-           every cache; three overlap steps and the flush; then the
-           training CLI ``repro_torch.launch.train``
-           must train on the card, and with link drops (--p-drop 0.35),
+           every cache; the same for gemma3 and jamba at 4 layers (one
+           periodic segment; jamba also with 16 experts, the ragged
+           branch), whisper with the encoder output in the prefill and the
+           decode step, and internvl2 with a vision prefix, and for these
+           four one training step's loss and gradients; three overlap
+           steps and the flush; then the training CLI
+           ``repro_torch.launch.train`` must train on the card (also
+           gemma3, jamba, whisper and internvl2 at the tiny preset), and with link drops (--p-drop 0.35),
            and with --gossip-mode overlap, a
            run that checkpoints every 3 steps and crashes after step 4
            must, resumed with --resume auto, end where an uninterrupted
@@ -120,6 +143,9 @@ SERVE_TOL = 1e-4                # card (kernels) vs CPU (plain), fp32 tiny servi
 # in bf16 both round an fp32 sum once, one bf16 step apart at most
 GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DBRX_LAYERS = 3                 # dbrx-132b depth on one card (40 published)
+JAMBA_LAYERS = 16               # jamba-v0.1-52b depth on one card (32 published)
+WHISPER_PROMPT = 384            # whisper prompt: prompt + generated within max_position 448
+FAMILY_ARCHS = ("gemma3_4b", "jamba_v0_1_52b", "whisper_base", "internvl2_1b")
 # the registry's other head widths, on the scalar flash kernel: (model,
 # query heads, kv heads, head_dim, window)
 FLASH_WIDE = [
@@ -405,37 +431,58 @@ def phase_flash(torch, ptxas):
             log(f"kernels: flash_attention {label} {dname} ({kernel_path(q, k)}): agrees "
                 f"(max abs err {err:.3g}; {int((~rows).sum())} rows with no live key are 0)")
 
-    # the serving path's prefills, bf16, causal: internlm2-1.8b (16/8 heads;
-    # the JSON row) and dbrx-132b (48/8 heads)
+    # the serving path's prefills, bf16: internlm2-1.8b (the JSON row),
+    # dbrx-132b, jamba-v0.1-52b, internvl2-1b (GQA 7:1), whisper-base's
+    # encoder and cross-attention, and gemma3-4b (hd 256, the scalar
+    # kernel; global and local layers)
+    B = SERVE_BATCH
+    shapes = [
+        # (model, Sq, Sk, Hq, Hkv, hd, causal, window, kernel path)
+        ("internlm2-1.8b", SERVE_PROMPT, SERVE_PROMPT, 16, 8, 128, True, 0, "wgmma"),
+        ("dbrx-132b", SERVE_PROMPT, SERVE_PROMPT, 48, 8, 128, True, 0, "wgmma"),
+        ("jamba-v0.1-52b", SERVE_PROMPT, SERVE_PROMPT, 32, 8, 128, True, 0, "wgmma"),
+        ("internvl2-1b", SERVE_PROMPT, SERVE_PROMPT, 14, 2, 64, True, 0, "wgmma"),
+        ("whisper-base encoder", 1500, 1500, 8, 8, 64, False, 0, "wgmma"),
+        ("whisper-base cross", WHISPER_PROMPT, 1500, 8, 8, 64, False, 0, "wgmma"),
+        ("gemma3-4b global", SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 0, "scalar"),
+        ("gemma3-4b local", SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 1024, "scalar"),
+    ]
     row = None
-    for model, Hq, Hkv in (("internlm2-1.8b", 16, 8), ("dbrx-132b", 48, 8)):
-        B, S, hd = SERVE_BATCH, SERVE_PROMPT, 128
-        q, k, v = qkv(B, S, S, Hq, Hkv, hd, torch.bfloat16)
-        got = flash_attention(q, k, v, causal=True)
-        want = attention_ref(q, k, v, causal=True)
+    for model, Sq, Sk, Hq, Hkv, hd, causal, window, path in shapes:
+        q, k, v = qkv(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16)
+        run = lambda: flash_attention(q, k, v, causal=causal, window=window)
+        got = run()
+        want = attention_ref(q, k, v, causal=causal, window=window)
         err = close(torch, got, want, FA_TOL["bfloat16"], FA_TOL["bfloat16"])
         if not math.isfinite(err):
             fail(f"flash at {model}'s serving shapes: disagrees with attention_ref")
         max_err = max(max_err, err)
         del got, want
         torch.cuda.empty_cache()
-        flops = 4 * hd * B * Hq * flash_pairs(S, S, True, 0, 0)
+        flops = 4 * hd * B * Hq * flash_pairs(Sq, Sk, causal, window, 0)
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
         bound_by = ("operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
                     else "bytes")
-        if kernel_path(q, k) != "wgmma":
-            fail(f"flash at {model}'s serving shapes does not take the wgmma kernel")
+        if kernel_path(q, k) != path:
+            fail(f"flash at {model}'s serving shapes does not take the {path} kernel")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window:
+            i = torch.arange(Sq, device="cuda")[:, None]
+            j = torch.arange(Sk, device="cuda")[None, :]
+            mask_kw = dict(attn_mask=(j <= i) & (i - j < window))
+        else:
+            mask_kw = dict(is_causal=causal)
         (k1, k2), (l1, l2) = in_turns(
-            torch, lambda: flash_attention(q, k, v, causal=True),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True), 10)
+            torch, run,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **mask_kw),
+            10)
         k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
-        p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True), 3)
-        log(f"kernels: flash_attention {model} serving shapes (B {B}, S {S}, heads "
-            f"{Hq}/{Hkv}, hd {hd}, bf16, causal; {flops / 1e9:.1f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB): path wgmma; in turns kernel "
+        p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=causal, window=window), 3)
+        log(f"kernels: flash_attention {model} serving shapes (B {B}, Sq {Sq}, Sk {Sk}, "
+            f"heads {Hq}/{Hkv}, hd {hd}, bf16, "
+            f"{'causal' if causal else 'non-causal'}{f', window {window}' if window else ''}; "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): path {path}; in turns kernel "
             f"{k1:.3f} ms, sdpa {l1:.3f} ms, sdpa {l2:.3f} ms, kernel {k2:.3f} ms "
             f"({flops / k_ms / 1e9:.0f} TFLOP/s; {k_ms / l_ms:.2f}x sdpa); plain "
             f"{p_ms:.3f} ms; bound {bound:.3f} ms by {bound_by} ({bound / k_ms:.1%} of "
@@ -444,7 +491,7 @@ def phase_flash(torch, ptxas):
         if row is None:
             row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
                        library_ms=l_ms)
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, mask_kw
         torch.cuda.empty_cache()
     max_err = max(max_err, flash_wide(torch, qkv))
     log(f"kernels: flash_attention ptxas: {ptxas_note(ptxas, 'flash_')}")
@@ -585,9 +632,25 @@ def phase_ssm(torch, ptxas):
         f"{p_ms:.3f} ms; no single PyTorch call computes the SSD; bound {bound:.4f} ms "
         f"by {bound_by} ({bound / k_ms:.1%} of it; fp32 CUDA-core floor "
         f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms)")
-    log(f"kernels: ssm_scan ptxas: {ptxas_note(ptxas, 'ssd_')}")
     del x, x_off, dt, A, Bm, Cm
     torch.cuda.empty_cache()
+
+    # jamba-v0.1-52b's prefill: 128 heads of 64, state 128 (the chained-state
+    # pass sizes its scratch and flags per head)
+    H = 128
+    x, dt, A, Bm, Cm = inputs(B, S, H, P, N, torch.bfloat16)
+    path = kernel_path(x, Bm, Q, Cm)
+    if path != "mma":
+        fail(f"ssm_scan at jamba's serving shapes takes the {path} kernel, not mma")
+    max_err = max(max_err, check(f"jamba serving shapes (B {B}, S {S}, H {H}, P {P}, "
+                                 f"N {N}; mma)", "bfloat16",
+                                 ssm_scan(x, dt, A, Bm, Cm, chunk=Q),
+                                 ssm_scan_ref(x, dt, A, Bm, Cm)))
+    log(f"kernels: ssm_scan jamba serving shapes: mma "
+        f"{cuda_ms(torch, lambda: ssm_scan(x, dt, A, Bm, Cm, chunk=Q), 5):.4f} ms")
+    del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
+    log(f"kernels: ssm_scan ptxas: {ptxas_note(ptxas, 'ssd_')}")
     return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=None)
 
@@ -724,23 +787,27 @@ def phase_gmm(torch, ptxas):
                 f"(max abs err {err:.3g}; rows past the groups are 0); kernel {k_ms:.4f} "
                 f"ms, plain {p_ms:.4f} ms, {lib_note}; bound {b_ms:.5f} ms by {b_by}")
 
-    # dbrx-132b's shapes, group sizes from a router pass
-    cfg = dbrx_serving_config()
-    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.moe_num_experts
-    prefill_sizes = router_group_sizes(torch, cfg, SERVE_BATCH * SERVE_PROMPT, seed=5)
-    decode_sizes = router_group_sizes(torch, cfg, SERVE_BATCH, seed=6)
-    log(f"kernels: grouped_matmul router group sizes, prefill "
-        f"{prefill_sizes.tolist()}, decode {decode_sizes.tolist()}")
+    # dbrx-132b's and jamba-v0.1-52b's shapes, group sizes from a router pass
+    shapes = []
+    for name, cfg, fp32, seed in (("dbrx", dbrx_serving_config(), ("float32",), 5),
+                                  ("jamba", jamba_serving_config(), (), 7)):
+        D, F = cfg.d_model, cfg.moe_d_ff
+        prefill_sizes = router_group_sizes(torch, cfg, SERVE_BATCH * SERVE_PROMPT, seed)
+        decode_sizes = router_group_sizes(torch, cfg, SERVE_BATCH, seed + 1)
+        log(f"kernels: grouped_matmul {name} router group sizes, prefill "
+            f"{prefill_sizes.tolist()}, decode {decode_sizes.tolist()}")
+        P_pre = SERVE_BATCH * SERVE_PROMPT * cfg.moe_top_k
+        P_dec = SERVE_BATCH * cfg.moe_top_k
+        shapes += [
+            # (label, M, K, N, sizes, dtypes, decode)
+            (f"{name} prefill w1/w3", P_pre, D, F, prefill_sizes, ("bfloat16", *fp32), False),
+            (f"{name} prefill w2", P_pre, F, D, prefill_sizes, ("bfloat16",), False),
+            (f"{name} decode w1/w3", P_dec, D, F, decode_sizes, ("bfloat16", *fp32), True),
+            (f"{name} decode w2", P_dec, F, D, decode_sizes, ("bfloat16",), True),
+        ]
     row = None
-    P_pre, P_dec = SERVE_BATCH * SERVE_PROMPT * cfg.moe_top_k, SERVE_BATCH * cfg.moe_top_k
-    shapes = [
-        # (label, M, K, N, sizes, dtypes)
-        ("dbrx prefill w1/w3", P_pre, D, F, prefill_sizes, ("bfloat16", "float32")),
-        ("dbrx prefill w2", P_pre, F, D, prefill_sizes, ("bfloat16",)),
-        ("dbrx decode w1/w3", P_dec, D, F, decode_sizes, ("bfloat16", "float32")),
-        ("dbrx decode w2", P_dec, F, D, decode_sizes, ("bfloat16",)),
-    ]
-    for label, M, K, N, gs, dnames in shapes:
+    for label, M, K, N, gs, dnames, decode in shapes:
+        E = gs.numel()
         for dname in dnames:
             dtype = dtypes[dname]
             x, w = inputs(M, K, N, E, dtype, 1.0 / math.sqrt(K))
@@ -750,7 +817,7 @@ def phase_gmm(torch, ptxas):
             err = check(label, dname, x, w, gs)
             max_err = max(max_err, err)
             b_ms, b_by, flops, nbytes = bound(x, w, gs, x.element_size())
-            iters = 3 if M > P_dec else 10
+            iters = 10 if decode else 3
             run = lambda: grouped_matmul(x, w, gs)
             lib_fn, lib_note = library(x, w, gs)
             l_ms = None
@@ -781,19 +848,38 @@ def phase_gmm(torch, ptxas):
     return row
 
 
+def jamba_serving_config():
+    from repro_torch.configs.registry import get_config
+
+    # bf16 params, the published checkpoint's dtype: 52 GB (104 GB in fp32)
+    return dataclasses.replace(get_config("jamba_v0_1_52b"), num_layers=JAMBA_LAYERS,
+                               param_dtype="bfloat16")
+
+
 def serving_configs():
-    """(config, expected launches per prefill, per decode step) of each
-    model the serving phases drive."""
+    """(config, prompt length, expected launches per prefill, per decode
+    step) of each model the serving phases drive."""
     from repro_torch.configs.registry import get_config
 
     dense, mamba, dbrx = (get_config("internlm2_1_8b"), get_config("mamba2_370m"),
                           dbrx_serving_config())
     moe = 3 * dbrx.num_layers                   # w1, w3, w2 in every layer
     return [
-        (dense, {"flash_attention": dense.num_layers}, {}),
-        (mamba, {"ssm_scan": mamba.num_layers}, {}),
-        (dbrx, {"flash_attention": dbrx.num_layers, "grouped_matmul": moe},
+        (dense, SERVE_PROMPT, {"flash_attention": dense.num_layers}, {}),
+        (mamba, SERVE_PROMPT, {"ssm_scan": mamba.num_layers}, {}),
+        (dbrx, SERVE_PROMPT, {"flash_attention": dbrx.num_layers, "grouped_matmul": moe},
          {"grouped_matmul": moe}),
+        # 5 x (5 local + 1 global) + 4 local layers, each on the kernel
+        (get_config("gemma3_4b"), SERVE_PROMPT, {"flash_attention": 34}, {}),
+        # 2 attention and 14 Mamba layers; 8 MoE layers of 16 experts, 3
+        # expert products each, in the prefill and in every decode step
+        (jamba_serving_config(), SERVE_PROMPT,
+         {"flash_attention": 2, "ssm_scan": 14, "grouped_matmul": 24},
+         {"grouped_matmul": 24}),
+        # 6 encoder, 6 causal self- and 6 cross-attention layers; the decode
+        # skips cross-attention, as the JAX runtime does
+        (get_config("whisper_base"), WHISPER_PROMPT, {"flash_attention": 18}, {}),
+        (get_config("internvl2_1b"), SERVE_PROMPT, {"flash_attention": 24}, {}),
     ]
 
 
@@ -809,18 +895,19 @@ def phase_serve(torch):
     kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
                "grouped_matmul": grouped_matmul, "gossip_axpy": gossip_axpy}
     launches = dict.fromkeys(kernels, 0)
-    for cfg, per_prefill, per_decode in serving_configs():
+    for cfg, prompt, per_prefill, per_decode in serving_configs():
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        res = serve.run(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        res = serve.run(cfg, batch=SERVE_BATCH, prompt_len=prompt,
                         gen=SERVE_GEN, seed=0, device="cuda")
         total = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in kernels.items()}
         for name, n in counts.items():
             launches[name] += n
         log(f"serve: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-            f"vocab {cfg.vocab_size}) batch {SERVE_BATCH} prompt {SERVE_PROMPT} gen "
+            f"vocab {cfg.vocab_size}, {cfg.param_dtype} params) batch {SERVE_BATCH} "
+            f"prompt {prompt} gen "
             f"{SERVE_GEN}: prefill {res['prefill_ms']:.1f} ms, decode "
             f"{res['decode_ms_per_token']:.2f} ms/token, peak memory allocated "
             f"{res['peak_bytes'] / 1e9:.2f} GB; launches in the prefill "
@@ -891,30 +978,35 @@ def phase_profile(torch):
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for cfg, _, _ in serving_configs():
+    for cfg, prompt, _, _ in serving_configs():
         model = Model(cfg)
         params = model.init(0, device="cuda")
-        max_len = SERVE_PROMPT + 8
-        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+        max_len = prompt + 8
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt),
                                generator=gen, device="cuda", dtype=torch.int32)
         caches = model.init_cache(SERVE_BATCH, max_len, device="cuda")
         prefill = sv.make_prefill_step(model, max_len=max_len)
         decode = sv.make_decode_step(model, max_len=max_len)
+        frontend = {}
+        if cfg.frontend == "audio":
+            frontend["encoder_frames"] = torch.zeros(
+                (SERVE_BATCH, cfg.encoder_seq, cfg.frontend_dim), dtype=torch.bfloat16,
+                device="cuda")
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            logits, caches = prefill(params, tokens, caches)
+            logits, caches = prefill(params, tokens, caches, **frontend)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         summary(prof, wall, 1, f"{cfg.name} prefill")
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-        logits, caches = decode(params, tok, caches, SERVE_PROMPT)     # warm-up
+        logits, caches = decode(params, tok, caches, prompt)     # warm-up
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for i in range(4):
                 tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-                logits, caches = decode(params, tok, caches, SERVE_PROMPT + 1 + i)
+                logits, caches = decode(params, tok, caches, prompt + 1 + i)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         summary(prof, wall, 4, f"{cfg.name} decode")
@@ -922,69 +1014,142 @@ def phase_profile(torch):
         torch.cuda.empty_cache()
 
 
+def tiny_launches(cfg, *, encoder: bool = False):
+    """Kernel launches of a prefill from position 0 plus one decode step:
+    flash_attention per attention layer (with ``encoder``, also per
+    encoder layer and per cross-attention), ssm_scan per Mamba layer, and
+    3 grouped_matmul per MoE layer of more than 8 experts in each step."""
+    kinds = cfg.layer_kinds()
+    attn = sum(kind != "mamba" for kind in kinds)
+    moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers))) if cfg.moe_num_experts > 8 else 0
+    return {"flash_attention": attn + (cfg.encoder_layers + cfg.num_layers) * encoder,
+            "ssm_scan": len(kinds) - attn, "grouped_matmul": 6 * moe}
+
+
+def tiny_config(arch, **over):
+    """A tiny preset in fp32, gemma3 and jamba at 4 layers (one periodic
+    segment each)."""
+    from repro_torch.configs.registry import get_smoke_config
+
+    if arch in ("gemma3_4b", "jamba_v0_1_52b"):
+        over["num_layers"] = 4
+    return dataclasses.replace(get_smoke_config(arch), compute_dtype="float32", **over)
+
+
 def phase_serve_check(torch):
     """Tiny fp32 serving on the card (kernels) against the CPU (plain
-    versions), from the same weights and prompts."""
+    versions), from the same weights and prompts; then one training step
+    of each new family, card against CPU."""
     import numpy as np
 
-    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import to_bfloat16
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models.transformer import Model
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import flatten, tree_map
 
     kernels = {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
                "grouped_matmul": grouped_matmul}
     B, S, max_len = 2, 100, 128
     checks = [
-        # (arch, overrides, launches expected on the card per layer of the
-        # prefill plus one decode step)
-        ("internlm2_1_8b", {}, {"flash_attention": 1}),
-        ("mamba2_370m", {}, {"ssm_scan": 1}),
+        tiny_config("internlm2_1_8b"),
+        tiny_config("mamba2_370m"),
         # the stock dbrx smoke model has 4 experts (the einsum branch):
         # 16 experts, top-4 take the ragged branch and its grouped matmuls
-        ("dbrx_132b", dict(moe_num_experts=16, moe_top_k=4),
-         {"flash_attention": 1, "grouped_matmul": 6}),
+        tiny_config("dbrx_132b", moe_num_experts=16, moe_top_k=4),
+        tiny_config("gemma3_4b"),
+        tiny_config("jamba_v0_1_52b"),
+        tiny_config("jamba_v0_1_52b", moe_num_experts=16),
+        # whisper: the encoder output in the prefill and the decode step;
+        # internvl2: a prefix of 16 in the prefill (max_len covers it)
+        tiny_config("whisper_base"),
+        tiny_config("internvl2_1b"),
     ]
-    for arch, over, per_layer in checks:
-        cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32", **over)
+    for cfg in checks:
         model = Model(cfg)
         params = model.init(0, device="cpu")
-        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S + 1))
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1))
+        stub = (to_bfloat16(rng.normal(size=(B, cfg.encoder_seq, cfg.frontend_dim)))
+                if cfg.frontend else None)
         out = {}
         for dev in ("cpu", "cuda"):
             p = tree_map(lambda a: a.to(dev), params)
             tokens = torch.as_tensor(toks, dtype=torch.int32, device=dev)
             caches = model.init_cache(B, max_len, device=dev)
             before = {name: fn.launches for name, fn in kernels.items()}
+            pre, dec, P, outs = {}, {}, 0, []
             with torch.inference_mode():
-                lp, caches = model.serve_forward(p, tokens[:, :S], caches,
-                                                 start_position=0, max_len=max_len)
-                prefill_caches = [{k: v.cpu().clone() for k, v in c.items()} for c in caches]
+                if cfg.frontend == "audio":
+                    enc = model._encode(p, stub.to(dev), prefill=True)
+                    pre = dec = dict(encoder_out=enc)
+                    outs.append(enc.cpu())
+                elif cfg.frontend == "vision":
+                    pre, P = dict(prefix_embeddings=stub.to(dev)), cfg.encoder_seq
+                lp, caches = model.serve_forward(p, tokens[:, :S], caches, start_position=0,
+                                                 max_len=max_len, **pre)
+                prefill_caches = flatten(dict(enumerate(caches)))
+                prefill_caches = {k: v.cpu().clone() for k, v in prefill_caches.items()}
                 ld, caches = model.serve_forward(p, tokens[:, S:], caches,
-                                                 start_position=S, max_len=max_len)
+                                                 start_position=P + S, max_len=max_len, **dec)
             launched = {name: fn.launches - before[name] for name, fn in kernels.items()}
-            out[dev] = (lp.cpu(), ld.cpu(), prefill_caches,
-                        [{k: v.cpu() for k, v in c.items()} for c in caches], launched)
-        expected = {k: per_layer.get(k, 0) * cfg.num_layers for k in kernels}
-        if out["cuda"][4] != expected or any(out["cpu"][4].values()):
-            fail(f"{cfg.name}: the card ran {out['cuda'][4]} kernel launches, the CPU "
-                 f"{out['cpu'][4]}; expected {expected} and none")
+            outs += [lp.cpu(), ld.cpu()]
+            leaves = [*prefill_caches.values(),
+                      *(v.cpu() for v in flatten(dict(enumerate(caches))).values())]
+            out[dev] = (outs, leaves, launched)
+        expected = tiny_launches(cfg, encoder=cfg.frontend == "audio")
+        if out["cuda"][2] != expected or any(out["cpu"][2].values()):
+            fail(f"{cfg.name}: the card ran {out['cuda'][2]} kernel launches, the CPU "
+                 f"{out['cpu'][2]}; expected {expected} and none")
         worst = 0.0
-        for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
-            worst = max(worst, float((got - want).abs().max() / want.abs().max()))
-        for c_got, c_want in zip(out["cuda"][2] + out["cuda"][3],
-                                 out["cpu"][2] + out["cpu"][3]):
-            for key in c_want:
-                g, w = c_got[key].float(), c_want[key].float()
-                worst = max(worst, float((g - w).abs().max() / max(w.abs().max(), 1e-30)))
-        log(f"check: {cfg.name} {over or ''} fp32 serving, card (kernels: "
-            f"{out['cuda'][4]}) vs CPU (plain): prefill logits, one decode step and "
-            f"every cache leaf within {worst:.2e} of the largest magnitude (tolerance "
-            f"{SERVE_TOL:g})")
+        for got, want in zip(out["cuda"][0] + out["cuda"][1], out["cpu"][0] + out["cpu"][1]):
+            g, w = got.float(), want.float()
+            worst = max(worst, float((g - w).abs().max() / max(w.abs().max(), 1e-30)))
+        log(f"check: {cfg.name} ({cfg.num_layers} layers, {cfg.moe_num_experts} experts, "
+            f"segments {[type(seg).__name__ for seg in model.segments]}) fp32 serving, card "
+            f"(kernels: {out['cuda'][2]}) vs CPU (plain): "
+            f"{'encoder output, ' if cfg.frontend == 'audio' else ''}"
+            f"{'prefill behind a prefix of ' + str(P) + ', ' if P else ''}prefill logits, "
+            f"one decode step and the {len(out['cpu'][1]) // 2} cache leaves after each "
+            f"within {worst:.2e} of the largest magnitude (tolerance {SERVE_TOL:g})")
         if not worst <= SERVE_TOL:
             fail(f"{cfg.name}: the card's serving disagrees with the CPU's")
+    check_family_training(torch)
+
+
+def check_family_training(torch):
+    """One training step's loss and gradients of each new family (tiny,
+    fp32, a pipeline batch with its frontend stub), card against CPU;
+    no kernel runs under grad."""
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for arch in FAMILY_ARCHS:
+        cfg = tiny_config(arch)
+        model = Model(cfg)
+        params = model.init(0, device="cpu")
+        batch = {k: v[0] for k, v in next(DecentralizedBatches(
+            cfg, 1, 2, 32, seed=0, device="cpu")).items()}
+        res = {}
+        launches = flash_attention.launches
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(dev).detach().requires_grad_(), params)
+            loss, _ = model.loss(p, {k: v.to(dev) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            res[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+        loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        grad_err = max(float((g - w).norm() / max(float(w.norm()), 1e-30))
+                       for g, w in zip(res["cuda"][1], res["cpu"][1]))
+        log(f"check: {cfg.name} ({cfg.num_layers} layers) tiny fp32 training step, card vs "
+            f"CPU: loss {res['cuda'][0]:.6f}, rel err {loss_err:.2e}; {len(res['cpu'][1])} "
+            f"gradients, max rel err {grad_err:.2e} (tolerance {SMALL_TOL:g})")
+        if flash_attention.launches != launches:
+            fail(f"{cfg.name}: a training step launched the flash kernel")
+        if not (loss_err <= SMALL_TOL and grad_err <= SMALL_TOL):
+            fail(f"{cfg.name}: the card's training step disagrees with the CPU's")
 
 
 def phase_main(torch, cfg, plan):
@@ -1385,6 +1550,18 @@ def phase_check(torch, plan):
         fail("launch.train run: non-finite loss or consensus")
     if abs(rows[0]["loss"] - 6.26) > 0.1:
         fail(f"launch.train run: step-0 loss {rows[0]['loss']} is not near 6.26")
+    for arch in FAMILY_ARCHS:
+        gossip_axpy.launches = 0
+        rows = train.main(["--preset", "tiny", "--steps", "3", "--arch", arch])
+        leaves = len(flatten(Model(get_smoke_config(arch)).param_shapes()))
+        log(f"check: launch.train --arch {arch} --preset tiny --steps 3 on the card: "
+            f"gossip_axpy launches {gossip_axpy.launches}, losses "
+            f"{[round(r['loss'], 4) for r in rows]}")
+        if gossip_axpy.launches != 3 * leaves:
+            fail(f"launch.train --arch {arch}: {gossip_axpy.launches} gossip_axpy launches, "
+                 f"expected {3 * leaves}")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["consensus"]) for r in rows):
+            fail(f"launch.train --arch {arch}: non-finite loss or consensus")
     check_crash_resume(torch)
     check_overlap_crash_resume(torch)
     check_traces(torch)

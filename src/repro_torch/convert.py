@@ -50,12 +50,12 @@ def params_to_numpy(tree: Any) -> Any:
 def caches_from_numpy(caches, device) -> list:
     """Serving caches as the JAX ``Model.init_cache`` / ``serve_forward``
     hand them over (a list of per-segment dicts of numpy arrays: ``k``,
-    ``v``, ``pos`` or ``ssm``, ``conv``) -> the port's caches on
-    ``device``."""
+    ``v``, ``pos`` or ``ssm``, ``conv``; a periodic segment's nested as
+    ``{pos_j: {...}}``) -> the port's caches on ``device``."""
     return [params_from_numpy(c, device) for c in caches]
 
 
 def caches_to_numpy(caches) -> list:
-    """The port's caches -> per-segment dicts of numpy arrays (bfloat16
-    widened to float32, as in ``params_to_numpy``)."""
+    """The port's caches -> per-segment (possibly nested) dicts of numpy
+    arrays (bfloat16 widened to float32, as in ``params_to_numpy``)."""
     return [params_to_numpy(c) for c in caches]

@@ -3,9 +3,11 @@
 The port of ``repro.data.pipeline``. All sampling is the JAX package's
 numpy code, byte for byte, so both packages draw identical tokens from
 the same seed; only the final hand-off makes torch tensors on the
-requested device instead of jax arrays. Frontend stubs (vision / audio
-prefixes) and the dry-run ``input_specs`` are not ported yet (ROADMAP
-queue 1, items 12 and 17).
+requested device instead of jax arrays. Frontend models get their stub
+inputs beside the tokens, drawn from the same per-node streams: vision
+models a ``prefix_embeddings`` and audio models an ``encoder_frames``
+tensor, bf16, bit-equal to the JAX package's. The dry-run
+``input_specs`` is not ported yet (ROADMAP queue 1, item 17).
 """
 from __future__ import annotations
 
@@ -107,7 +109,9 @@ def partition_seeds(
 
 class DecentralizedBatches:
     """Iterator of {tokens, labels} with leading (nodes, batch) dims,
-    as int32 tensors on ``device``."""
+    as int32 tensors on ``device``, plus a frontend model's bf16 stub
+    (``prefix_embeddings`` or ``encoder_frames``, (nodes, batch,
+    encoder_seq, frontend_dim))."""
 
     def __init__(
         self,
@@ -120,11 +124,6 @@ class DecentralizedBatches:
         seed: int = 0,
         device="cuda",
     ):
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.frontend} frontend stubs are not ported "
-                "yet (ROADMAP queue 1, item 12)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_nodes = num_nodes
@@ -143,6 +142,16 @@ class DecentralizedBatches:
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self
 
+    def _frontend_stub(self) -> np.ndarray:
+        """Per-(node, batch) stand-in embeddings, drawn fresh from each
+        node's stream rng every batch, after all nodes' tokens."""
+        N, B = self.num_nodes, self.batch_per_node
+        fd = self.cfg.frontend_dim or self.cfg.d_model
+        return np.stack([
+            self.node_rngs[n].normal(size=(B, self.cfg.encoder_seq, fd))
+            for n in range(N)
+        ])
+
     def __next__(self) -> Dict[str, torch.Tensor]:
         N, B, S = self.num_nodes, self.batch_per_node, self.seq_len
         toks = np.zeros((N, B, S + 1), np.int32)
@@ -152,7 +161,18 @@ class DecentralizedBatches:
                 toks[n, b] = self.corpus.sample(
                     self.node_rngs[n], S + 1, state_prior=prior
                 )
-        return {
+        batch = {
             "tokens": torch.as_tensor(toks[..., :-1], device=self.device),
             "labels": torch.as_tensor(toks[..., 1:], device=self.device),
         }
+        key = {"vision": "prefix_embeddings", "audio": "encoder_frames"}.get(
+            self.cfg.frontend)
+        if key is not None:
+            batch[key] = to_bfloat16(self._frontend_stub()).to(self.device)
+        return batch
+
+
+def to_bfloat16(a: np.ndarray) -> torch.Tensor:
+    """float64 numbers -> bf16, rounded as the JAX package rounds them
+    (``jnp.asarray(a, jnp.bfloat16)``)."""
+    return torch.from_numpy(np.asarray(a)).to(torch.bfloat16)

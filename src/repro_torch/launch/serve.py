@@ -6,9 +6,14 @@ The port of ``repro.launch.serve``. It takes the JAX CLI's flags, plus
 and without a card and without that flag it exits with an error
 instead of carrying on on the CPU. On the card the prefill runs the
 hand-written flash-attention kernel (attention layers) and SSD
-chunk-scan kernel (Mamba layers), and MoE layers of more than 8 experts
+chunk-scan kernel (Mamba layers; both also in hybrid and local:global
+stacks), and MoE layers of more than 8 experts
 run their expert products on the grouped-matmul kernel in prefill and
-decode alike; the command prints each of the port's four kernels'
+decode alike. Audio models (whisper) encode zero frames first, and
+their prefill runs the kernel for the encoder's self-attention and the
+decoder's cross-attention too; their decode skips cross-attention, as
+the JAX runtime's does. Vision models serve without a prefix, as the
+JAX CLI does. The command prints each of the port's four kernels'
 launches in the prefill and in the decode (``gossip_axpy``, the
 training step's, stays at 0).
 
@@ -27,6 +32,8 @@ Examples:
       --arch mamba2_370m --preset tiny
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch dbrx_132b --preset tiny
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch whisper_base --preset tiny
 """
 from __future__ import annotations
 
@@ -108,6 +115,14 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     prefill = sv.make_prefill_step(model, max_len=max_len)
     decode = sv.make_decode_step(model, max_len=max_len)
     caches = model.init_cache(batch, max_len, device=device)
+    frontend = {}
+    if cfg.frontend == "audio":
+        # zero frames, as the JAX CLI feeds them; vision models serve
+        # without a prefix, as there
+        frontend["encoder_frames"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.frontend_dim or cfg.d_model),
+            dtype=torch.bfloat16, device=device,
+        )
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -119,7 +134,7 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     _sync(device)
     t0 = time.perf_counter()
     with timer.phase("prefill", cat="serve", tokens=batch * prompt_len) as sp:
-        logits, caches = prefill(params, tokens, caches)
+        logits, caches = prefill(params, tokens, caches, **frontend)
         sp.fence(logits)
     _sync(device)
     t_prefill = time.perf_counter() - t0

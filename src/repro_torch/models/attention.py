@@ -1,5 +1,5 @@
-"""Attention: GQA/MQA, causal and sliding-window, over position arrays,
-with the explicit-position KV cache of serving.
+"""Attention: GQA/MQA, causal, sliding-window and cross-attention over
+position arrays, with the explicit-position KV cache of serving.
 
 The port of ``repro.models.attention``. Two execution paths share one
 declaration, as in the JAX package:
@@ -10,10 +10,13 @@ declaration, as in the JAX package:
     flash-attention kernel on the card (its plain version on the CPU).
     A serving prefill that starts at position 0 runs it over the keys it
     has just written: there, attention over the cache is causal
-    attention over the first S keys, which is the kernel's function. The
-    kernel has no softcap and no backward, so softcapped configurations,
-    decode steps, later prefills and training stay on ``sdpa`` (the
-    backward kernel is a later slice of the port).
+    attention over the first S keys, which is the kernel's function.
+    The same prefill runs it for the encoder's non-causal
+    self-attention and for the decoder's cross-attention over the
+    encoder output (whisper). The kernel has no softcap and no
+    backward, so softcapped configurations, decode steps, later
+    prefills and training stay on ``sdpa`` (the backward kernel is a
+    later slice of the port).
 
 Decode uses an explicit-position KV cache: positions are stored next to
 k/v, so full caches and ring-buffer (sliding-window) caches share one
@@ -41,7 +44,9 @@ NEG_INF = -2.0**30  # large-but-finite: keeps masked softmax NaN-free
 CHUNKED_SDPA_THRESHOLD = 8192
 
 
-def declare_attention(b: ParamBuilder, path: str, cfg: ModelConfig) -> None:
+def declare_attention(
+    b: ParamBuilder, path: str, cfg: ModelConfig, *, cross: bool = False
+) -> None:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     declare_dense(b, f"{path}.wq", d, h * hd, ("q_in", "heads_proj"))
     declare_dense(b, f"{path}.wk", d, kv * hd, ("kv_in", "kv_proj"))
@@ -50,6 +55,7 @@ def declare_attention(b: ParamBuilder, path: str, cfg: ModelConfig) -> None:
     if cfg.qk_norm:
         b.declare(f"{path}.q_norm.scale", (hd,), (None,), init=ones_init)
         b.declare(f"{path}.k_norm.scale", (hd,), (None,), init=ones_init)
+    del cross  # same parameter structure; kv source differs at apply time
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
@@ -159,21 +165,46 @@ def attention_block(
     window: int = 0,
     cache: Optional[dict] = None,       # decode/prefill KV cache
     cache_spec: Optional[CacheSpec] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # encoder K/V
     prefill_from_zero: bool = False,
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention. Without a cache (training) over the block's own
-    keys; with one, the new keys are written and the queries attend over
-    the cache. ``prefill_from_zero`` says that this multi-token cache
-    step starts at position 0 (``positions`` is ``0..S-1``): with no
-    softcap it then runs ``ops.attention``, the flash kernel on the
-    card, over the keys just written. Returns ``(y, new_cache)``."""
+    """Self-attention, or cross-attention over ``cross_kv``. Without a
+    cache (training) over the block's own keys; with one, the new keys
+    are written and the queries attend over the cache. Cross-attention
+    is non-causal over encoder keys at positions ``0..Sk-1``, with no
+    rope and no cache. ``prefill_from_zero`` marks a serving prefill
+    from position 0 (``positions`` is ``0..S-1``; inference only, the
+    kernel has no backward), which runs ``ops.attention``, the flash
+    kernel on the card, when the config has no softcap: a multi-token
+    cache step over the keys just written, cross-attention over
+    ``cross_kv``, and a cache-less call (the encoder's pass) over its
+    own keys.
+
+    Returns ``(y, new_cache)``."""
     dtype = torch_dtype(cfg.compute_dtype)
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kernel = not cfg.logit_softcap
 
     q = _split_heads(apply_dense(p["wq"], x, dtype), h, hd)
     if cfg.qk_norm:
         q = _rms(q, p["q_norm"]["scale"])
+    sdpa_kw = dict(causal=causal, window=window, logit_softcap=cfg.logit_softcap)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        if kernel and prefill_from_zero:
+            out = ops.attention(q, k, v, causal=False)
+        else:
+            Sk = k.shape[1]
+            k_pos = torch.arange(Sk, dtype=torch.int32, device=x.device)
+            out = _dispatch_sdpa(q, k, v, q_positions=positions,
+                                 k_positions=k_pos[None, :].expand(x.shape[0], Sk),
+                                 causal=False, window=0,
+                                 logit_softcap=cfg.logit_softcap)
+        y = apply_dense(p["wo"], out.reshape(*x.shape[:-1], h * hd), dtype)
+        return y, None
+
     k = _split_heads(apply_dense(p["wk"], x, dtype), kv, hd)
     v = _split_heads(apply_dense(p["wv"], x, dtype), kv, hd)
     if cfg.qk_norm:
@@ -181,17 +212,19 @@ def attention_block(
     if use_rope and cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    sdpa_kw = dict(causal=causal, window=window, logit_softcap=cfg.logit_softcap)
 
     if cache is None:
-        out = _dispatch_sdpa(q, k, v, q_positions=positions, k_positions=positions,
-                             **sdpa_kw)
+        if kernel and prefill_from_zero:
+            out = ops.attention(q, k, v, causal=causal, window=window)
+        else:
+            out = _dispatch_sdpa(q, k, v, q_positions=positions,
+                                 k_positions=positions, **sdpa_kw)
         new_cache = None
     else:
         assert cache_spec is not None
         new_cache = cache_write(cache, k, v, positions, cache_spec)
         multi = q.shape[1] > 1
-        if multi and prefill_from_zero and not cfg.logit_softcap:
+        if multi and prefill_from_zero and kernel:
             out = ops.attention(q, k, v, causal=causal, window=window)
         elif cache_spec.ring and multi:
             # Windowed prefill: a ring cache shorter than the chunk has
@@ -206,3 +239,12 @@ def attention_block(
                                  k_positions=new_cache["pos"], **sdpa_kw)
     y = apply_dense(p["wo"], out.reshape(*x.shape[:-1], h * hd), dtype)
     return y, new_cache
+
+
+def encoder_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V of one layer from the encoder output."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = _split_heads(apply_dense(p["wk"], enc_out, dtype), kv, hd)
+    v = _split_heads(apply_dense(p["wv"], enc_out, dtype), kv, hd)
+    return k, v

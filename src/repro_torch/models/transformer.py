@@ -1,5 +1,8 @@
-"""Transformer assembly: the dense decoder family, Mixture-of-Experts
-layers and Mamba2 stacks, for training and serving.
+"""Transformer assembly for every registry family, for training and
+serving: dense decoders (GQA/MQA), MoE decoders, pure-SSM (mamba2),
+hybrid attention + SSM (jamba), local:global attention (gemma3),
+encoder-decoder over stub audio frames (whisper) and a decoder behind a
+stub vision prefix (internvl2).
 
 The port of ``repro.models.transformer``. Layer stacking follows the JAX
 package: consecutive identical layers form a *segment* whose parameters
@@ -7,16 +10,30 @@ are stacked on a leading layer dim, so ``blocks_0.mixer.wq.w`` has shape
 ``(layers, d, heads * head_dim)`` here and in the JAX tree alike. The
 JAX model scans segments of ``SCAN_THRESHOLD`` or more layers with
 ``lax.scan`` and unrolls shorter ones; both become the same Python loop
-over the layer dim here. ``cfg.remat`` maps to
-``torch.utils.checkpoint`` (recompute in the backward, same numbers).
+over the layer dim here. A stack with no long uniform run but a
+repeating heterogeneous pattern (jamba: period 8, gemma3: period 6)
+becomes a ``PeriodicSegment``: its parameters sit under ``pos_{j}``, one
+sub-tree per position in the period, each stacked over the repeats, and
+one loop over the repeats applies the whole pattern per pass, as the
+JAX model's scan body does. ``cfg.remat`` maps to
+``torch.utils.checkpoint``, one per layer (recompute in the backward,
+same numbers).
 
 Serving (``init_cache`` / ``serve_forward``) threads per-segment caches,
-stacked on the layer dim like the parameters, through the layer loop:
-KV caches for attention layers, the SSM and conv state for Mamba
-layers. The port updates them in place. A prefill from position 0 runs
-the hand-written flash-attention and SSD chunk-scan kernels on the card
-(``repro_torch.kernels.ops``); decode and training run the models' plain
+stacked on the layer dim like the parameters (``{pos_j: stacked over
+the repeats}`` for a periodic segment), through the layer loop: KV
+caches for attention layers, the SSM and conv state for Mamba layers.
+The port updates them in place. A prefill from position 0 runs the
+hand-written flash-attention and SSD chunk-scan kernels on the card
+(``repro_torch.kernels.ops``), the encoder's self-attention and the
+cross-attention included; decode and training run the models' plain
 PyTorch attention and SSD, as the JAX model does.
+
+Encoder-decoder models encode stub frame embeddings (``_encode``:
+frontend projection, sinusoidal positions, non-causal layers) and give
+every decoder layer a cross-attention over the encoder output. Vision
+models prepend the projected ``prefix_embeddings`` to the token
+embeddings; the prefix positions' logits are dropped.
 
 MoE layers take the JAX model's branch: the einsum path for 8 experts
 or fewer, else the ragged path, whose expert products run the
@@ -24,13 +41,17 @@ hand-written grouped-matmul kernel on the card (in prefill and decode
 alike). Their load-balance and router-z losses are summed over the
 layers into the training loss.
 
-Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP
-item): periodic hybrid segments, the encoder of encoder-decoder models
-and vision prefixes (queue 1, item 12).
+Where PyTorch would raise an opaque indexing error, the port raises a
+``ValueError`` naming the cause: serving positions past ``max_len`` in
+a model with a full-length KV cache (it has no room for them; Mamba
+states and ring caches have no end) and learned positions past
+``max_position``. The JAX model drops such cache writes and clamps such
+gathers instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,14 +65,17 @@ from repro_torch.models.attention import (
     CacheSpec,
     attention_block,
     declare_attention,
+    encoder_kv,
     init_kv_cache,
 )
 from repro_torch.models.ffn import declare_ffn, declare_moe, ffn_block, moe_block
 from repro_torch.models.layers import (
     apply_dense,
     apply_norm,
+    declare_dense,
     declare_embedding,
     declare_norm,
+    sinusoidal_table,
     softmax_cross_entropy,
     unembed,
 )
@@ -67,8 +91,6 @@ from repro_torch.tree import tree_leaves, tree_map
 
 SCAN_THRESHOLD = 8
 
-_FAMILIES = "ROADMAP queue 1, item 12 (the other model families)"
-
 
 # ---------------------------------------------------------------------------
 # Layer segmentation (identical to the JAX package)
@@ -83,15 +105,20 @@ class Segment:
 
 @dataclasses.dataclass(frozen=True)
 class PeriodicSegment:
-    """A repeating heterogeneous layer pattern (jamba, gemma3): the JAX
-    model scans the pattern over its repeats. Not ported yet."""
+    """A repeating heterogeneous layer pattern (jamba, gemma3), applied
+    whole once per repeat: params are stacked per position in the
+    period with a leading ``reps`` dim."""
 
-    pattern: Tuple[Segment, ...]
+    pattern: Tuple[Segment, ...]   # one single-layer Segment per position
     reps: int
 
     @property
     def count(self) -> int:
         return len(self.pattern) * self.reps
+
+    @property
+    def period(self) -> int:
+        return len(self.pattern)
 
 
 def _plain_segments(cfg: ModelConfig, kinds, moes, scan: bool) -> List[Segment]:
@@ -148,39 +175,20 @@ def _has_ffn(cfg: ModelConfig, seg: Segment) -> bool:
     )
 
 
-def _check_supported(cfg: ModelConfig, segments) -> None:
-    """Reject, up front, every branch of the JAX model the port lacks."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet ({_FAMILIES})"
-        )
-    if cfg.pos_embed not in ("rope", "learned", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.pos_embed} position embeddings are not ported "
-            f"yet ({_FAMILIES})"
-        )
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.frontend} prefix frontends are not ported yet "
-            f"({_FAMILIES})"
-        )
-    for seg in segments:
-        if isinstance(seg, PeriodicSegment):
-            raise NotImplementedError(
-                f"{cfg.name}: periodic (hybrid / local:global) segments are "
-                f"not ported yet ({_FAMILIES})"
-            )
-
-
 # ---------------------------------------------------------------------------
 # Declarations
 # ---------------------------------------------------------------------------
-def _declare_layer(b: ParamBuilder, path: str, cfg: ModelConfig, seg: Segment) -> None:
+def _declare_layer(
+    b: ParamBuilder, path: str, cfg: ModelConfig, seg: Segment, *, cross: bool
+) -> None:
     declare_norm(b, f"{path}.norm1", cfg.d_model, cfg.norm)
     if seg.kind == "mamba":
         declare_mamba(b, f"{path}.mixer", cfg)
     else:
         declare_attention(b, f"{path}.mixer", cfg)
+    if cross:
+        declare_norm(b, f"{path}.norm_cross", cfg.d_model, cfg.norm)
+        declare_attention(b, f"{path}.cross", cfg, cross=True)
     if _has_ffn(cfg, seg):
         declare_norm(b, f"{path}.norm2", cfg.d_model, cfg.norm)
         if seg.is_moe:
@@ -189,10 +197,11 @@ def _declare_layer(b: ParamBuilder, path: str, cfg: ModelConfig, seg: Segment) -
             declare_ffn(b, f"{path}.ffn", cfg.d_model, cfg.d_ff, cfg.gated_ffn)
 
 
-def _stack_builder(cfg: ModelConfig, seg: Segment) -> ParamBuilder:
-    """Builder for ONE layer of a segment (stacked at materialization)."""
+def _stack_builder(cfg: ModelConfig, seg: Segment, *, cross: bool = False) -> ParamBuilder:
+    """Builder for ONE layer of a segment (stacked at materialization);
+    ``cross`` adds the decoder layer's cross-attention."""
     b = ParamBuilder(param_dtype=cfg.param_dtype)
-    _declare_layer(b, "layer", cfg, seg)
+    _declare_layer(b, "layer", cfg, seg, cross=cross)
     return b
 
 
@@ -210,6 +219,11 @@ def _top_builder(cfg: ModelConfig) -> ParamBuilder:
             "pos_embed.table", (cfg.max_position, cfg.d_model),
             (None, None), init=embedding_init,
         )
+    if cfg.frontend:
+        fd = cfg.frontend_dim or cfg.d_model
+        declare_dense(top, "frontend_proj", fd, cfg.d_model, (None, None))
+    if cfg.encoder_layers:
+        declare_norm(top, "enc_final_norm", cfg.d_model, cfg.norm)
     return top
 
 
@@ -219,33 +233,49 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 
 class Model:
-    """Config-driven dense transformer. Pure functions + param dicts."""
+    """Config-driven transformer. Pure functions + param dicts."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.segments = segment_layers(cfg)
-        _check_supported(cfg, self.segments)
+        self._enc_segment = (
+            Segment("attn", False, cfg.encoder_layers,
+                    cfg.encoder_layers >= SCAN_THRESHOLD)
+            if cfg.encoder_layers else None
+        )
 
     # -- parameters -----------------------------------------------------------
+    def _stacks(self):
+        """Every stacked parameter group as ``(tree path, one-layer
+        builder, count)``, in the JAX tree's order: each segment (a
+        periodic one as its ``pos_{j}`` sub-trees), then the encoder. A
+        group's seed is folded from its path joined with ``_``
+        (``blocks_0_pos_3``), as the JAX model folds its keys."""
+        cross = self._enc_segment is not None
+        for s, seg in enumerate(self.segments):
+            if isinstance(seg, PeriodicSegment):
+                for j, sub in enumerate(seg.pattern):
+                    yield (f"blocks_{s}", f"pos_{j}"), _stack_builder(self.cfg, sub), seg.reps
+            else:
+                yield (f"blocks_{s}",), _stack_builder(self.cfg, seg, cross=cross), seg.count
+        if self._enc_segment is not None:
+            yield ("encoder",), _stack_builder(self.cfg, self._enc_segment), self.cfg.encoder_layers
+
     def init(self, seed: int, *, device="cuda") -> Dict[str, Any]:
         """Random initial parameters on ``device`` from ``seed``."""
         device = resolve_device(device)
         params: Dict[str, Any] = dict(_top_builder(self.cfg).init(seed, device))
-        for s, seg in enumerate(self.segments):
-            params[f"blocks_{s}"] = _stacked_init(
-                _stack_builder(self.cfg, seg),
-                _fold_path(seed, f"blocks_{s}"), seg.count, device,
-            )
+        for path, builder, count in self._stacks():
+            _assign(params, ".".join(path), _stacked_init(
+                builder, _fold_path(seed, "_".join(path)), count, device))
         return params
 
     def param_shapes(self) -> Dict[str, Any]:
         """The tree of ``(shape, dtype)`` leaves ``init`` would return."""
         shapes: Dict[str, Any] = dict(_top_builder(self.cfg).abstract())
-        for s, seg in enumerate(self.segments):
-            shapes[f"blocks_{s}"] = tree_map(
-                lambda sd, n=seg.count: ((n,) + sd[0], sd[1]),
-                _stack_builder(self.cfg, seg).abstract()["layer"],
-            )
+        for path, builder, count in self._stacks():
+            _assign(shapes, ".".join(path), tree_map(
+                lambda sd, n=count: ((n,) + sd[0], sd[1]), builder.abstract()["layer"]))
         return shapes
 
     def num_params(self) -> int:
@@ -254,7 +284,9 @@ class Model:
         ))
 
     # -- forward ----------------------------------------------------------------
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor, prefix_embeddings=None):
+        """Token embeddings, behind the projected prefix when one is
+        given: ``(x, prefix length)``."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         x = F.embedding(tokens.long(), params["embed"]["table"]).to(dtype)
@@ -262,19 +294,44 @@ class Model:
             # the JAX model multiplies by a numpy float64 scalar, which
             # promotes a bf16 residual stream to fp32; mirror that
             x = x.float() * float(np.sqrt(cfg.d_model))
-        return x
+        if prefix_embeddings is None:
+            return x, 0
+        proj = apply_dense(params["frontend_proj"], prefix_embeddings, dtype)
+        return torch.cat([proj, x], dim=1), prefix_embeddings.shape[1]
 
     @staticmethod
     def _positions(batch: int, length: int, device, start: int = 0) -> torch.Tensor:
         pos = torch.arange(start, start + length, dtype=torch.int32, device=device)
         return pos[None, :].expand(batch, length)
 
+    def _add_positions(self, params, x, positions, start: int, table_len: int):
+        """Learned or sinusoidal position embeddings of ``start..`` (rope
+        is applied in attention); ``table_len`` is the sinusoidal table's
+        length."""
+        cfg = self.cfg
+        if cfg.pos_embed not in ("learned", "sinusoidal"):
+            return x
+        if cfg.pos_embed == "learned":
+            table_len = cfg.max_position
+        end = start + x.shape[1]
+        if end > table_len:
+            raise ValueError(
+                f"{cfg.name}: positions up to {end - 1} lie past the {cfg.pos_embed} "
+                f"position table of {table_len} (max_position); the JAX model clamps "
+                "them, the port refuses"
+            )
+        if cfg.pos_embed == "learned":
+            return x + params["pos_embed"]["table"][positions.long()].to(x.dtype)
+        table = _sinusoidal_on(table_len, cfg.d_model, x.device, x.dtype)
+        return x + table[positions.long()]
+
     def _layer_apply(self, p, x, seg: Segment, *, positions, cache=None,
-                     cache_spec=None, prefill_from_zero: bool = False):
+                     cache_spec=None, cross_kv=None, prefill_from_zero: bool = False):
         """One layer; returns ``(x, new_cache, aux)``, aux the MoE layer's
         losses (None for other layers: no zeros to add on their path).
-        ``prefill_from_zero``: a multi-token cache step from position 0
-        (the kernels' path)."""
+        ``cross_kv``: this layer's encoder K/V (decoder layers of an
+        encoder-decoder model). ``prefill_from_zero``: a multi-token cache
+        step from position 0 (the kernels' path)."""
         cfg = self.cfg
         h = apply_norm(p["norm1"], x, cfg.norm)
         if seg.kind == "mamba":
@@ -290,6 +347,11 @@ class Model:
                 prefill_from_zero=prefill_from_zero,
             )
         x = x + y
+        if cross_kv is not None:
+            h = apply_norm(p["norm_cross"], x, cfg.norm)
+            y, _ = attention_block(p["cross"], h, cfg, positions=positions,
+                                   cross_kv=cross_kv, prefill_from_zero=prefill_from_zero)
+            x = x + y
         aux = None
         if _has_ffn(cfg, seg):
             h = apply_norm(p["norm2"], x, cfg.norm)
@@ -303,52 +365,126 @@ class Model:
             x = x + y
         return x, new_cache, aux
 
-    def _run_segment(self, params_seg, x, seg: Segment, *, positions, caches=None,
-                     cache_spec=None, prefill_from_zero: bool = False):
-        """One segment: a loop over the stacked layer dim (the JAX model's
-        ``lax.scan`` for scanned segments, its unrolled loop otherwise).
-        Layer i reads and updates ``caches`` at index i in place. Returns
-        the layers' aux losses summed (zero for dense and Mamba layers)."""
-        def one(x, p):
-            x, _, aux = self._layer_apply(p, x, seg, positions=positions)
+    def _run_layer(self, p, x, seg: Segment, *, positions, cache=None, cache_spec=None,
+                   cross_kv=None, prefill_from_zero: bool = False):
+        """One layer of a segment loop: ``(x, aux)``. A cache is updated
+        in place; without one, under ``cfg.remat`` with grad enabled, the
+        layer is recomputed in the backward (``jax.checkpoint`` per layer
+        in the JAX model)."""
+        if cache is not None:
+            x, new, aux = self._layer_apply(
+                p, x, seg, positions=positions, cache=cache, cache_spec=cache_spec,
+                cross_kv=cross_kv, prefill_from_zero=prefill_from_zero,
+            )
+            for key, t in new.items():
+                if t.data_ptr() != cache[key].data_ptr():
+                    cache[key].copy_(t)
             return x, aux
 
+        def one(x, p, cross_kv):
+            x, _, aux = self._layer_apply(p, x, seg, positions=positions, cross_kv=cross_kv)
+            return x, aux
+
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(one, x, p, cross_kv, use_reentrant=False)
+        return one(x, p, cross_kv)
+
+    def _run_segment(self, params_seg, x, seg, *, positions, caches=None,
+                     cache_spec=None, cross_kvs=None, prefill_from_zero: bool = False):
+        """One segment: a loop over the stacked layer dim (the JAX model's
+        ``lax.scan`` for scanned segments, its unrolled loop otherwise).
+        Layer i reads and updates ``caches`` at index i in place and
+        attends over ``cross_kvs[i]``. Returns the layers' aux losses
+        summed (zero for dense and Mamba layers)."""
+        if isinstance(seg, PeriodicSegment):
+            return self._run_periodic(params_seg, x, seg, positions=positions,
+                                      caches=caches, cache_specs=cache_spec,
+                                      prefill_from_zero=prefill_from_zero)
         aux_total = _zero_aux(x.device)
         for i in range(seg.count):
-            p_i = tree_map(lambda a: a[i], params_seg)
-            if caches is not None:
-                cache_i = {key: a[i] for key, a in caches.items()}
-                x, new, aux = self._layer_apply(
-                    p_i, x, seg, positions=positions, cache=cache_i,
-                    cache_spec=cache_spec, prefill_from_zero=prefill_from_zero,
-                )
-                for key, t in new.items():
-                    if t.data_ptr() != cache_i[key].data_ptr():
-                        cache_i[key].copy_(t)
-            elif self.cfg.remat and torch.is_grad_enabled():
-                x, aux = checkpoint(one, x, p_i, use_reentrant=False)
-            else:
-                x, aux = one(x, p_i)
+            x, aux = self._run_layer(
+                tree_map(lambda a: a[i], params_seg), x, seg, positions=positions,
+                cache=None if caches is None else {k: a[i] for k, a in caches.items()},
+                cache_spec=cache_spec,
+                cross_kv=None if cross_kvs is None else cross_kvs[i],
+                prefill_from_zero=prefill_from_zero,
+            )
             if aux is not None:
                 aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
         return x, aux_total
 
-    def forward(self, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-        """Teacher-forced forward from position 0: logits at every
-        position."""
+    def _run_periodic(self, params_seg, x, seg: PeriodicSegment, *, positions,
+                      caches=None, cache_specs=None, prefill_from_zero: bool = False):
+        """One loop over the repeats; each pass applies the whole pattern,
+        position j from ``params_seg[f"pos_{j}"]`` (and its cache) at the
+        pass's index (the JAX model's scan body)."""
+        aux_total = _zero_aux(x.device)
+        for r in range(seg.reps):
+            for j, sub in enumerate(seg.pattern):
+                key = f"pos_{j}"
+                x, aux = self._run_layer(
+                    tree_map(lambda a: a[r], params_seg[key]), x, sub,
+                    positions=positions,
+                    cache=None if caches is None else {
+                        k: a[r] for k, a in caches[key].items()},
+                    cache_spec=None if cache_specs is None else cache_specs[key],
+                    prefill_from_zero=prefill_from_zero,
+                )
+                if aux is not None:
+                    aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
+        return x, aux_total
+
+    def _encode(self, params, frames: torch.Tensor, *, prefill: bool = False):
+        """Whisper-style encoder over stub frame embeddings (B, S_enc,
+        fd). ``prefill``: the encoder pass of a serving prefill, whose
+        self-attention runs the flash kernel on the card (inference
+        only: training keeps ``sdpa``)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        dtype = torch_dtype(cfg.compute_dtype)
+        x = apply_dense(params["frontend_proj"], frames, dtype)
+        x = x + _sinusoidal_on(frames.shape[1], cfg.d_model, x.device, dtype)[None]
+        positions = self._positions(frames.shape[0], frames.shape[1], x.device)
+
+        def one(x, p):
+            h = apply_norm(p["norm1"], x, cfg.norm)
+            y, _ = attention_block(p["mixer"], h, cfg, positions=positions,
+                                   causal=False, prefill_from_zero=prefill)
+            x = x + y
+            h = apply_norm(p["norm2"], x, cfg.norm)
+            return x + ffn_block(p["ffn"], h, cfg)
+
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i in range(self._enc_segment.count):
+            p_i = tree_map(lambda a: a[i], params["encoder"])
+            x = checkpoint(one, x, p_i, use_reentrant=False) if remat else one(x, p_i)
+        return apply_norm(params["enc_final_norm"], x, cfg.norm)
+
+    def forward(self, params, tokens: torch.Tensor, *,
+                prefix_embeddings: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None,
+                start_position: int = 0) -> Tuple[torch.Tensor, dict]:
+        """Teacher-forced forward: logits at every token position (a
+        vision prefix's positions are dropped)."""
+        cfg = self.cfg
+        x, prefix_len = self._embed(params, tokens, prefix_embeddings)
         B, S = x.shape[0], x.shape[1]
-        positions = self._positions(B, S, x.device)
-        if cfg.pos_embed == "learned":
-            x = x + params["pos_embed"]["table"][positions.long()].to(x.dtype)
+        positions = self._positions(B, S, x.device, start_position)
+        x = self._add_positions(params, x, positions, start_position, start_position + S)
+        enc_out = None
+        if encoder_frames is not None:
+            enc_out = self._encode(params, encoder_frames)
         aux_total = _zero_aux(x.device)
         for s, seg in enumerate(self.segments):
+            cross_kvs = None
+            if enc_out is not None:
+                cross_kvs = _segment_cross_kv(params[f"blocks_{s}"], enc_out, cfg)
             x, aux = self._run_segment(
-                params[f"blocks_{s}"], x, seg, positions=positions
+                params[f"blocks_{s}"], x, seg, positions=positions, cross_kvs=cross_kvs,
             )
             aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
         x = apply_norm(params["final_norm"], x, cfg.norm)
+        if prefix_len:
+            x = x[:, prefix_len:, :]
         return self._unembed(params, x), aux_total
 
     def _unembed(self, params, x):
@@ -375,10 +511,14 @@ class Model:
         return total, {"ce": ce, **aux}
 
     def loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
-        """batch: tokens (B,S), labels (B,S), optional mask."""
-        logits, aux = self.forward(params, batch["tokens"])
+        """batch: tokens (B,S), labels (B,S), optional mask and frontend
+        inputs (``prefix_embeddings``, ``encoder_frames``)."""
+        logits, aux = self.forward(
+            params, batch["tokens"],
+            prefix_embeddings=batch.get("prefix_embeddings"),
+            encoder_frames=batch.get("encoder_frames"),
+        )
         return self._combine_loss(logits, batch, aux)
-
 
     # -- serving ------------------------------------------------------------------
     def cache_specs(self, max_len: int) -> List[Optional[CacheSpec]]:
@@ -395,53 +535,97 @@ class Model:
                 specs.append(CacheSpec(length=max_len, ring=False))
         return specs
 
-    def _one_layer_cache(self, kind, spec, batch, dtype, device):
+    def _stacked_cache(self, kind, spec, count, batch, dtype, device):
+        """``count`` zeroed caches of one layer kind, stacked on dim 0."""
         if kind == "mamba":
-            return init_mamba_state(batch, self.cfg, dtype, device)
-        return init_kv_cache(
-            batch, spec, self.cfg.num_kv_heads, self.cfg.head_dim, dtype, device
-        )
+            one = init_mamba_state(batch, self.cfg, dtype, device)
+        else:
+            one = init_kv_cache(
+                batch, spec, self.cfg.num_kv_heads, self.cfg.head_dim, dtype, device
+            )
+        return {key: a[None].repeat((count,) + (1,) * a.dim()) for key, a in one.items()}
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda") -> List[dict]:
-        """Per-segment caches, stacked on a leading layer dim, in the
-        compute dtype on ``device``."""
+        """Per-segment caches, stacked on a leading layer dim (periodic
+        segments nest them as ``{pos_j: stacked over the repeats}``), in
+        the compute dtype on ``device``."""
         device = resolve_device(device)
         dtype = torch_dtype(self.cfg.compute_dtype)
         specs = self.cache_specs(max_len)
         caches, li = [], 0
         for seg in self.segments:
-            one = self._one_layer_cache(seg.kind, specs[li], batch, dtype, device)
-            caches.append({
-                key: a[None].repeat((seg.count,) + (1,) * a.dim())
-                for key, a in one.items()
-            })
+            if isinstance(seg, PeriodicSegment):
+                caches.append({
+                    f"pos_{j}": self._stacked_cache(sub.kind, specs[li + j], seg.reps,
+                                                    batch, dtype, device)
+                    for j, sub in enumerate(seg.pattern)
+                })
+            else:
+                caches.append(self._stacked_cache(seg.kind, specs[li], seg.count,
+                                                  batch, dtype, device))
             li += seg.count
         return caches
 
     def serve_forward(self, params, tokens: torch.Tensor, caches, *,
-                      start_position, max_len: int):
+                      start_position, max_len: int,
+                      encoder_out: Optional[torch.Tensor] = None,
+                      prefix_embeddings: Optional[torch.Tensor] = None):
         """One serving step: prefill (S > 1) or decode (S == 1) of
-        ``tokens`` (B, S) at positions ``start_position..+S-1``. Updates
+        ``tokens`` (B, S), behind ``prefix_embeddings`` when given, at
+        positions ``start_position..``. ``encoder_out`` (from ``_encode``)
+        turns on every decoder layer's cross-attention. Updates
         ``caches`` in place and returns ``(logits of the last position
         (B, 1, vocab), caches)``."""
         cfg = self.cfg
         start = int(start_position)
-        x = self._embed(params, tokens)
+        x, _ = self._embed(params, tokens, prefix_embeddings)
         B, S = x.shape[0], x.shape[1]
+        full_kv = any(spec is not None and not spec.ring for spec in self.cache_specs(max_len))
+        if full_kv and start + S > max_len:
+            raise ValueError(
+                f"{cfg.name}: serving positions {start}..{start + S - 1} do not fit "
+                f"max_len {max_len} (prefix + prompt + generated tokens); the JAX "
+                "model drops such cache writes, the port refuses"
+            )
         positions = self._positions(B, S, x.device, start)
-        if cfg.pos_embed == "learned":
-            x = x + params["pos_embed"]["table"][positions.long()].to(x.dtype)
+        x = self._add_positions(params, x, positions, start, cfg.max_position or max_len)
         specs = self.cache_specs(max_len)
         li = 0
         for s, seg in enumerate(self.segments):
+            if isinstance(seg, PeriodicSegment):
+                spec = {f"pos_{j}": specs[li + j] for j in range(seg.period)}
+            else:
+                spec = specs[li]
+            cross_kvs = None
+            if encoder_out is not None:
+                cross_kvs = _segment_cross_kv(params[f"blocks_{s}"], encoder_out, cfg)
             x, _ = self._run_segment(
                 params[f"blocks_{s}"], x, seg, positions=positions,
-                caches=caches[s], cache_spec=specs[li],
+                caches=caches[s], cache_spec=spec, cross_kvs=cross_kvs,
                 prefill_from_zero=S > 1 and start == 0,
             )
             li += seg.count
         x = apply_norm(params["final_norm"], x, cfg.norm)
         return self._unembed(params, x[:, -1:, :]), caches
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoidal_on(length: int, d_model: int, device, dtype) -> torch.Tensor:
+    """``sinusoidal_table(length, d_model)`` on ``device`` in ``dtype``,
+    built and copied once per key (every prefill and training step of an
+    audio or sinusoidal model adds it)."""
+    with torch.inference_mode(False):     # usable by later training steps too
+        return torch.as_tensor(sinusoidal_table(length, d_model), device=device).to(dtype)
+
+
+def _segment_cross_kv(params_seg, enc_out, cfg: ModelConfig):
+    """Per-layer cross-attention K/V of one segment, as a list over its
+    stacked layer dim."""
+    cross = params_seg["cross"]
+    return [
+        encoder_kv(tree_map(lambda a: a[i], cross), enc_out, cfg)
+        for i in range(cross["wk"]["w"].shape[0])
+    ]
 
 
 def _stacked_init(builder: ParamBuilder, seed: int, count: int, device):

@@ -6,6 +6,8 @@
   ``save_run_step`` and restored by the other's ``restore_run``, in
   both layouts (one stacked ``params.npz``, one file per node): every
   leaf bit-equal, every dtype kept. No tolerance: checkpoints are exact.
+  The same for the nested trees of periodic segments (gemma3, jamba)
+  and for whisper's encoder and cross-attention leaves.
 * The port's MessagePack codec against the ``msgpack`` package (the
   reference it is held to; the port itself never imports it): byte-equal
   output on the sidecars both packages write and on encoding edge cases,
@@ -52,10 +54,10 @@ def _dtype(a) -> str:
     return str(np.asarray(a).dtype)
 
 
-def _jax_state():
+def _jax_state(arch="internlm2_1_8b", **over):
     """(stacked params, SGD state) as JAX arrays: the smoke model's
     init, every other leaf in bf16, node i offset by i."""
-    cfg = dataclasses.replace(jax_smoke_config("internlm2_1_8b"), compute_dtype="float32")
+    cfg = dataclasses.replace(jax_smoke_config(arch), compute_dtype="float32", **over)
     init = JaxModel(cfg).init(jax.random.key(0))
     leaves, treedef = jax.tree.flatten(init)
     leaves = [a.astype(jnp.bfloat16) if i % 2 else a for i, a in enumerate(leaves)]
@@ -119,6 +121,29 @@ def test_each_package_restores_what_the_other_wrote(tmp_path, writer, per_node_f
     assert _dtype(opt_state["step"]) == "int32"
     files = sorted(os.listdir(ckpt.step_dir(root, 11)))
     assert ("node_03.npz" in files) == per_node_files and "ckpt.json" in files
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("gemma3_4b", dict(num_layers=4)),          # a periodic tree: blocks_0.pos_{j}
+    ("jamba_v0_1_52b", dict(num_layers=5)),     # periodic + a tail segment
+    ("whisper_base", {}),                       # encoder, cross-attention, frontend
+], ids=["gemma3-periodic", "jamba-periodic-tail", "whisper"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_new_family_trees_cross_between_packages(tmp_path, writer, arch, over):
+    jparams, jopt = _jax_state(arch, **over)
+    if arch != "whisper_base":
+        assert "pos_1" in jparams["blocks_0"]
+    root = str(tmp_path / "hist")
+    if writer == "jax":
+        jckpt.save_run_step(root, jparams, jopt, step=3)
+        params, opt_state, step = ckpt.restore_run(root, device="cpu")
+    else:
+        ckpt.save_run_step(root, _to_port(jparams), _to_port(jopt), step=3)
+        params, opt_state, step = jckpt.restore_run(root)
+        params, opt_state = _nested(params), _nested(opt_state)
+    assert step == 3
+    _assert_same(params, _nested(jparams))
+    _assert_same(opt_state, _nested(jopt))
 
 
 def _sidecars(root):

@@ -299,6 +299,28 @@ def test_flash_wgmma_kernel_at_the_serving_shapes(sm90, Hq, Hkv):
     torch.testing.assert_close(got.float(), want.float(), **FA_TOL[torch.bfloat16])
 
 
+# The new families' attention on the tensor-core kernel (bf16, hd 64):
+# whisper-base's non-causal encoder self-attention and its cross-attention
+# (384 decoder queries over 1500 encoder keys), and internvl2-1b's GQA 7:1.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal", [
+    (8, 1500, 1500, 8, 8, False),
+    (8, 384, 1500, 8, 8, False),
+    (2, 2048, 2048, 14, 2, True),
+    (2, 300, 300, 14, 2, True),
+], ids=["whisper-encoder", "whisper-cross", "internvl2", "internvl2-ragged"])
+def test_flash_wgmma_kernel_at_the_new_families_shapes(sm90, B, Sq, Sk, Hq, Hkv, causal):
+    from repro_torch.kernels.flash_attention import kernel_path
+
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, 64, torch.bfloat16, seed=Sq + Hq)
+    assert kernel_path(q, k) == "wgmma"
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[torch.bfloat16])
+
+
 @pytest.mark.cuda
 def test_flash_kernel_path_rule(sm90):
     from repro_torch.kernels.flash_attention import kernel_path

@@ -1,4 +1,6 @@
-"""The port's dense model against the JAX model: loss and every gradient.
+"""The port's dense model against the JAX model: loss and every gradient;
+and every registry architecture's full-size parameter tree against the
+JAX ``Model.init`` tree (``jax.eval_shape``, nothing allocated).
 
 Weights come from the JAX ``Model.init`` through
 ``repro_torch.convert.params_from_numpy``; tokens are drawn with numpy
@@ -19,9 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import get_config as jax_config
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.models.transformer import Model as JaxModel
-from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models.module import _fold_path
 from repro_torch.models.transformer import (
@@ -157,10 +160,13 @@ def test_stacked_init_matches_per_layer_builder_init(arch, experts):
                 assert torch.equal(stacked[k][i], v), (s, i, k)
 
 
-@pytest.mark.parametrize(
-    "arch", ["jamba_v0_1_52b", "whisper_base", "internvl2_1b", "gemma3_4b"]
-)
-def test_unported_families_raise_with_roadmap_item(arch):
-    # full configs: gemma3's 5:1 local:global stack is a periodic segment
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        Model(get_config(arch))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_full_param_shapes_match_jax_eval_shape(arch):
+    """Every registry architecture at its published size builds, and its
+    parameter tree (keys, shapes, dtypes) is the JAX ``Model.init``
+    tree, with nothing allocated on either side."""
+    want = jax.eval_shape(JaxModel(jax_config(arch)).init, jax.random.key(0))
+    want = {k: (tuple(v.shape), str(v.dtype)) for k, v in flatten(want).items()}
+    got = {k: (tuple(s), str(d).removeprefix("torch."))
+           for k, (s, d) in flatten(Model(get_config(arch)).param_shapes()).items()}
+    assert got == want

@@ -11,12 +11,17 @@
   than the prompt) cover the other cache branches; dbrx (4 experts: the
   einsum branch; 16 experts, top-4: the ragged branch and its grouped
   matmuls, in prefill and decode) and kimi (a dense first layer, then
-  MoE with a shared expert) the MoE layers.
+  MoE with a shared expert) the MoE layers; jamba (Mamba, attention and
+  MoE layers in one stack), whisper and internvl2 their decoders
+  without the frontend, as the serving CLI's decode runs them
+  (``tests/test_torch_families.py`` adds the encoder output, the
+  prefix and the periodic stacks).
 * Serve consistency against the port's own teacher-forced ``forward``
   at the default bf16 compute, as ``tests/test_arch_smoke.py`` does it
   for JAX (tolerance 2e-2, as there).
 * ``python -m repro_torch.launch.serve --device cpu --preset tiny`` for
-  internlm2, mamba2 and dbrx; without ``--device cpu`` and without a card it exits with
+  internlm2, mamba2, dbrx, gemma3, jamba, whisper (zero frames through
+  the encoder) and internvl2; without ``--device cpu`` and without a card it exits with
   a message; unported flags exit naming their ROADMAP item, and ``--trace``
   writes spans the JAX package's readers load.
 """
@@ -42,7 +47,8 @@ from repro_torch.models.transformer import Model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["internlm2_1_8b", "mamba2_370m", "granite_20b", "gemma3_4b",
-         "dbrx_132b", "dbrx_132b_16x4", "kimi_k2_1t_a32b"]
+         "dbrx_132b", "dbrx_132b_16x4", "kimi_k2_1t_a32b", "jamba_v0_1_52b",
+         "whisper_base", "internvl2_1b"]
 # smoke configs with overrides, by the name ARCHS gives them
 VARIANTS = {"dbrx_132b_16x4": ("dbrx_132b", dict(moe_num_experts=16, moe_top_k=4))}
 B, S, MAX_LEN = 2, 24, 40
@@ -131,7 +137,9 @@ def _run(args, timeout=300):
     )
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m", "dbrx_132b"])
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m", "dbrx_132b",
+                                  "gemma3_4b", "jamba_v0_1_52b", "whisper_base",
+                                  "internvl2_1b"])
 def test_cli_serves_on_cpu(arch):
     res = _run(["--device", "cpu", "--preset", "tiny", "--arch", arch,
                 "--batch", "2", "--prompt-len", "24", "--gen", "4"])

@@ -1,8 +1,9 @@
 """The port's training CLI, run as a user runs it.
 
 ``python -m repro_torch.launch.train --device cpu --preset tiny --steps 3``
-must train, for the dense internlm2, the Mamba2 and the dbrx (MoE)
-smoke models alike, print the JAX CLI's step lines and write its CSV
+must train, for the dense internlm2, the Mamba2, the dbrx (MoE),
+gemma3, jamba, whisper (with its encoder frames) and internvl2 (with
+its vision prefix) smoke models alike, print the JAX CLI's step lines and write its CSV
 columns; its step-0 loss must sit near the JAX CLI's ~6.26 (about ln
 512 for the smoke vocab; not bit-equal, since the port initializes from
 its own generator; tolerance 0.1). Without a card and without ``--device cpu``
@@ -14,9 +15,11 @@ in ``tests/test_torch_faults.py``). ``--gossip-mode overlap`` and
 ends with the flush line, ``--trace`` writes the three files the JAX
 package's readers load, also when the run resumes, and an overlap run
 that crashes after step 4 and resumes from its step-3 checkpoint ends
-bit-equal to the unbroken run.
+bit-equal to the unbroken run, as does a gemma3 run with a periodic
+parameter tree.
 """
 import csv
+import dataclasses
 import json
 import math
 import os
@@ -60,7 +63,9 @@ def _run(args, timeout=300):
     )
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m", "dbrx_132b"])
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_370m", "dbrx_132b",
+                                  "gemma3_4b", "jamba_v0_1_52b", "whisper_base",
+                                  "internvl2_1b"])
 def test_cli_trains_on_cpu_and_writes_csv(tmp_path, arch):
     out = tmp_path / "run.csv"
     res = _run(["--device", "cpu", "--arch", arch, "--preset", "tiny", "--steps", "3",
@@ -194,6 +199,35 @@ def test_overlap_crash_and_resume_ends_bit_equal(tmp_path, capsys):
     assert a[2] == b[2] == 8
     fa, fb = flatten({"p": a[0], "s": a[1]}), flatten({"p": b[0], "s": b[1]})
     assert fa.keys() == fb.keys()
+    for path, t in fa.items():
+        assert torch.equal(fb[path], t), path
+
+
+def test_periodic_gemma3_crash_and_resume_ends_bit_equal(tmp_path, capsys, monkeypatch):
+    """gemma3 at 4 layers (one periodic segment: its params nest as
+    ``blocks_0.pos_{j}``, each stacked over the repeats) checkpoints
+    every 3 steps, crashes after step 4 and resumes with --resume auto;
+    the final checkpoint equals the unbroken run's bit for bit."""
+    from repro_torch.configs import gemma3_4b
+    from repro_torch.models.transformer import Model, PeriodicSegment
+
+    smoke = gemma3_4b.smoke_config
+    monkeypatch.setattr(gemma3_4b, "smoke_config",
+                        lambda: dataclasses.replace(smoke(), num_layers=4))
+    assert isinstance(Model(gemma3_4b.smoke_config()).segments[0], PeriodicSegment)
+    base = _quick(6) + ["--arch", "gemma3_4b", "--nodes", "4", "--graph", "ring"]
+    whole = train.main(base + ["--ckpt-dir", str(tmp_path / "a")])
+    ck = str(tmp_path / "b")
+    with pytest.raises(SimulatedCrash):
+        train.main(base + ["--ckpt-dir", ck, "--ckpt-every", "3", "--crash-at-step", "4"])
+    resumed = train.main(base + ["--ckpt-dir", ck, "--ckpt-every", "3", "--resume", "auto"])
+    assert f"resumed from {os.path.join(ck, 'step_00000003')} at step 3" in capsys.readouterr().out
+    for key in ("step", "loss", "consensus"):
+        assert resumed[-1][key] == whole[-1][key], key
+    a = ckpt.restore_run(ckpt.find_resumable(str(tmp_path / "a")), device="cpu")
+    b = ckpt.restore_run(ckpt.find_resumable(ck), device="cpu")
+    fa, fb = flatten({"p": a[0], "s": a[1]}), flatten({"p": b[0], "s": b[1]})
+    assert "p.blocks_0.pos_1.mixer.wq.w" in fa and fa.keys() == fb.keys()
     for path, t in fa.items():
         assert torch.equal(fb[path], t), path
 
