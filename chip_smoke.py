@@ -11,6 +11,8 @@ non-zero exit:
 
 1. build   every CUDA source under ``src/repro_torch/csrc`` (one nvcc per
            source, in parallel) and print the build time and ptxas report;
+           it fails if ptxas serializes a kernel's wgmma calls or a flash
+           wgmma instantiation spills registers;
 2. kernels each hand-written kernel against its plain PyTorch version on
            the card, at the shapes its main path gives it and on edge
            cases; times of the kernel, the plain version and the
@@ -19,10 +21,10 @@ non-zero exit:
            the training step's leaves in turns with torch.lerp),
            flash_attention (odd and unequal lengths, kv_len, windows,
            GQA groups 1 and 2, fully masked rows, fp32 and bf16; the
-           registry's other head widths at B 2, S 2048, causal, in bf16
-           and fp32, in turns with sdpa: nemotron-4-340b 96/8 heads of
-           192, kimi-k2 64/8 of 112, gemma3-4b 8/4 of 256, also with a
-           1024 window),
+           registry's other head widths at B 2, S 2048, causal, bf16 on
+           the wgmma kernel and fp32 on the scalar one, in turns with
+           sdpa: nemotron-4-340b 96/8 heads of 192, kimi-k2 64/8 of 112,
+           gemma3-4b 8/4 of 256, also with a 1024 window),
            and at the new families' serving shapes, bf16, in turns with
            sdpa: whisper-base's encoder (B 8, 1500 x 1500, 8/8 heads of
            64, non-causal) and cross-attention (B 8, 384 queries over 1500
@@ -31,7 +33,8 @@ non-zero exit:
            ssm_scan (chunk halving, fp32 and bf16, decays that underflow,
            the path each case takes; at mamba2-370m's serving shapes the
            tensor-core kernel in turns with the scalar kernel, which takes
-           a 2-byte-offset copy of x)
+           a 2-byte-offset copy of x; at jamba's 128 heads beside its
+           bound)
            and grouped_matmul (the sweep of tests/test_kernels.py, empty
            groups, ragged tails, rows past the groups, in fp32 and bf16;
            dbrx-132b's prefill shapes, 65,536 sorted rows x 6144 x 10752
@@ -87,7 +90,7 @@ non-zero exit:
            cross); internvl2 24 flash_attention per prefill; then a
            profile of one prefill and four decode steps of each model:
            device busy share, kernel launches per step, the costliest
-           kernels;
+           kernels and each hand-written kernel's share of the busy time;
 5. check   small inputs (the tiny presets, fp32) run on the card and on
            the CPU from the same weights must agree: two masked training
            steps, and for internlm2, mamba2 and dbrx with 16 experts and
@@ -146,8 +149,8 @@ DBRX_LAYERS = 3                 # dbrx-132b depth on one card (40 published)
 JAMBA_LAYERS = 16               # jamba-v0.1-52b depth on one card (32 published)
 WHISPER_PROMPT = 384            # whisper prompt: prompt + generated within max_position 448
 FAMILY_ARCHS = ("gemma3_4b", "jamba_v0_1_52b", "whisper_base", "internvl2_1b")
-# the registry's other head widths, on the scalar flash kernel: (model,
-# query heads, kv heads, head_dim, window)
+# the registry's other head widths, bf16 on the wgmma flash kernel and
+# fp32 on the scalar one: (model, query heads, kv heads, head_dim, window)
 FLASH_WIDE = [
     ("nemotron-4-340b", 96, 8, 192, 0),
     ("kimi-k2", 64, 8, 112, 0),
@@ -186,6 +189,37 @@ def bf16_ulp_agree(torch, got, want) -> bool:
     return bool((diff <= want.float().abs() * 2.0**-7 + 1e-30).all())
 
 
+def kernel_label(mangled: str) -> str:
+    """``flash_wgmma_kernel<256, 2>`` for a mangled entry function name."""
+    import re
+
+    base, i = None, 0
+    while base is None and i < len(mangled):   # length-prefixed names
+        n = re.match(r"\d+", mangled[i:])
+        if n is None:
+            i += 1
+            continue
+        start = i + len(n.group())
+        name = mangled[start:start + int(n.group())]
+        base = name if name.endswith("_kernel") else None
+        i = start + int(n.group())
+    args = ["bf16" if "__nv_bfloat16" in mangled else "fp32" if
+            re.search(r"kernelIf", mangled) else ""]
+    args += re.findall(r"Li(\d+)E", mangled)
+    args = [a for a in args if a]
+    return (base or mangled) + (f"<{', '.join(args)}>" if args else "")
+
+
+def wgmma_serialized(text: str):
+    """The kernels whose wgmma calls ptxas serializes (its C7520 note: a
+    branch it cannot prove uniform over the warpgroup), from one source's
+    ``nvcc -Xptxas -v`` output."""
+    import re
+
+    return [kernel_label(m.group(1)) for m in
+            re.finditer(r"C7520\).*wgmma.*in the function '(\S+)'", text)]
+
+
 def ptxas_report(text: str):
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function in one source's ``nvcc -Xptxas -v`` output."""
@@ -195,21 +229,7 @@ def ptxas_report(text: str):
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mangled, base, i = m.group(1), None, 0
-            while base is None and i < len(mangled):   # length-prefixed names
-                n = re.match(r"\d+", mangled[i:])
-                if n is None:
-                    i += 1
-                    continue
-                start = i + len(n.group())
-                name = mangled[start:start + int(n.group())]
-                base = name if name.endswith("_kernel") else None
-                i = start + int(n.group())
-            args = ["bf16" if "__nv_bfloat16" in mangled else "fp32" if
-                    re.search(r"kernelIf", mangled) else ""]
-            args += re.findall(r"Li(\d+)E", mangled)
-            args = [a for a in args if a]
-            label = (base or mangled) + (f"<{', '.join(args)}>" if args else "")
+            label = kernel_label(m.group(1))
             spills = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -237,12 +257,21 @@ def phase_build():
         for line in text.strip().splitlines():
             log(f"build: [{name}] {line}")
     log(f"build: {len(logs)} source(s) compiled in {secs:.2f} s")
-    report = {}
+    report, serialized = {}, []
     for name, text in logs.items():
         for kernel, regs, st, ld in ptxas_report(text):
             report[kernel] = (regs, st, ld)
             log(f"build: ptxas {kernel}: {regs} registers, {st} bytes spill stores, "
                 f"{ld} bytes spill loads")
+        serialized += wgmma_serialized(text)
+    # the tensor-core kernels' products must stay asynchronous, and the
+    # flash wgmma kernels' accumulators in registers
+    if serialized:
+        fail(f"ptxas serializes the wgmma calls of {serialized}")
+    spilled = [k for k, (_, st, ld) in report.items()
+               if k.startswith("flash_wgmma") and (st or ld)]
+    if spilled:
+        fail(f"flash wgmma instantiations spill registers: {spilled}")
     return report
 
 
@@ -433,8 +462,8 @@ def phase_flash(torch, ptxas):
 
     # the serving path's prefills, bf16: internlm2-1.8b (the JSON row),
     # dbrx-132b, jamba-v0.1-52b, internvl2-1b (GQA 7:1), whisper-base's
-    # encoder and cross-attention, and gemma3-4b (hd 256, the scalar
-    # kernel; global and local layers)
+    # encoder and cross-attention, and gemma3-4b (hd 256, two warpgroups
+    # a block; global and local layers)
     B = SERVE_BATCH
     shapes = [
         # (model, Sq, Sk, Hq, Hkv, hd, causal, window, kernel path)
@@ -444,8 +473,8 @@ def phase_flash(torch, ptxas):
         ("internvl2-1b", SERVE_PROMPT, SERVE_PROMPT, 14, 2, 64, True, 0, "wgmma"),
         ("whisper-base encoder", 1500, 1500, 8, 8, 64, False, 0, "wgmma"),
         ("whisper-base cross", WHISPER_PROMPT, 1500, 8, 8, 64, False, 0, "wgmma"),
-        ("gemma3-4b global", SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 0, "scalar"),
-        ("gemma3-4b local", SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 1024, "scalar"),
+        ("gemma3-4b global", SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 0, "wgmma"),
+        ("gemma3-4b local", SERVE_PROMPT, SERVE_PROMPT, 8, 4, 256, True, 1024, "wgmma"),
     ]
     row = None
     for model, Sq, Sk, Hq, Hkv, hd, causal, window, path in shapes:
@@ -500,9 +529,9 @@ def phase_flash(torch, ptxas):
 
 
 def flash_wide(torch, qkv) -> float:
-    """flash_attention at the registry's other head widths (the scalar
-    kernel): B 2, S 2048, causal, in bf16 and fp32, against attention_ref,
-    timed in turns with sdpa; returns the max abs error."""
+    """flash_attention at the registry's other head widths: B 2, S 2048,
+    causal, in bf16 (the wgmma kernel) and fp32 (the scalar one), against
+    attention_ref, timed in turns with sdpa; returns the max abs error."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, kernel_path
@@ -513,8 +542,12 @@ def flash_wide(torch, qkv) -> float:
     for model, Hq, Hkv, hd, window in FLASH_WIDE:
         i = torch.arange(S, device="cuda")
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for dname, dtype, path in (("bfloat16", torch.bfloat16, "wgmma"),
+                                   ("float32", torch.float32, "scalar")):
             q, k, v = qkv(B, S, S, Hq, Hkv, hd, dtype)
+            if kernel_path(q, k) != path:
+                fail(f"flash at {model}'s widths ({hd}) {dname} does not take the {path} "
+                     "kernel")
             run = lambda: flash_attention(q, k, v, causal=True, window=window)
             got = run()
             want = attention_ref(q, k, v, causal=True, window=window)
@@ -538,7 +571,7 @@ def flash_wide(torch, qkv) -> float:
             k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
             log(f"kernels: flash_attention {model} widths (B {B}, S {S}, heads {Hq}/{Hkv}, "
                 f"hd {hd}, {dname}, causal{f', window {window}' if window else ''}; "
-                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): path {kernel_path(q, k)}; "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): path {path}; "
                 f"in turns kernel {k1:.3f} ms, sdpa {l1:.3f} ms, sdpa {l2:.3f} ms, kernel "
                 f"{k2:.3f} ms ({k_ms / l_ms:.2f}x sdpa; {flops / k_ms / 1e9:.1f} TFLOP/s); "
                 f"plain {p_ms:.3f} ms; bound {bound:.4f} ms by "
@@ -547,6 +580,16 @@ def flash_wide(torch, qkv) -> float:
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
     return max_err
+
+
+def ssd_bound(B: int, S: int, H: int, P: int, N: int, Q: int):
+    """(flops, bytes, bound ms, bound_by) of one SSD chunk scan: bf16 x, y,
+    B and C, fp32 dt, A and final states, each read or written once."""
+    tri = Q * (Q + 1) // 2
+    flops = B * H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
+    nbytes = 2 * B * S * H * P * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2 + B * H * N * P * 4
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def phase_ssm(torch, ptxas):
@@ -615,12 +658,7 @@ def phase_ssm(torch, ptxas):
     max_err = max(max_err, check("serving shapes (scalar)", "bfloat16",
                                  ssm_scan(x_off, dt, A, Bm, Cm, chunk=Q), want))
     del want
-    tri = Q * (Q + 1) // 2
-    flops = B * H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
-    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
-              + 2 * Bm.numel() * 2 + B * H * N * P * 4)
-    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+    flops, nbytes, bound, bound_by = ssd_bound(B, S, H, P, N, Q)
     (k1, k2), (s1, s2) = in_turns(torch, lambda: ssm_scan(x, dt, A, Bm, Cm, chunk=Q),
                                   lambda: ssm_scan(x_off, dt, A, Bm, Cm, chunk=Q), 5)
     k_ms, sc_ms = (k1 + k2) / 2, (s1 + s2) / 2
@@ -646,8 +684,11 @@ def phase_ssm(torch, ptxas):
                                  f"N {N}; mma)", "bfloat16",
                                  ssm_scan(x, dt, A, Bm, Cm, chunk=Q),
                                  ssm_scan_ref(x, dt, A, Bm, Cm)))
-    log(f"kernels: ssm_scan jamba serving shapes: mma "
-        f"{cuda_ms(torch, lambda: ssm_scan(x, dt, A, Bm, Cm, chunk=Q), 5):.4f} ms")
+    j_ms = cuda_ms(torch, lambda: ssm_scan(x, dt, A, Bm, Cm, chunk=Q), 5)
+    j_flops, j_bytes, j_bound, j_by = ssd_bound(B, S, H, P, N, Q)
+    log(f"kernels: ssm_scan jamba serving shapes ({j_flops / 1e9:.1f} GFLOP, "
+        f"{j_bytes / 1e6:.1f} MB): mma {j_ms:.4f} ms; bound {j_bound:.4f} ms by {j_by} "
+        f"({j_bound / j_ms:.1%} of it)")
     del x, dt, A, Bm, Cm
     torch.cuda.empty_cache()
     log(f"kernels: ssm_scan ptxas: {ptxas_note(ptxas, 'ssd_')}")
@@ -935,6 +976,15 @@ def phase_serve(torch):
     return launches
 
 
+def hand_written(name: str):
+    """The port's kernel (``flash_wgmma_kernel``, ``ssd_tc_kernel``, ...)
+    that a profiler event of this name ran, or None for any other."""
+    import re
+
+    m = re.search(r"\b(flash|gmm|ssd|gossip_axpy)_\w*kernel\b", name)
+    return m.group(0) if m else None
+
+
 def phase_profile(torch):
     """Where a serving step's time goes: torch.profiler over one prefill
     and four decode steps of each full model (random prompt ids): the
@@ -975,6 +1025,16 @@ def phase_profile(torch):
         for name, (t_us, n) in top:
             log(f"profile: {label}:   {t_us / 1e3 / steps:9.3f} ms/step x{n // steps:<5d} "
                 f"{name[:90]}")
+        # the hand-written kernels' share, whether or not they made the top six
+        ours = {}
+        for name, (t_us, n) in by_name.items():
+            kernel = hand_written(name)
+            if kernel:
+                t, k = ours.get(kernel, (0.0, 0))
+                ours[kernel] = (t + t_us, k + n)
+        for name, (t_us, n) in sorted(ours.items()):
+            log(f"profile: {label}: hand-written {name}: {t_us / 1e3 / steps:.3f} ms/step "
+                f"x{n // steps} ({t_us / 1e3 / busy_ms:.1%} of busy)")
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator(device="cuda").manual_seed(3)

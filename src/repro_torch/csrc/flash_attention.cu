@@ -20,15 +20,21 @@
 //
 // Two kernels, chosen by one rule (wgmma_path below):
 //
-// * bf16 with hd 64 or 128 (the serving path): the wgmma kernel. One
-//   warpgroup per (q tile of 64 rows, q head, batch), costliest q tiles
-//   launched first. One thread issues TMA loads through 4-D tensor maps
-//   (hd, heads, S, B), so a tile never reads another batch's or head's rows
-//   and keys past Sk arrive as zeros: the Q tile once, then K and V tiles of
-//   64 keys through a 2-stage ring, completion on mbarriers; the next tile's
-//   loads overlap this tile's products. Tiles land 128-byte swizzled (hd
-//   128 is two 64-column boxes), which is the layout wgmma reads without
-//   bank conflicts. S = Q K^T is a wgmma m64n64k16 with both operands in
+// * bf16 with hd 64, 112, 128, 192 or 256 (every serving width but the
+//   smoke models' 32): the wgmma kernel. Consumer warpgroups own 64 q rows
+//   each: one at hd 64 / 112 / 128, two at 192 / 256; a block is (q tile
+//   of 64 or 128 rows, q head, batch), costliest q tiles launched first.
+//   One thread issues TMA loads through 4-D tensor maps (hd, heads, S, B),
+//   so a tile never reads another batch's or head's rows and keys past Sk
+//   arrive as zeros: the Q tile once, then K and V tiles of 64 keys
+//   through a 2-stage ring that the warpgroups share, completion on
+//   mbarriers; the next tile's loads overlap this tile's products. Tiles
+//   land 128-byte swizzled in 64-column boxes, the layout wgmma reads
+//   without bank conflicts. hd 112 is the hd-128 kernel on a zero-padded
+//   box: the tensor map keeps the true width (224-byte rows), so TMA fills
+//   columns 112-127 of the second box with zeros (still counted in the
+//   barrier's bytes); S skips the zero slice and those output columns are
+//   not stored. S = Q K^T is a wgmma m64n64k16 with both operands in
 //   shared memory (K is K-major as stored). The online softmax runs on the
 //   fp32 accumulator fragments: each thread holds 2 rows x 16 keys and
 //   reduces a row over the 4 lanes that share it. On the card it costs
@@ -36,26 +42,26 @@
 //   raw scores, each p is one FFMA (the 1/sqrt(hd) scale folded into log2
 //   units) and one ex2.approx, and only tiles that cross the causal
 //   diagonal, the window edge or kv_len mask per element, from each
-//   register's (row, key). P is packed to bf16
-//   straight from the S fragments into wgmma's register A operand, and
-//   O += P V is a wgmma m64n{hd}k16 with V read MN-major (hd contiguous:
-//   the transpose bit). P is rounded to bf16 before P V; the row sums l
-//   add the fp32 p. Products, softmax and the next tile's wait run one
-//   after another inside a warpgroup; two blocks share an SM so that one's
-//   softmax overlaps the other's products;
-// * fp32 (the parity runs), bf16 hd 32, 112, 192 and 256, and a k/v with
-//   no keys: the scalar kernel, fp32 FMAs on the CUDA cores. One block of
-//   256 threads per tile as above walks the k tiles; Q (transposed,
-//   pre-scaled), K and V tiles live in shared memory as fp32 and each
-//   thread computes a 4 x 4 block of scores and a 4 x hd/16 block of the
-//   output. The tile loads stride a tile's 16-byte chunks over the 256
-//   threads, so a chunk count that 256 does not divide (hd 112: 14 or 28 a
-//   row) leaves some threads a chunk short. bf16 hd 32 stays here: its
-//   64-byte rows would need the 64-byte swizzle, a second descriptor layout
-//   that no serving model needs. bf16 hd 112, 192 and 256 (kimi-k2,
-//   nemotron-4-340b, gemma3-4b) stay here until the wgmma kernel takes
-//   them: 112 is not a multiple of the 64-column box, and 192 / 256 need
-//   a wider accumulator than its 2 blocks an SM leave registers for.
+//   register's (row, key). P is packed to bf16 straight from the S
+//   fragments into wgmma's register A operand, and O += P V is a wgmma
+//   with V read MN-major (hd contiguous: the transpose bit), in pieces of
+//   n128 (hd 128, 256) or n64 (hd 64, 192) output columns. P is rounded to
+//   bf16 before P V; the row sums l add the fp32 p. At hd 64-128 two
+//   blocks share an SM so that one's softmax overlaps the other's
+//   products. At hd 192 / 256 O takes 96 / 128 fp32 registers a thread and
+//   the ring 144 / 192 KB, so one block of two warpgroups fills an SM; a
+//   block's k range is the union of its warpgroups' ranges, and a tile
+//   with no live key for one warpgroup's rows is masked whole for it;
+// * fp32 (the parity runs), bf16 hd 32, and a k/v with no keys: the
+//   scalar kernel, fp32 FMAs on the CUDA cores. One block of 256 threads
+//   per tile of 64 q rows walks the k tiles; Q (transposed, pre-scaled), K
+//   and V tiles live in shared memory as fp32 and each thread computes a
+//   4 x 4 block of scores and a 4 x hd/16 block of the output. The tile
+//   loads stride a tile's 16-byte chunks over the 256 threads, so a chunk
+//   count that 256 does not divide (hd 112: 14 or 28 a row) leaves some
+//   threads a chunk short. bf16 hd 32 stays here: its 64-byte rows would
+//   need the 64-byte swizzle, a second descriptor layout that no serving
+//   model needs.
 //
 // Both walk the k tiles of a q tile from the window's first live tile to
 // the causal diagonal and kv_len (the TPU's sequential k grid axis and its
@@ -66,8 +72,9 @@
 //
 // Shared memory: scalar (2 * hd * 64 + 64 * hd + 64 * 64) * 4 bytes, 112 KB
 // at hd 128 and 208 KB at hd 256 (one block an SM, under the 227 KB
-// opt-in); wgmma 5 tiles of 64 x hd bf16, 80 KB at hd 128 (two blocks per
-// SM). At hd 256 a scalar thread holds 64 fp32 accumulators. Head widths
+// opt-in); wgmma (warpgroups + 4) tiles of 64 rows x the padded width in
+// bf16: 80 KB at hd 112 / 128 (two blocks an SM), 144 KB at 192, 192 KB at
+// 256. At hd 256 a scalar thread holds 64 fp32 accumulators. Head widths
 // 32, 64, 112, 128, 192 and 256 (every head_dim of the model registry) are
 // compiled; any other width is refused with cudaErrorInvalidValue (the
 // Python wrapper raises first).
@@ -340,29 +347,38 @@ cudaError_t dispatch_hd(int hd, const Params& prm, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// wgmma path: bf16, hd 64 or 128
+// wgmma path: bf16, hd 64, 112, 128 (one warpgroup), 192 and 256 (two)
 // ---------------------------------------------------------------------------
-constexpr int kWgThreads = 128;                 // one warpgroup
 constexpr int kWgStages = 2;                    // K/V ring depth
 constexpr int kBoxBytes = 64 * 128;             // 64 rows x 128 B, one TMA box
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
+// HD is the true head width; the tiles are kHDP wide, whole 64-column
+// boxes (hd 112 pads to 128: TMA fills columns 112-127 with zeros). NWG
+// consumer warpgroups own 64 q rows each and share every K / V stage.
+template <int HD, int NWG>
 struct WgLayout {
-  static constexpr int kBoxes = HD / 64;        // 64-column boxes per row
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // 64 rows x HD bf16
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTileBytes;               // [kWgStages] tiles
-  static constexpr int kV = kK + kWgStages * kTileBytes;   // [kWgStages] tiles
-  static constexpr int kBar = kV + kWgStages * kTileBytes; // q_full, kv_full[2]
-  static constexpr int kSmem = kBar + 64 + 1024;           // + slack to align
+  static constexpr int kHDP = (HD + 63) / 64 * 64;         // padded width
+  static constexpr int kBoxes = kHDP / 64;                  // 64-column boxes per row
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;     // 64 rows x kHDP bf16
+  static constexpr int kRows = 64 * NWG;                    // q rows of a block
+  static constexpr int kThreads = 128 * NWG;
+  // O += P V is issued in pieces of kPiece output columns: n128 where the
+  // width is a multiple of 128, else n64 (3 x n64 at 192)
+  static constexpr int kPiece = kHDP % 128 == 0 ? 128 : 64;
+  static constexpr int kPieces = kHDP / kPiece;
+  static constexpr int kQ = 0;                              // [NWG] tiles
+  static constexpr int kK = kQ + NWG * kTileBytes;          // [kWgStages] tiles
+  static constexpr int kV = kK + kWgStages * kTileBytes;    // [kWgStages] tiles
+  static constexpr int kBar = kV + kWgStages * kTileBytes;  // q_full, kv_full[2]
+  static constexpr int kSmem = kBar + 64 + 1024;            // + slack to align
 };
 
-// O += P V for one k16 slice: A = P from registers, B = V MN-major.
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&p)[4],
+// O piece += P V for one k16 slice: A = P from registers, B = V MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&p)[4],
                                          uint64_t desc_v) {
-  if constexpr (HD == 128) {
+  if constexpr (N == 128) {
     hopper::wgmma_m64n128k16_rs<1>(o, p, desc_v, 1);
   } else {
     hopper::wgmma_m64n64k16_rs<1>(o, p, desc_v, 1);
@@ -436,12 +452,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWgThreads, 2)
+template <int HD, int NWG>
+__global__ void __launch_bounds__(128 * NWG, NWG == 1 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map, Params prm) {
-  using L = WgLayout<HD>;
+  using L = WgLayout<HD, NWG>;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles start on 1024-byte boundaries (of the shared window)
   uint8_t* smem = smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -453,11 +469,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (prm.Hq / prm.Hkv);
-  const int q0 = qt * kBQ;
+  const int q0 = qt * L::kRows;
+  // this warpgroup's rows start at qw; n_q warpgroups hold rows (with one
+  // warpgroup, both are known here and the code is the one-warpgroup
+  // kernel). A warpgroup with no row computes on a Q tile that is never
+  // loaded and stores nothing: rows do not mix, so it changes no other row.
+  const int wg = NWG == 1 ? 0 : tid / 128;
+  const int qw = q0 + 64 * wg;
+  const int n_q = NWG == 1 ? 1 : min(NWG, (prm.Sq - q0 + 63) / 64);
 
-  // k range of this q tile, in whole tiles of kBK keys
+  // k range of the block (the union of its warpgroups'), in whole tiles
   const int kv_len = prm.kv_len;
-  const int q_last = min(q0 + kBQ, prm.Sq) - 1;
+  const int q_last = min(q0 + L::kRows, prm.Sq) - 1;
   int k_end = kv_len;
   if (prm.causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
@@ -486,21 +509,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   };
   if (tid == 0 && n_tiles > 0) {
-    hopper::mbar_arrive_expect_tx(q_full, L::kTileBytes);
+    // the Q rows of each warpgroup that holds any; a box counts its full
+    // bytes, zero-filled past Sq and past HD
+    hopper::mbar_arrive_expect_tx(q_full, n_q * L::kTileBytes);
+    for (int w = 0; w < n_q; ++w) {
 #pragma unroll
-    for (int c = 0; c < L::kBoxes; ++c)
-      hopper::tma_load_4d(smem + L::kQ + c * kBoxBytes, &q_map, q_full, 64 * c, h, q0, b);
+      for (int c = 0; c < L::kBoxes; ++c)
+        hopper::tma_load_4d(smem + L::kQ + w * L::kTileBytes + c * kBoxBytes, &q_map,
+                            q_full, 64 * c, h, q0 + 64 * w, b);
+    }
     load_kv(0);
   }
 
-  // this thread's rows of the tile (fragment layout: see hopper.cuh)
-  const int warp = tid / 32, lane = tid % 32;
+  // this thread's rows of its warpgroup's tile (fragment layout: see hopper.cuh)
+  const int warp = (tid % 128) / 32, lane = tid % 32;
   const int row_in = 16 * warp + lane / 4;      // and row_in + 8
   const int col_in = 2 * (lane & 3);            // within each n8 block
+  const uint8_t* qs = smem + L::kQ + wg * L::kTileBytes;
 
-  float o[HD / 2];
+  float o[L::kPieces][L::kPiece / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int c = 0; c < L::kPieces; ++c)
+#pragma unroll
+    for (int i = 0; i < L::kPiece / 2; ++i) o[c][i] = 0.f;
   float m[2] = {kNegInf, kNegInf};              // running max of the raw scores
   float l[2] = {0.f, 0.f};                      // this thread's share of the row sum
   float sc[32];
@@ -518,35 +549,46 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint8_t* ks = smem + L::kK + s * L::kTileBytes;
     const uint8_t* vs = smem + L::kV + s * L::kTileBytes;
 
-    // ---- S = Q K^T: hd / 16 k16 slices; K-major operands advance 32 B a
-    // slice inside a 128 B swizzled row, the next 64 columns a box later
+    // ---- S = Q K^T: HD / 16 k16 slices (the zero columns of a padded
+    // box are left out); K-major operands advance 32 B a slice inside a
+    // 128 B swizzled row, the next 64 columns a box later
     hopper::wgmma_fence();
 #pragma unroll
     for (int t = 0; t < HD / 16; ++t) {
       const int off = (t / 4) * kBoxBytes + (t % 4) * 32;
       hopper::wgmma_m64n64k16_ss<0>(
-          sc, hopper::smem_desc_sw128(smem + L::kQ + off, 16, 1024),
+          sc, hopper::smem_desc_sw128(qs + off, 16, 1024),
           hopper::smem_desc_sw128(ks + off, 16, 1024), t > 0 ? 1 : 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
 
-    // ---- mask, online softmax, P -> bf16 A fragments
+    // ---- mask, online softmax, P -> bf16 A fragments. Whether a tile is
+    // an EDGE tile is decided for the block's rows q0 .. q0 + kRows - 1: a
+    // test on one warpgroup's rows would depend on the thread index, and
+    // ptxas serializes wgmma calls behind a branch on it. The block's k
+    // range is the union of its warpgroups', so a tile may hold no live
+    // key for one warpgroup's rows (its last causal tile for warpgroup 0,
+    // its first window tile for warpgroup 1): it is an EDGE tile, every p
+    // is 0, and m, l and O stay as they were.
     const bool edge = kt0 + kBK > kv_len || (prm.causal && kt0 + kBK - 1 > q0) ||
-                      (prm.window > 0 && q0 + kBQ - 1 - kt0 >= prm.window);
+                      (prm.window > 0 && q0 + L::kRows - 1 - kt0 >= prm.window);
     float alpha[2];
     if (edge) {
-      softmax_tile<true>(sc, m, l, alpha, prm, q0 + row_in, kt0 + col_in, scale);
+      softmax_tile<true>(sc, m, l, alpha, prm, qw + row_in, kt0 + col_in, scale);
     } else {
-      softmax_tile<false>(sc, m, l, alpha, prm, q0 + row_in, kt0 + col_in, scale);
+      softmax_tile<false>(sc, m, l, alpha, prm, qw + row_in, kt0 + col_in, scale);
     }
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      o[4 * i + 0] *= alpha[0];
-      o[4 * i + 1] *= alpha[0];
-      o[4 * i + 2] *= alpha[1];
-      o[4 * i + 3] *= alpha[1];
+    for (int c = 0; c < L::kPieces; ++c) {
+#pragma unroll
+      for (int i = 0; i < L::kPiece / 8; ++i) {
+        o[c][4 * i + 0] *= alpha[0];
+        o[c][4 * i + 1] *= alpha[0];
+        o[c][4 * i + 2] *= alpha[1];
+        o[c][4 * i + 3] *= alpha[1];
+      }
     }
     // the S fragment of keys 16t..16t+15 is the A fragment of k slice t
     uint32_t p[4][4];
@@ -558,20 +600,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 
     // ---- O += P V: 4 k16 slices of 16 keys, V MN-major (16 rows = 2048 B
-    // a slice; the next 64 hd columns one box, LBO, later)
+    // a slice; the next 64 hd columns one box, LBO, later), each slice in
+    // kPieces products of kPiece columns
     hopper::wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
-      wgmma_pv<HD>(o, p[t], hopper::smem_desc_sw128(vs + t * 2048, kBoxBytes, 1024));
+    for (int t = 0; t < 4; ++t) {
+#pragma unroll
+      for (int c = 0; c < L::kPieces; ++c)
+        wgmma_pv<L::kPiece>(
+            o[c], p[t],
+            hopper::smem_desc_sw128(vs + c * (L::kPiece / 64) * kBoxBytes + t * 2048,
+                                    kBoxBytes, 1024));
+    }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
-    hopper::fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < L::kPieces; ++c) hopper::fence_regs(o[c]);
 #pragma unroll
     for (int t = 0; t < 4; ++t) hopper::fence_regs(p[t]);
     __syncthreads();   // every product that read stage s is done: it may refill
   }
 
-  // ---- out = O / l; a row with no live key (l == 0) writes 0
+  // ---- out = O / l; a row with no live key (l == 0) writes 0; the zero
+  // columns of a padded box are not stored
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(prm.out);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -579,14 +630,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = sum == 0.f ? 0.f : 1.f / sum;
-    const int qi = q0 + row_in + 8 * hh;
+    const int qi = qw + row_in + 8 * hh;
     if (qi >= prm.Sq) continue;
     __nv_bfloat16* orow =
         out + ((static_cast<int64_t>(b) * prm.Sq + qi) * prm.Hq + h) * HD + col_in;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i)
-      *reinterpret_cast<uint32_t*>(orow + 8 * i) =
-          hopper::pack_bf16(o[4 * i + 2 * hh] * inv, o[4 * i + 2 * hh + 1] * inv);
+    for (int c = 0; c < L::kPieces; ++c) {
+#pragma unroll
+      for (int i = 0; i < L::kPiece / 8; ++i) {
+        const int col = c * L::kPiece + 8 * i;
+        if (col < HD)
+          *reinterpret_cast<uint32_t*>(orow + col) = hopper::pack_bf16(
+              o[c][4 * i + 2 * hh] * inv, o[c][4 * i + 2 * hh + 1] * inv);
+      }
+    }
   }
 }
 
@@ -601,28 +658,40 @@ bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int 
   return hopper::make_tensor_map_bf16(map, base, 4, dims, strides, box);
 }
 
-template <int HD>
+template <int HD, int NWG>
 cudaError_t launch_wgmma(const Params& prm, cudaStream_t stream) {
+  using L = WgLayout<HD, NWG>;
   CUtensorMap qm, km, vm;
   if (!make_bshd_map(&qm, prm.q, prm.B, prm.Sq, prm.Hq, HD) ||
       !make_bshd_map(&km, prm.k, prm.B, prm.Sk, prm.Hkv, HD) ||
       !make_bshd_map(&vm, prm.v, prm.B, prm.Sk, prm.Hkv, HD))
     return cudaErrorInvalidValue;
-  const int smem = WgLayout<HD>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_wgmma_kernel<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((prm.Sq + kBQ - 1) / kBQ, prm.Hq, prm.B);
-  flash_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(qm, km, vm, prm);
+  const dim3 grid((prm.Sq + L::kRows - 1) / L::kRows, prm.Hq, prm.B);
+  flash_wgmma_kernel<HD, NWG><<<grid, L::kThreads, L::kSmem, stream>>>(qm, km, vm, prm);
   return cudaGetLastError();
 }
 
-// The rule: bf16 with hd 64 or 128 and at least one key takes the wgmma
-// kernel; everything else (fp32, bf16 hd 32, Sk 0) the scalar one. The
-// wrapper has already checked contiguity and 16-byte alignment, which
-// TMA needs too.
+// The rule: bf16 with hd 64, 112, 128, 192 or 256 and at least one key
+// takes the wgmma kernel; everything else (fp32, bf16 hd 32, Sk 0) the
+// scalar one. The wrapper has already checked contiguity and 16-byte
+// alignment, which TMA needs too.
 bool wgmma_path(int dtype, int hd, int Sk) {
-  return dtype == 1 && (hd == 64 || hd == 128) && Sk > 0;
+  return dtype == 1 && Sk > 0 &&
+         (hd == 64 || hd == 112 || hd == 128 || hd == 192 || hd == 256);
+}
+
+cudaError_t dispatch_wgmma(int hd, const Params& prm, cudaStream_t stream) {
+  switch (hd) {
+    case 64: return launch_wgmma<64, 1>(prm, stream);
+    case 112: return launch_wgmma<112, 1>(prm, stream);
+    case 128: return launch_wgmma<128, 1>(prm, stream);
+    case 192: return launch_wgmma<192, 2>(prm, stream);
+    case 256: return launch_wgmma<256, 2>(prm, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -641,8 +710,7 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   Params prm{q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
              kv_len <= 0 ? Sk : kv_len, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wgmma_path(dtype, hd, Sk))
-    return static_cast<int>(hd == 128 ? launch_wgmma<128>(prm, s) : launch_wgmma<64>(prm, s));
+  if (wgmma_path(dtype, hd, Sk)) return static_cast<int>(dispatch_wgmma(hd, prm, s));
   if (dtype == 0) return static_cast<int>(dispatch_hd<float>(hd, prm, s));
   if (dtype == 1) return static_cast<int>(dispatch_hd<__nv_bfloat16>(hd, prm, s));
   return static_cast<int>(cudaErrorInvalidValue);

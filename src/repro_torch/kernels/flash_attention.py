@@ -6,9 +6,10 @@ with causal and sliding-window masks, GQA (query head h reads kv head
 ``h // (Hq // Hkv)``) and ``kv_len`` masking of padded keys, with fp32
 running statistics; a row with no live key is written as 0.
 ``repro_torch.kernels.ref.attention_ref`` is their plain PyTorch version.
-bf16 with head_dim 64 or 128 runs on the tensor cores (wgmma fed by
-TMA); fp32, and bf16 at the other widths of ``HEAD_DIMS``, on the scalar
-kernel. ``HEAD_DIMS`` holds every ``head_dim`` of the model registry.
+bf16 with head_dim 64, 112, 128, 192 or 256 runs on the tensor cores
+(wgmma fed by TMA; two warpgroups a block at 192 and 256); fp32, bf16 at
+32 and a k/v with no keys on the scalar kernel. ``HEAD_DIMS`` holds
+every ``head_dim`` of the model registry.
 ``kernel_path`` says which a call takes; the rule lives in the CUDA
 source.
 

@@ -1,5 +1,7 @@
 """chip_smoke.py's helpers that run without a card: the ptxas report
-parser and the count of live (query, key) pairs behind the flash bound."""
+parser and its wgmma-serialization note, the count of live (query, key)
+pairs behind the flash bound, the SSD chunk scan's bound and the
+profiler's names of the port's kernels."""
 import importlib.util
 from pathlib import Path
 
@@ -40,6 +42,16 @@ def test_ptxas_report_names_each_kernel_with_registers_and_spills(smoke):
     assert "not available" in smoke.ptxas_note({}, "gmm_")
 
 
+def test_wgmma_serialized_names_the_kernels_ptxas_serializes(smoke):
+    note = ("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async "
+            "instructions are serialized due to program dependence on compiler-inserted "
+            "WG.AR in divergent path in the function '_ZN51_GLOBAL__N__52ee7d0f_18_flash_"
+            "attention_cu_23f0aea718flash_wgmma_kernelILi256ELi2EEEv14CUtensorMap_stS1_S1_"
+            "NS_6ParamsE'\n")
+    assert smoke.wgmma_serialized(note + PTXAS_LOG) == ["flash_wgmma_kernel<256, 2>"]
+    assert smoke.wgmma_serialized(PTXAS_LOG) == []
+
+
 @pytest.mark.parametrize("Sq,Sk,causal,window,kv_len,want", [
     (4, 4, True, 0, 0, 10),        # 1 + 2 + 3 + 4
     (4, 4, False, 0, 0, 16),
@@ -49,3 +61,26 @@ def test_ptxas_report_names_each_kernel_with_registers_and_spills(smoke):
 def test_flash_pairs_counts_the_live_query_key_pairs(smoke, Sq, Sk, causal, window,
                                                      kv_len, want):
     assert smoke.flash_pairs(Sq, Sk, causal, window, kv_len) == want
+
+
+@pytest.mark.parametrize("H,want_mb", [(32, 153.1), (128, 587.2)], ids=["mamba2", "jamba"])
+def test_ssd_bound_counts_each_operand_once(smoke, H, want_mb):
+    # B 8, S 2048, P 64, N 128, chunk 128: bf16 x and y dominate the bytes
+    flops, nbytes, bound_ms, bound_by = smoke.ssd_bound(8, 2048, H, 64, 128, 128)
+    assert nbytes / 1e6 == pytest.approx(want_mb, abs=0.1)
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(nbytes / smoke.HBM_BYTES_PER_S * 1e3)
+    assert flops / 1e9 == pytest.approx(30.2 * H / 32, rel=0.01)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void (anonymous namespace)::flash_wgmma_kernel<256, 2>(CUtensorMap, CUtensorMap, "
+     "CUtensorMap, (anonymous namespace)::Params)", "flash_wgmma_kernel"),
+    ("void (anonymous namespace)::ssd_tc_kernel<64, 128>(Params)", "ssd_tc_kernel"),
+    ("gmm_wgmma_kernel", "gmm_wgmma_kernel"),
+    ("void gossip_axpy_kernel<float, float>(GossipArgs)", "gossip_axpy_kernel"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", None),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", None),
+])
+def test_hand_written_names_the_ports_kernels_only(smoke, name, want):
+    assert smoke.hand_written(name) == want

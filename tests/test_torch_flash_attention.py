@@ -55,6 +55,9 @@ def _check(jx, tx, dtype, *, causal, window, jax_kw):
         (2, 256, 8, 2, 64, 128, 64),    # GQA 4:1
         (1, 192, 6, 1, 32, 64, 64),     # MQA, ragged grid
         (2, 64, 4, 4, 128, 32, 32),     # wide heads
+        (1, 128, 8, 1, 112, 64, 64),    # kimi-k2's width, GQA 8:1
+        (1, 128, 12, 1, 192, 64, 64),   # nemotron-4-340b's width, GQA 12:1
+        (2, 128, 4, 2, 256, 64, 64),    # gemma3-4b's width, GQA 2:1
     ],
 )
 def test_attention_sweep_matches_jax_kernel(B, S, Hq, Hkv, hd, bq, bk, dtype):

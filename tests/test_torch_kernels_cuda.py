@@ -205,9 +205,11 @@ def test_flash_kernel_matches_plain_version(sm90, dtype, B, Sq, Sk, Hq, Hkv, hd,
 
 
 # Every other head_dim of the model registry (kimi-k2 112, nemotron-4-340b
-# 192, gemma3-4b 256) on the scalar kernel: 7, 12 and 16 output columns a
-# thread, 14 / 28 chunks a row at 112 (256 threads do not divide them),
-# 208 KB of shared memory at 256. Heads in the models' ratios, cut down.
+# 192, gemma3-4b 256): bf16 on the wgmma kernel (112 on a zero-padded
+# 128-column box; 192 and 256 with two warpgroups on a 128-row q tile),
+# fp32 on the scalar kernel (7, 12 and 16 output columns a thread, 14 / 28
+# chunks a row at 112 that 256 threads do not divide, 208 KB of shared
+# memory at 256). Heads in the models' ratios, cut down.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("hd,Hq,Hkv", [(112, 8, 1), (192, 12, 1), (256, 4, 2)],
@@ -221,7 +223,7 @@ def test_flash_kernel_at_every_registry_width(sm90, dtype, hd, Hq, Hkv, B, Sq, S
     from repro_torch.kernels.flash_attention import kernel_path
 
     q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype, seed=hd + Sq)
-    assert kernel_path(q, k) == "scalar"
+    assert kernel_path(q, k) == ("wgmma" if dtype == torch.bfloat16 else "scalar")
     kv_len = min(kv_len, Sk)
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
@@ -233,6 +235,52 @@ def test_flash_kernel_at_every_registry_width(sm90, dtype, hd, Hq, Hkv, B, Sq, S
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got[:, live].float(), want[:, live].float(), **FA_TOL[dtype])
     assert bool((got[:, ~live] == 0).all())
+
+
+# The wide widths' wgmma kernel at the edges of its 128-row q tile (two
+# warpgroups of 64 rows at hd 192 / 256; hd 112 has one on 64 rows):
+# Sq 129 leaves the last tile's second warpgroup no row, Sq 200 a ragged
+# 8; windows of 24 and 64 leave one warpgroup a k tile with no live key
+# (the first window tile of warpgroup 1, the last causal tile of
+# warpgroup 0); kv_len 97 ends inside warpgroup 1's rows; Sq != Sk both
+# ways; kv_len 10 with a window of 4 masks every row from 13 on.
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,Hq,Hkv", [(112, 8, 1), (192, 12, 1), (256, 4, 2)],
+                         ids=["kimi", "nemotron", "gemma3"])
+@pytest.mark.parametrize("B,Sq,Sk,causal,window,kv_len", [
+    (2, 129, 129, True, 0, 0),
+    (2, 200, 200, True, 0, 0),
+    (1, 200, 200, False, 0, 0),
+    (2, 256, 256, True, 24, 0),
+    (2, 320, 320, True, 64, 0),
+    (1, 256, 256, False, 64, 0),
+    (2, 200, 200, True, 0, 97),
+    (1, 256, 256, False, 0, 97),
+    (2, 70, 300, True, 0, 0),
+    (2, 300, 70, True, 0, 0),
+    (1, 100, 260, False, 0, 0),
+    (1, 96, 96, True, 4, 10),
+], ids=["Sq129", "Sq200", "Sq200-noncausal", "window24", "window64", "window64-noncausal",
+        "kv_len97", "kv_len97-noncausal", "Sq<Sk", "Sq>Sk", "Sq<Sk-noncausal", "masked-rows"])
+def test_flash_wgmma_kernel_128_row_tile_edges(sm90, hd, Hq, Hkv, B, Sq, Sk, causal,
+                                               window, kv_len):
+    from repro_torch.kernels.flash_attention import kernel_path
+
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, torch.bfloat16, seed=hd + Sq + Sk)
+    assert kernel_path(q, k) == "wgmma"
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    n = kv_len or Sk
+    want = attention_ref(q, k[:, :n], v[:, :n], causal=causal, window=window)
+    live = _live(Sq, Sk, causal, window, kv_len).any(1).cuda()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got[:, live].float(), want[:, live].float(),
+                               **FA_TOL[torch.bfloat16])
+    assert bool((got[:, ~live] == 0).all())
+    if kv_len == 10:
+        assert int((~live).sum()) == Sq - 13
 
 
 @pytest.mark.cuda
@@ -325,14 +373,23 @@ def test_flash_wgmma_kernel_at_the_new_families_shapes(sm90, B, Sq, Sk, Hq, Hkv,
 def test_flash_kernel_path_rule(sm90):
     from repro_torch.kernels.flash_attention import kernel_path
 
-    # bf16 hd 64 / 128 on the tensor cores; fp32, and bf16 at 32, 112,
-    # 192 and 256, scalar
+    # bf16 hd 64, 112, 128, 192 and 256 on the tensor cores; fp32 at every
+    # width, bf16 at 32, and a k/v with no keys, scalar
     for dtype, hd, path in [(torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
                             (torch.bfloat16, 32, "scalar"), (torch.float32, 128, "scalar"),
-                            (torch.float32, 64, "scalar"), (torch.bfloat16, 112, "scalar"),
-                            (torch.bfloat16, 192, "scalar"), (torch.bfloat16, 256, "scalar")]:
+                            (torch.float32, 64, "scalar"), (torch.bfloat16, 112, "wgmma"),
+                            (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+                            (torch.float32, 112, "scalar"), (torch.float32, 192, "scalar"),
+                            (torch.float32, 256, "scalar")]:
         q, k, _ = _qkv(1, 8, 8, 2, 1, hd, dtype)
         assert kernel_path(q, k) == path, (dtype, hd)
+    # no keys: the scalar kernel writes zeros at every bf16 width
+    for hd in (112, 192, 256):
+        q, k, v = _qkv(1, 8, 0, 2, 1, hd, torch.bfloat16)
+        assert kernel_path(q, k) == "scalar"
+        out = flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        assert bool((out == 0).all())
     # bf16 hd 32 on the scalar kernel agrees all the same
     q, k, v = _qkv(2, 100, 100, 4, 2, 32, torch.bfloat16, seed=5)
     torch.testing.assert_close(flash_attention(q, k, v).float(),
