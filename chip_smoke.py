@@ -40,7 +40,12 @@ non-zero exit:
            dbrx-132b's prefill shapes, 65,536 sorted rows x 6144 x 10752
            and the transposed w2 shape, and its decode shape of 32 rows,
            with group sizes from a router pass), with torch._grouped_mm
-           as the one-call yardstick;
+           as the one-call yardstick; its backward kernels
+           grouped_matmul_dx and grouped_matmul_dw against their plain
+           versions at dbrx's prefill shapes and at one node's training
+           shape (4 x 128 tokens, top-4: 2,048 rows), in turns with
+           torch._grouped_mm (dx: dy times w transposed; dw: the 2-D x 2-D
+           form over x transposed and dy);
 3. main    the decentralized trainer at full published width:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
@@ -91,7 +96,22 @@ non-zero exit:
            profile of one prefill and four decode steps of each model:
            device busy share, kernel launches per step, the costliest
            kernels and each hand-written kernel's share of the busy time;
-5. check   small inputs (the tiny presets, fp32) run on the card and on
+5. moe     MoE training and long attention on the card: one replica of
+           dbrx-132b at published width, depth 40 -> 1 (4.49 G fp32 params),
+           one node's batch of 4 x 128 tokens, the loss and every gradient
+           through the grouped-matmul kernels and their backward, then
+           through the plain versions, compared leaf by leaf (the first
+           set of gradients waits on the host); dbrx's MoE block alone at
+           B 8 x 2048 (65,536 pairs, bf16 expert leaves), timed fwd+bwd
+           with the grouped kernels' share of its device time; the
+           masked TrainStep with 16 experts (tiny dbrx, the ragged branch),
+           3 steps on 8 nodes, card against CPU at fp32 (scalar kernels)
+           and bf16 (wgmma kernels); internlm2-1.8b at published width, 1
+           layer, B 1 x S 8192, loss and gradients through sdpa_chunked
+           against the unchunked sdpa, fp32 and bf16; exact grouped-matmul
+           launch counts per MoE layer and node (3 forward, 3 more under
+           remat, 3 dx, 3 dw);
+6. check   small inputs (the tiny presets, fp32) run on the card and on
            the CPU from the same weights must agree: two masked training
            steps, and for internlm2, mamba2 and dbrx with 16 experts and
            top-4 (the ragged MoE branch) a prefill, one decode step and
@@ -109,7 +129,7 @@ non-zero exit:
            run ends (overlap: bit for bit); --trace on the training CLI
            (masked and overlap) and the serving CLI must write files the
            port's readers load;
-6. tests   the card-only tests (``pytest -m cuda
+7. tests   the card-only tests (``pytest -m cuda
            tests/test_torch_kernels_cuda.py``) in a child process.
 
 Then it prints the card's name and power limit, one JSON line with every
@@ -146,6 +166,22 @@ SERVE_TOL = 1e-4                # card (kernels) vs CPU (plain), fp32 tiny servi
 # in bf16 both round an fp32 sum once, one bf16 step apart at most
 GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DBRX_LAYERS = 3                 # dbrx-132b depth on one card (40 published)
+# dbrx-132b depth of the one-replica training check: 1 layer is 4.49 G
+# params, 17.97 GB in fp32 and as much again in gradients
+MOE_TRAIN_LAYERS = 1
+# the one replica through the kernels against the plain versions, bf16
+# compute: both round each expert product to bf16 from fp32 sums taken in
+# another order, one bf16 step apart, and the backward carries those steps
+# on (the bf16 tolerances of tests/test_torch_model.py)
+MOE_REPLICA_TOL = {"loss": 1e-3, "grad": 1e-1}
+# the 16-expert TrainStep, card against CPU after 3 steps: fp32 as
+# SMALL_TOL; bf16 rounds the card's and the CPU's products at other places
+MOE_STEP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# sdpa_chunked against the unchunked sdpa: the same row computations, the
+# score products possibly tiled otherwise by cuBLAS (fp32 sums in another
+# order); at bf16 a flipped rounding of the attention output travels on
+CHUNKED_TOL = {"float32": {"loss": 1e-5, "grad": 1e-4},
+               "bfloat16": {"loss": 1e-3, "grad": 1e-1}}
 JAMBA_LAYERS = 16               # jamba-v0.1-52b depth on one card (32 published)
 WHISPER_PROMPT = 384            # whisper prompt: prompt + generated within max_position 448
 FAMILY_ARCHS = ("gemma3_4b", "jamba_v0_1_52b", "whisper_base", "internvl2_1b")
@@ -886,7 +922,106 @@ def phase_gmm(torch, ptxas):
             torch.cuda.empty_cache()
     log(f"kernels: grouped_matmul ptxas: {ptxas_note(ptxas, 'gmm_')}")
     row["max_abs_err"] = max_err
-    return row
+    return row, gmm_backward(torch, ptxas)
+
+
+def gmm_backward(torch, ptxas):
+    """The dx and dw kernels against their plain versions at dbrx-132b's
+    prefill shapes (65,536 sorted rows, bf16) and at one node's training
+    shape (4 x 128 tokens, top-4: 2,048 rows), group sizes from router
+    passes, timed in turns with torch._grouped_mm; returns {kind: JSON
+    row} at the prefill w1/w3 shape."""
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul_dw,
+        grouped_matmul_dx,
+        kernel_path,
+    )
+    from repro_torch.kernels.ref import grouped_matmul_dw_ref, grouped_matmul_dx_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cfg = dbrx_serving_config()
+    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.moe_num_experts
+    prefill = router_group_sizes(torch, cfg, SERVE_BATCH * SERVE_PROMPT, 5)
+    train = router_group_sizes(torch, cfg, BATCH * SEQ, 9)
+    log(f"kernels: grouped_matmul backward, dbrx training router group sizes "
+        f"{train.tolist()}")
+    tol = GMM_TOL["bfloat16"]
+    rows, max_err = {}, {"dx": 0.0, "dw": 0.0}
+    for label, K, N, gs, iters in (("prefill w1/w3", D, F, prefill, 3),
+                                   ("prefill w2", F, D, prefill, 3),
+                                   ("training w1/w3", D, F, train, 10),
+                                   ("training w2", F, D, train, 10)):
+        M = int(gs.sum())
+        live = int((gs > 0).sum())
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(E, K, N, generator=gen, device="cuda") / math.sqrt(K)).to(
+            torch.bfloat16)
+        dy = torch.randn(M, N, generator=gen, device="cuda").to(torch.bfloat16)
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        flops = 2 * M * K * N
+        for kind in ("dx", "dw"):
+            if kind == "dx":
+                run = lambda: grouped_matmul_dx(dy, w, gs)
+                plain = lambda: grouped_matmul_dx_ref(dy, w, gs)
+                lib = lambda: torch._grouped_mm(dy, w.transpose(-2, -1), offs=offs)
+                nbytes = (M * N + live * K * N + M * K) * 2 + 4 * E
+                path = kernel_path(dy, w, kind="dx")
+            else:
+                run = lambda: grouped_matmul_dw(x, dy, gs)
+                plain = lambda: grouped_matmul_dw_ref(x, dy, gs)
+                lib = lambda: torch._grouped_mm(x.t(), dy, offs=offs)
+                nbytes = (M * K + M * N + E * K * N) * 2 + 4 * E
+                path = kernel_path(x, dy, kind="dw")
+            if path != "wgmma":
+                fail(f"grouped_matmul_{kind} dbrx {label} takes the {path} kernel")
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            if kind == "dw" and not all(bool((got[g] == 0).all())
+                                        for g in range(E) if int(gs[g]) == 0):
+                fail(f"grouped_matmul_dw dbrx {label}: an empty group's dw is not 0")
+            err = close(torch, got, want, tol, tol)
+            if not math.isfinite(err):
+                fail(f"grouped_matmul_{kind} dbrx {label}: disagrees with its plain version")
+            max_err[kind] = max(max_err[kind], err)
+            l_ms = None
+            try:
+                lib_out = lib()
+                torch.cuda.synchronize()
+                lib_note = (f"max abs diff {float((lib_out.float() - want.float()).abs().max()):.3g}")
+                del lib_out
+            except (RuntimeError, TypeError) as exc:      # report, do not stop
+                lib = None
+                lib_note = f"torch._grouped_mm refused: {str(exc).splitlines()[0][:160]}"
+            del got, want
+            if lib is not None:                 # kernel, library, library, kernel
+                (k1, k2), (l1, l2) = in_turns(torch, run, lib, iters, warmup=1)
+                k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
+                times = (f"in turns kernel {k1:.3f} ms, torch._grouped_mm {l1:.3f} ms, "
+                         f"torch._grouped_mm {l2:.3f} ms, kernel {k2:.3f} ms "
+                         f"({k_ms / l_ms:.2f}x the library; library {lib_note})")
+            else:
+                k_ms = cuda_ms(torch, run, iters, warmup=1)
+                times = f"kernel {k_ms:.3f} ms; {lib_note}"
+            p_ms = cuda_ms(torch, plain, 1, warmup=1)
+            t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+            b_ms = max(t_ops, t_bytes) * 1e3
+            b_by = "operations" if t_ops >= t_bytes else "bytes"
+            log(f"kernels: grouped_matmul_{kind} dbrx {label} ({M} rows, K {K}, N {N}, "
+                f"{E} groups) bf16 (path {path}; {flops / 1e12:.3f} TFLOP, "
+                f"{nbytes / 1e9:.3f} GB): agrees with its plain version (max abs err "
+                f"{err:.3g}); {times}; {flops / k_ms / 1e9:.1f} TFLOP/s; plain {p_ms:.3f} "
+                f"ms; bound {b_ms:.3f} ms by {b_by} ({b_ms / k_ms:.1%} of it)")
+            if kind not in rows:                 # the first: prefill w1/w3
+                rows[kind] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=l_ms)
+            torch.cuda.empty_cache()
+        del x, w, dy
+        torch.cuda.empty_cache()
+    for kind in rows:
+        rows[kind]["max_abs_err"] = max_err[kind]
+        log(f"kernels: grouped_matmul_{kind} ptxas: {ptxas_note(ptxas, f'gmm_{kind}_')}")
+    return rows
 
 
 def jamba_serving_config():
@@ -985,56 +1120,63 @@ def hand_written(name: str):
     return m.group(0) if m else None
 
 
+def profile_summary(prof, wall_ms, steps, label):
+    """Prints a profiled window's device busy time against the host
+    clock, launches, the costliest kernels and each hand-written kernel's
+    share; returns (busy ms per step, {kernel: ms per step}), or
+    (None, {}) where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+
+    # device activity: kernels, copies and sets on the card; busy time
+    # is the union of their intervals (one stream: no overlap)
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Command Buffer")
+    )
+    busy_us, reach, by_name = 0.0, -math.inf, {}
+    for start, end, name in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + end - start, n + 1)
+    launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+    if not spans:
+        log(f"profile: {label}: device time not measured (the profiler saw none); "
+            f"host clock {wall_ms / steps:.2f} ms per step")
+        return None, {}
+    busy_ms = busy_us / 1e3
+    log(f"profile: {label}: host clock {wall_ms / steps:.2f} ms per step, device "
+        f"busy {busy_ms / steps:.2f} ms per step ({busy_ms / wall_ms:.1%}; idle "
+        f"{1 - busy_ms / wall_ms:.1%}), {launches / steps:.0f} kernel launches per "
+        f"step, {len(spans) / steps:.0f} device activities per step")
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+    for name, (t_us, n) in top:
+        log(f"profile: {label}:   {t_us / 1e3 / steps:9.3f} ms/step x{n // steps:<5d} "
+            f"{name[:90]}")
+    # the hand-written kernels' share, whether or not they made the top six
+    ours = {}
+    for name, (t_us, n) in by_name.items():
+        kernel = hand_written(name)
+        if kernel:
+            t, k = ours.get(kernel, (0.0, 0))
+            ours[kernel] = (t + t_us, k + n)
+    for name, (t_us, n) in sorted(ours.items()):
+        log(f"profile: {label}: hand-written {name}: {t_us / 1e3 / steps:.3f} ms/step "
+            f"x{n // steps} ({t_us / 1e3 / busy_ms:.1%} of busy)")
+    return busy_ms / steps, {k: t / 1e3 / steps for k, (t, _) in ours.items()}
+
+
 def phase_profile(torch):
     """Where a serving step's time goes: torch.profiler over one prefill
     and four decode steps of each full model (random prompt ids): the
     device's busy time (the sum of kernel times) against the host clock,
     kernel launches per step, and the kernels that take the most time.
     Prints "not measured" where the profiler reports no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.dist import serve as sv
     from repro_torch.models.transformer import Model
-
-    def summary(prof, wall_ms, steps, label):
-        # device activity: kernels, copies and sets on the card; busy time
-        # is the union of their intervals (one stream: no overlap)
-        spans = sorted(
-            (e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events()
-            if e.device_type == DeviceType.CUDA and not e.name.startswith("Command Buffer")
-        )
-        busy_us, reach, by_name = 0.0, -math.inf, {}
-        for start, end, name in spans:
-            busy_us += max(0.0, end - max(start, reach))
-            reach = max(reach, end)
-            t, n = by_name.get(name, (0.0, 0))
-            by_name[name] = (t + end - start, n + 1)
-        launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
-        if not spans:
-            log(f"profile: {label}: device time not measured (the profiler saw none); "
-                f"host clock {wall_ms / steps:.2f} ms per step")
-            return
-        busy_ms = busy_us / 1e3
-        log(f"profile: {label}: host clock {wall_ms / steps:.2f} ms per step, device "
-            f"busy {busy_ms / steps:.2f} ms per step ({busy_ms / wall_ms:.1%}; idle "
-            f"{1 - busy_ms / wall_ms:.1%}), {launches / steps:.0f} kernel launches per "
-            f"step, {len(spans) / steps:.0f} device activities per step")
-        top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
-        for name, (t_us, n) in top:
-            log(f"profile: {label}:   {t_us / 1e3 / steps:9.3f} ms/step x{n // steps:<5d} "
-                f"{name[:90]}")
-        # the hand-written kernels' share, whether or not they made the top six
-        ours = {}
-        for name, (t_us, n) in by_name.items():
-            kernel = hand_written(name)
-            if kernel:
-                t, k = ours.get(kernel, (0.0, 0))
-                ours[kernel] = (t + t_us, k + n)
-        for name, (t_us, n) in sorted(ours.items()):
-            log(f"profile: {label}: hand-written {name}: {t_us / 1e3 / steps:.3f} ms/step "
-                f"x{n // steps} ({t_us / 1e3 / busy_ms:.1%} of busy)")
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1058,7 +1200,7 @@ def phase_profile(torch):
             logits, caches = prefill(params, tokens, caches, **frontend)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        summary(prof, wall, 1, f"{cfg.name} prefill")
+        profile_summary(prof, wall, 1, f"{cfg.name} prefill")
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
         logits, caches = decode(params, tok, caches, prompt)     # warm-up
         torch.cuda.synchronize()
@@ -1069,8 +1211,335 @@ def phase_profile(torch):
                 logits, caches = decode(params, tok, caches, prompt + 1 + i)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        summary(prof, wall, 4, f"{cfg.name} decode")
+        profile_summary(prof, wall, 4, f"{cfg.name} decode")
         del params, caches, logits
+        torch.cuda.empty_cache()
+
+
+def plain_grouped_matmul():
+    """A context in which the model's expert products take the plain
+    versions on the card (``ops.grouped_matmul(..., impl="torch")``)."""
+    import contextlib
+    import functools
+
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def patched():
+        kernel = ops.grouped_matmul
+        ops.grouped_matmul = functools.partial(kernel, impl="torch")
+        try:
+            yield
+        finally:
+            ops.grouped_matmul = kernel
+
+    return patched()
+
+
+def gmm_counters():
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul,
+        grouped_matmul_dw,
+        grouped_matmul_dx,
+    )
+
+    return {"grouped_matmul": grouped_matmul, "grouped_matmul_dx": grouped_matmul_dx,
+            "grouped_matmul_dw": grouped_matmul_dw}
+
+
+def moe_launches(cfg, passes: int = 1):
+    """Grouped-matmul launches of ``passes`` model fwd/bwd passes: per MoE
+    layer 3 forward (3 more under remat, which runs the layer again in
+    the backward), 3 dx and 3 dw."""
+    moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers))) * passes
+    return {"grouped_matmul": 3 * moe * (1 + cfg.remat),
+            "grouped_matmul_dx": 3 * moe, "grouped_matmul_dw": 3 * moe}
+
+
+def phase_moe_train(torch, plan):
+    """MoE training on the card through the grouped-matmul kernels and
+    their backward, and attention at the chunked threshold; returns the
+    dx and dw launches of the whole phase (counted from 0)."""
+    counters = gmm_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    moe_replica(torch)
+    moe_block_fwd_bwd(torch)
+    moe_train_step(torch, plan)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"moe: grouped-matmul launches over the phase {launches}")
+    if not all(launches.values()):
+        fail(f"moe: a grouped-matmul kernel of the training path never ran: {launches}")
+    chunked_attention(torch)
+    return launches
+
+
+def rel_norm(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm() / max(float(want.float().norm()), 1e-30))
+
+
+def moe_replica(torch):
+    """One replica of dbrx-132b at published width, depth 40 -> 1, fp32
+    params, bf16 compute, one node's trainer batch: the loss and every
+    gradient through the kernels, then through the plain versions."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(get_config("dbrx_132b"), num_layers=MOE_TRAIN_LAYERS)
+    model = Model(cfg)
+    log(f"moe: {cfg.name} d_model {cfg.d_model} {cfg.moe_num_experts} experts top-"
+        f"{cfg.moe_top_k} expert d_ff {cfg.moe_d_ff} vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype} params, {cfg.compute_dtype} compute, remat {cfg.remat}; "
+        f"reduced: num_layers 40 -> {cfg.num_layers} (dataclasses.replace); "
+        f"{model.num_params()} params in one replica")
+    params = model.init(0, device="cuda")
+    leaves = flatten(params)
+    for leaf in leaves.values():
+        leaf.requires_grad_()
+    batch = {k: v[0] for k, v in next(DecentralizedBatches(
+        cfg, 1, BATCH, SEQ, seed=0, device="cuda")).items()}
+    counters = gmm_counters()
+    torch.autograd.grad(model.loss(params, batch)[0], list(leaves.values()))   # warm-up
+    res = {}
+    for route in ("kernels", "plain"):
+        before = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if route == "kernels":
+            loss, _ = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        else:
+            with plain_grouped_matmul():
+                loss, _ = model.loss(params, batch)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+        want = moe_launches(cfg) if route == "kernels" else dict.fromkeys(counters, 0)
+        log(f"moe: {cfg.name} one replica, {BATCH} x {SEQ} tokens, loss and "
+            f"{len(grads)} gradients through the {route}: loss "
+            f"{float(loss.detach()):.6f}, {ms:.1f} ms (host clock, after a warm-up of the "
+            f"kernels' pass), peak memory "
+            f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+            f"{launched}")
+        if launched != want:
+            fail(f"{cfg.name} replica through the {route}: launches {launched}, expected "
+                 f"{want}")
+        if not (math.isfinite(float(loss.detach()))
+                and all(bool(torch.isfinite(g).all()) for g in grads)):
+            fail(f"{cfg.name} replica through the {route}: non-finite loss or gradients")
+        if route == "kernels":           # to the host: both sets do not fit beside
+            res[route] = (float(loss.detach()), [g.cpu() for g in grads])
+        else:
+            res[route] = (float(loss.detach()), list(grads))
+        del loss, grads
+        torch.cuda.empty_cache()
+    loss_err = abs(res["kernels"][0] - res["plain"][0]) / abs(res["plain"][0])
+    errs = {path: rel_norm(torch, got.to("cuda"), want)
+            for path, got, want in zip(leaves, res["kernels"][1], res["plain"][1])}
+    worst = max(errs, key=errs.get)
+    experts = {path: e for path, e in errs.items() if ".ffn.w" in path}
+    log(f"moe: {cfg.name} one replica, kernels vs plain versions: loss rel err "
+        f"{loss_err:.2e}; gradients max rel norm err {errs[worst]:.2e} ({worst}); "
+        f"expert leaves {', '.join(f'{p} {e:.2e}' for p, e in sorted(experts.items()))} "
+        f"(tolerance: loss {MOE_REPLICA_TOL['loss']:g}, gradients "
+        f"{MOE_REPLICA_TOL['grad']:g})")
+    if not (loss_err <= MOE_REPLICA_TOL["loss"] and errs[worst] <= MOE_REPLICA_TOL["grad"]):
+        fail(f"{cfg.name} replica: the kernels' loss or gradients disagree with the plain "
+             f"versions'")
+    del params, leaves, res
+    torch.cuda.empty_cache()
+
+
+def moe_block_fwd_bwd(torch):
+    """dbrx-132b's MoE block alone at the serving prefill's shapes (B 8 x
+    2048 tokens, top-4: 65,536 pairs), bf16 expert leaves that require
+    grad: the time of a forward and backward and the grouped kernels'
+    share of its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ffn
+    from repro_torch.models.module import lecun_normal
+
+    cfg = dbrx_serving_config()
+    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.moe_num_experts
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    p = {"router": {"w": lecun_normal(gen, (D, E), torch.float32, "cuda")},
+         "w1": (torch.randn(E, D, F, generator=gen, device="cuda") / math.sqrt(D)).to(bf16),
+         "w3": (torch.randn(E, D, F, generator=gen, device="cuda") / math.sqrt(D)).to(bf16),
+         "w2": (torch.randn(E, F, D, generator=gen, device="cuda") / math.sqrt(F)).to(bf16)}
+    x = torch.randn(SERVE_BATCH, SERVE_PROMPT, D, generator=gen, device="cuda").to(bf16)
+    ct = torch.randn(x.shape, generator=gen, device="cuda").to(bf16)
+    leaves = [x, p["router"]["w"], p["w1"], p["w3"], p["w2"]]
+    for leaf in leaves:
+        leaf.requires_grad_()
+
+    def step():
+        y, _ = ffn.moe_block(p, x, cfg)
+        return torch.autograd.grad(y, leaves, grad_outputs=ct)
+
+    counters = gmm_counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grads = step()                                   # warm-up
+    torch.cuda.synchronize()
+    launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if launched != dict.fromkeys(counters, 3):        # w1, w3, w2: no remat here
+        fail(f"dbrx MoE block fwd+bwd: launches {launched}, expected 3 of each")
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        fail("dbrx MoE block fwd+bwd: non-finite gradients")
+    del grads
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, ours = profile_summary(prof, wall, 1, "dbrx MoE block fwd+bwd (B 8 x 2048)")
+    flops = 3 * 3 * 2 * SERVE_BATCH * SERVE_PROMPT * cfg.moe_top_k * D * F
+    share = ("not measured (the profiler saw no device time)" if busy is None else
+             f"{sum(ours.values()):.2f} of {busy:.2f} ms of device time "
+             f"({sum(ours.values()) / busy:.1%}): "
+             + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(ours.items())))
+    log(f"moe: dbrx MoE block fwd+bwd at B {SERVE_BATCH} x {SERVE_PROMPT} "
+        f"({SERVE_BATCH * SERVE_PROMPT * cfg.moe_top_k} pairs, bf16 expert leaves): "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms (host clock, after a warm-up); "
+        f"launches {launched}; grouped kernels {share}; their bound "
+        f"{flops / BF16_FLOP_PER_S * 1e3:.2f} ms ({flops / 1e12:.1f} TFLOP); peak "
+        f"memory allocated {peak / 1e9:.2f} GB")
+    del p, x, ct, leaves
+    torch.cuda.empty_cache()
+
+
+def moe_train_step(torch, plan):
+    """TrainStep with 16 experts (the ragged branch): 3 masked gossip
+    steps on paper8, 8 nodes, on the card and on the CPU from the same
+    weights and batches, at fp32 compute (the scalar kernels) and at bf16
+    (the wgmma kernels)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import flatten, tree_map
+
+    steps = 3
+    sched = plan.schedule(steps, seed=0)
+    counters = dict(gmm_counters(), gossip_axpy=gossip_axpy)
+    for compute, tol in MOE_STEP_TOL.items():
+        cfg = dataclasses.replace(get_smoke_config("dbrx_132b"), moe_num_experts=16,
+                                  moe_top_k=4, compute_dtype=compute)
+        model = Model(cfg)
+        opt = sgd(0.05, momentum=0.9)
+        data = DecentralizedBatches(cfg, NODES, BATCH, SEQ, seed=0, device="cpu")
+        batches = [next(data) for _ in range(steps)]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = dt.init_stacked_params(model, NODES, seed=0, device="cpu")
+            params = tree_map(lambda a: a.to(dev), params)
+            opt_state = dt.init_stacked_opt_state(opt, model, NODES, device=dev)
+            step = dt.make_train_step(model, opt, plan, gossip_mode="masked")
+            before = {name: fn.launches for name, fn in counters.items()}
+            losses = []
+            for k in range(steps):
+                batch = {key: v.to(dev) for key, v in batches[k].items()}
+                bits = torch.as_tensor(sched.activations[k].astype("float32"), device=dev)
+                params, opt_state, loss, _ = step(params, opt_state, batch, bits)
+                losses.append(loss.cpu())
+            launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+            out[dev] = ({k: v.cpu() for k, v in flatten(params).items()},
+                        torch.stack(losses), launched)
+        leaves = len(out["cpu"][0])
+        want = dict(moe_launches(cfg, steps * NODES), gossip_axpy=steps * leaves)
+        if out["cuda"][2] != want or any(out["cpu"][2].values()):
+            fail(f"16-expert TrainStep {compute}: the card launched {out['cuda'][2]}, the "
+                 f"CPU {out['cpu'][2]}; expected {want} and none")
+        worst = max(rel_norm(torch, out["cuda"][0][k], w) for k, w in out["cpu"][0].items())
+        loss_err = float(((out["cuda"][1] - out["cpu"][1]).abs() / out["cpu"][1].abs()).max())
+        log(f"moe: TrainStep {cfg.name} 16 experts top-4 (tiny, {cfg.num_layers} layers), "
+            f"{compute} compute, {steps} masked steps on paper8 x {NODES} nodes, card "
+            f"(kernels: {out['cuda'][2]}) vs CPU (plain): losses max rel err "
+            f"{loss_err:.2e}, params max rel err {worst:.2e} (tolerance {tol:g}); card "
+            f"losses {[round(float(v), 5) for v in out['cuda'][1].mean(1)]}")
+        if not (loss_err <= tol and worst <= tol):
+            fail(f"16-expert TrainStep {compute}: the card disagrees with the CPU")
+
+
+def chunked_attention(torch):
+    """internlm2-1.8b at published width, depth 24 -> 1, B 1 x S 8192: the
+    loss and every gradient through ``sdpa_chunked`` (the default at this
+    length) and through the unchunked ``sdpa``, at fp32 and bf16 compute."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import flatten
+
+    S = attention.CHUNKED_SDPA_THRESHOLD
+    chunked = attention.sdpa_chunked
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return chunked(*args, **kw)
+
+    for compute, tol in CHUNKED_TOL.items():
+        cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=1,
+                                  compute_dtype=compute)
+        model = Model(cfg)
+        params = model.init(0, device="cuda")
+        leaves = flatten(params)
+        for leaf in leaves.values():
+            leaf.requires_grad_()
+        batch = {k: v[0] for k, v in next(DecentralizedBatches(
+            cfg, 1, 1, S, seed=0, device="cuda")).items()}
+        res = {}
+        for route, threshold in (("chunked", S), ("unchunked", 1 << 30)):
+            calls.clear()
+            attention.sdpa_chunked, attention.CHUNKED_SDPA_THRESHOLD = counted, threshold
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, _ = model.loss(params, batch)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                attention.sdpa_chunked, attention.CHUNKED_SDPA_THRESHOLD = chunked, S
+            # remat runs the layer again in the backward
+            if len(calls) != (cfg.num_layers * (1 + cfg.remat) if route == "chunked" else 0):
+                fail(f"chunked attention {compute} {route}: sdpa_chunked ran {len(calls)} "
+                     f"times")
+            res[route] = (float(loss.detach()), grads)
+            log(f"moe: {cfg.name} ({cfg.num_layers} layer, {compute} compute) B 1 x S {S}, "
+                f"loss and {len(grads)} gradients through {route} attention: loss "
+                f"{res[route][0]:.6f}, {ms:.1f} ms (host clock, first call), peak memory "
+                f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            del loss
+        loss_err = abs(res["chunked"][0] - res["unchunked"][0]) / abs(res["unchunked"][0])
+        errs = {path: rel_norm(torch, g, w) for path, g, w in
+                zip(leaves, res["chunked"][1], res["unchunked"][1])}
+        worst = max(errs, key=errs.get)
+        log(f"moe: {cfg.name} S {S} {compute}, sdpa_chunked vs unchunked sdpa: loss rel err "
+            f"{loss_err:.2e}, gradients max rel norm err {errs[worst]:.2e} ({worst}) "
+            f"(tolerance: loss {tol['loss']:g}, gradients {tol['grad']:g})")
+        if not (loss_err <= tol["loss"] and errs[worst] <= tol["grad"]):
+            fail(f"sdpa_chunked at S {S} {compute} disagrees with the unchunked sdpa")
+        del params, leaves, res
         torch.cuda.empty_cache()
 
 
@@ -1866,11 +2335,12 @@ def main() -> None:
     row = phase_kernels(torch, leaf_shapes, float(plan.alpha))
     fa_row = phase_flash(torch, ptxas)
     ss_row = phase_ssm(torch, ptxas)
-    gm_row = phase_gmm(torch, ptxas)
+    gm_row, gm_bwd_rows = phase_gmm(torch, ptxas)
     launches = phase_main(torch, cfg, plan)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(torch)
     phase_profile(torch)
+    moe_train_launches = phase_moe_train(torch, plan)
     phase_check(torch, plan)
     phase_serve_check(torch)
     phase_tests()
@@ -1894,6 +2364,13 @@ def main() -> None:
              source="src/repro_torch/csrc/grouped_matmul.cu",
              replaces="src/repro/kernels/grouped_matmul.py:134",
              launches=serve_launches["grouped_matmul"], **gm_row),
+    ] + [
+        # no TPU kernel: the VJP of lax.ragged_dot in the JAX model
+        dict(name=f"grouped_matmul_{kind}", route="cuda",
+             source="src/repro_torch/csrc/grouped_matmul.cu",
+             replaces="src/repro/models/ffn.py:119",
+             launches=moe_train_launches[f"grouped_matmul_{kind}"], **gm_bwd_rows[kind])
+        for kind in ("dx", "dw")
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -86,18 +86,15 @@ def ssd(x, dt, A, B_mat, C_mat, *, chunk: int = 128, impl: str = "auto"):
 def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
     """``out[r] = x[r] @ w[g(r)]`` for x (M, K) sorted by group, w
     (G, K, N), group_sizes (G,) int32: fp32 sums, x's dtype out, rows
-    past ``sum(group_sizes)`` zero (``lax.ragged_dot``). The plain
-    version is differentiable; the kernel has no backward, so on the
-    card a call whose inputs require grad raises instead of quietly
-    taking the plain version."""
+    past ``sum(group_sizes)`` zero (``lax.ragged_dot``). Differentiable
+    on both paths: the plain version through autograd, the kernel
+    through ``GroupedMatmul``, whose backward launches the dx and dw
+    kernels (``ctx.needs_input_grad`` decides which)."""
     if resolve_mode(impl, x.device) == "torch":
         return grouped_matmul_ref(x, w, group_sizes)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "grouped_matmul has no backward kernel yet (ROADMAP queue 2, item 5: "
-            "the grouped-matmul backward): MoE layers train on the CPU only"
-        )
-    return _gm.grouped_matmul(
+    if x.device.type != "cuda":     # GroupedMatmul would take the plain versions
+        raise ValueError(f"impl='cuda' runs on CUDA tensors, got x on {x.device}")
+    return _gm.GroupedMatmul.apply(
         x.contiguous(), w.contiguous(), group_sizes.to(torch.int32).contiguous()
     )
 

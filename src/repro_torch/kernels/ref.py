@@ -69,6 +69,16 @@ def ssm_scan_ref(
     return ssd_sequential(x, dt, A, B_mat, C_mat, h0=h0, return_final_state=True)
 
 
+def _group_bounds(group_sizes: torch.Tensor, M: int):
+    """``(g, start, end)`` of each group's rows, clipped to M as the
+    forward clips them. Reads the sizes on the host (one sync)."""
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), M)
+        yield g, start, end
+        start = end
+
+
 def grouped_matmul_ref(
     x: torch.Tensor,             # (M, K), rows sorted by group
     w: torch.Tensor,             # (G, K, N)
@@ -78,10 +88,41 @@ def grouped_matmul_ref(
     product per group cast to x's dtype; rows past ``sum(group_sizes)``
     are 0. Reads the sizes on the host (one sync); differentiable."""
     M, N = x.shape[0], w.shape[2]
-    pieces, start = [], 0
-    for g, size in enumerate(group_sizes.tolist()):
-        end = min(start + max(int(size), 0), M)
+    pieces, end = [], 0
+    for g, start, end in _group_bounds(group_sizes, M):
         pieces.append(x[start:end].float() @ w[g].float())
-        start = end
-    pieces.append(x.new_zeros((M - start, N), dtype=torch.float32))
+    pieces.append(x.new_zeros((M - end, N), dtype=torch.float32))
     return torch.cat(pieces).to(x.dtype)
+
+
+def grouped_matmul_dx_ref(
+    dy: torch.Tensor,            # (M, N), the output's gradient
+    w: torch.Tensor,             # (G, K, N)
+    group_sizes: torch.Tensor,   # (G,) int
+) -> torch.Tensor:
+    """The input gradient of ``grouped_matmul_ref``: row r of group g is
+    ``dy[r] @ w[g]^T``, an fp32 product per group cast to w's dtype (x's,
+    which it shares); rows past ``sum(group_sizes)`` are 0, as in the
+    VJP of ``lax.ragged_dot``."""
+    M, K = dy.shape[0], w.shape[1]
+    dx = torch.zeros((M, K), dtype=torch.float32, device=dy.device)
+    for g, start, end in _group_bounds(group_sizes, M):
+        dx[start:end] = dy[start:end].float() @ w[g].float().T
+    return dx.to(w.dtype)
+
+
+def grouped_matmul_dw_ref(
+    x: torch.Tensor,             # (M, K), rows sorted by group
+    dy: torch.Tensor,            # (M, N), the output's gradient
+    group_sizes: torch.Tensor,   # (G,) int
+) -> torch.Tensor:
+    """The weight gradient of ``grouped_matmul_ref``: ``dw[g]`` is the
+    fp32 sum over the group's rows of ``x[r]^T dy[r]``, cast to x's dtype
+    (w's, which it shares). An empty group's ``dw`` is 0, and rows past
+    the groups add nothing, as in the VJP of ``lax.ragged_dot``."""
+    M, K, N = x.shape[0], x.shape[1], dy.shape[1]
+    G = group_sizes.shape[0]
+    dw = torch.zeros((G, K, N), dtype=torch.float32, device=x.device)
+    for g, start, end in _group_bounds(group_sizes, M):
+        dw[g] = x[start:end].float().T @ dy[start:end].float()
+    return dw.to(x.dtype)

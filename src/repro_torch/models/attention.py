@@ -5,7 +5,9 @@ The port of ``repro.models.attention``. Two execution paths share one
 declaration, as in the JAX package:
 
   * ``sdpa``: plain PyTorch attention over position arrays (with
-    softcap), for training and for every cache step but one;
+    softcap), for training and for every cache step but one; from
+    ``CHUNKED_SDPA_THRESHOLD`` queries on, ``sdpa_chunked`` runs it one
+    block of queries at a time, as the JAX model does;
   * ``repro_torch.kernels.ops.attention``: the hand-written Hopper
     flash-attention kernel on the card (its plain version on the CPU).
     A serving prefill that starts at position 0 runs it over the keys it
@@ -39,8 +41,8 @@ from repro_torch.models.module import ParamBuilder, ones_init, torch_dtype
 
 NEG_INF = -2.0**30  # large-but-finite: keeps masked softmax NaN-free
 
-# Sequence length at and above which the JAX model switches to its
-# query-chunked attention; the port has not ported that path yet.
+# Sequence length at and above which the query-chunked path is used, as in
+# the JAX model: below it the full (Sq, Sk) score tensor is small enough.
 CHUNKED_SDPA_THRESHOLD = 8192
 
 
@@ -105,13 +107,39 @@ def sdpa(
     return out.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
+def sdpa_chunked(
+    q: torch.Tensor,              # (B, Sq, Hq, hd)
+    k: torch.Tensor,              # (B, Sk, Hkv, hd)
+    v: torch.Tensor,
+    *,
+    q_positions: torch.Tensor,
+    k_positions: torch.Tensor,
+    causal: bool,
+    window: int = 0,
+    logit_softcap: float = 0.0,
+    block_q: int = 512,
+) -> torch.Tensor:
+    """``sdpa`` one block of queries at a time, each block over all keys:
+    the temporaries of a block are O(block_q * Sk) per head instead of
+    O(Sq * Sk). The block is ``block_q``, halved until it divides Sq; a
+    Python loop takes the place of the JAX model's ``lax.scan``. Each
+    query row is computed as ``sdpa`` computes it."""
+    Sq = q.shape[1]
+    bq = min(block_q, Sq)
+    while Sq % bq:
+        bq //= 2
+    outs = [
+        sdpa(q[:, i:i + bq], k, v, q_positions=q_positions[:, i:i + bq],
+             k_positions=k_positions, causal=causal, window=window,
+             logit_softcap=logit_softcap)
+        for i in range(0, Sq, bq)
+    ]
+    return torch.cat(outs, dim=1)
+
+
 def _dispatch_sdpa(q, k, v, **kw):
     if q.shape[1] >= CHUNKED_SDPA_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence length {q.shape[1]} >= {CHUNKED_SDPA_THRESHOLD} needs "
-            "the chunked attention path, not ported yet (ROADMAP queue 1, "
-            "item 5: sdpa_chunked)"
-        )
+        return sdpa_chunked(q, k, v, **kw)
     return sdpa(q, k, v, **kw)
 
 

@@ -8,7 +8,10 @@ execution paths:
   * ``ragged``: sort the token-expert pairs by expert and run the three
     expert products as grouped matmuls (``ops.grouped_matmul``: the
     hand-written Hopper kernel on the card, its plain version on the
-    CPU).
+    CPU). Both differentiate: on the card the backward launches the dx
+    and dw kernels, so one MoE layer of a training step makes 3 forward
+    launches (6 under ``cfg.remat``, which runs the layer again in the
+    backward), 3 dx and 3 dw per node.
 
 Two departures from the JAX ragged path, neither changing a number
 beyond summation order: the JAX model dispatches each example on its
@@ -110,7 +113,8 @@ def _moe_einsum(p, x2d, gates, idx, cfg: ModelConfig) -> torch.Tensor:
 def _moe_ragged(p, x2d, gates, idx, cfg: ModelConfig) -> torch.Tensor:
     """Sort the (token, expert) pairs by expert, run the expert products
     as grouped matmuls, and add each token's k gated outputs back in
-    ascending expert order in fp32. No step waits for the host."""
+    ascending expert order in fp32. No step of the forward waits for the
+    host, nor do the dx and dw kernels of the backward on the card."""
     dtype = torch_dtype(cfg.compute_dtype)
     act = activation_fn(cfg.ffn_activation)
     T, D = x2d.shape

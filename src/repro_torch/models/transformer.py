@@ -38,7 +38,8 @@ embeddings; the prefix positions' logits are dropped.
 MoE layers take the JAX model's branch: the einsum path for 8 experts
 or fewer, else the ragged path, whose expert products run the
 hand-written grouped-matmul kernel on the card (in prefill and decode
-alike). Their load-balance and router-z losses are summed over the
+alike, and in training, whose backward runs its dx and dw kernels).
+Their load-balance and router-z losses are summed over the
 layers into the training loss.
 
 Where PyTorch would raise an opaque indexing error, the port raises a

@@ -1,7 +1,8 @@
 """chip_smoke.py's helpers that run without a card: the ptxas report
 parser and its wgmma-serialization note, the count of live (query, key)
 pairs behind the flash bound, the SSD chunk scan's bound and the
-profiler's names of the port's kernels."""
+profiler's names of the port's kernels, and the grouped-matmul launches
+a MoE training pass makes."""
 import importlib.util
 from pathlib import Path
 
@@ -78,9 +79,30 @@ def test_ssd_bound_counts_each_operand_once(smoke, H, want_mb):
      "CUtensorMap, (anonymous namespace)::Params)", "flash_wgmma_kernel"),
     ("void (anonymous namespace)::ssd_tc_kernel<64, 128>(Params)", "ssd_tc_kernel"),
     ("gmm_wgmma_kernel", "gmm_wgmma_kernel"),
+    ("(anonymous namespace)::gmm_dx_wgmma_kernel(CUtensorMap_st, CUtensorMap_st, int "
+     "const*, __nv_bfloat16*, int, int, int, int, int, int)", "gmm_dx_wgmma_kernel"),
+    ("(anonymous namespace)::gmm_dw_wgmma_kernel(CUtensorMap_st, ...)", "gmm_dw_wgmma_kernel"),
+    ("void (anonymous namespace)::gmm_dw_scalar_kernel<float>(...)", "gmm_dw_scalar_kernel"),
     ("void gossip_axpy_kernel<float, float>(GossipArgs)", "gossip_axpy_kernel"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", None),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", None),
 ])
 def test_hand_written_names_the_ports_kernels_only(smoke, name, want):
     assert smoke.hand_written(name) == want
+
+
+@pytest.mark.parametrize("remat,passes", [(True, 1), (False, 1), (True, 24)])
+def test_moe_launches_counts_forward_remat_dx_and_dw(smoke, remat, passes):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+
+    # the tiny dbrx: 2 MoE layers; 3 expert products each, run again in
+    # the backward under remat, then 3 dx and 3 dw
+    cfg = dataclasses.replace(get_smoke_config("dbrx_132b"), moe_num_experts=16,
+                              remat=remat)
+    assert smoke.moe_launches(cfg, passes) == {
+        "grouped_matmul": 2 * 3 * (1 + remat) * passes,
+        "grouped_matmul_dx": 2 * 3 * passes,
+        "grouped_matmul_dw": 2 * 3 * passes,
+    }

@@ -96,7 +96,8 @@ def test_grouped_matmul_rows_past_the_groups_are_zero(sizes, dtype):
 
 def test_plain_version_is_differentiable_like_ragged_dot():
     """On the CPU the plain version carries gradients (the MoE layers
-    train through it); on the card the kernel refuses autograd."""
+    train through it); on the card ``GroupedMatmul`` does, through the
+    dx and dw kernels (tests/test_torch_grouped_matmul_grad.py)."""
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((20, 8)).astype(np.float32)).requires_grad_()
     w = torch.from_numpy(rng.standard_normal((3, 8, 5)).astype(np.float32)).requires_grad_()

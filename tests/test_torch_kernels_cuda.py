@@ -21,6 +21,8 @@ from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.ref import (
     attention_ref,
     gossip_axpy_ref,
+    grouped_matmul_dw_ref,
+    grouped_matmul_dx_ref,
     grouped_matmul_ref,
     ssm_scan_ref,
 )
@@ -577,9 +579,7 @@ def _gmm_inputs(M, K, N, sizes, dtype, seed=0):
             torch.tensor(sizes, dtype=torch.int32, device="cuda"))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("M,K,N,sizes", [
+GMM_SWEEP = [
     (96, 32, 48, _cut(96, 4, 100)),          # the sweep of tests/test_kernels.py
     (256, 64, 128, _cut(256, 8, 264)),
     (130, 16, 40, _cut(130, 3, 133)),        # ragged tail blocks
@@ -592,7 +592,12 @@ def _gmm_inputs(M, K, N, sizes, dtype, seed=0):
     (32, 256, 520, [2, 3, 0, 1, 4, 2, 2, 0, 3, 1, 2, 4, 3, 0, 2, 3]),  # decode-like
     (1000, 64, 136, [300, 0, 129, 1, 570]),  # groups over several row tiles
     (300, 20, 36, [100, 50, 150]),           # K, N not multiples of 8
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,K,N,sizes", GMM_SWEEP)
 def test_gmm_kernel_matches_plain_version(sm90, dtype, M, K, N, sizes):
     x, w, gs = _gmm_inputs(M, K, N, sizes, dtype)
     before = grouped_matmul.launches
@@ -621,8 +626,12 @@ def test_gmm_paths_wrapper_and_refusals(sm90):
     assert grouped_matmul.launches == before + 1
     torch.testing.assert_close(got.float(), ops.grouped_matmul(
         x, w, gs, impl="torch").float(), **GMM_TOL[torch.bfloat16])
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        ops.grouped_matmul(x.float().requires_grad_(), w.float(), gs)
+    # under autograd the same call differentiates through the dx kernel
+    xg = x.float().requires_grad_()
+    out = ops.grouped_matmul(xg, w.float(), gs)
+    (gx,) = torch.autograd.grad(out.sum(), xg)
+    torch.testing.assert_close(gx, grouped_matmul_dx_ref(torch.ones_like(out), w.float(), gs),
+                               **GMM_TOL[torch.float32])
     with torch.no_grad():
         ops.grouped_matmul(x.float().requires_grad_(), w.float(), gs)
     with pytest.raises(ValueError, match="int32"):
@@ -661,6 +670,152 @@ def test_gmm_wgmma_kernel_tiles_and_edges(sm90, M, K, N, sizes):
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[torch.bfloat16])
         assert bool((got[sum(sizes):] == 0).all())
+
+
+def _gmm_backward_check(M, K, N, sizes, dtype, seed, *, poison_tail=False):
+    """dx and dw kernels against their plain versions; rows of dx past
+    the groups and dw of empty groups exactly 0. ``poison_tail`` fills
+    the rows of x and dy past the groups with NaN, which neither kernel
+    may read into a stored value."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_dw, grouped_matmul_dx
+
+    x, w, gs = _gmm_inputs(M, K, N, sizes, dtype, seed=seed)
+    dy = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (M, N)).astype(np.float32)).to("cuda", dtype)
+    tail = sum(sizes)
+    if poison_tail:
+        x[tail:] = float("nan")
+        dy[tail:] = float("nan")
+    before = (grouped_matmul_dx.launches, grouped_matmul_dw.launches)
+    dx = grouped_matmul_dx(dy, w, gs)
+    dw = grouped_matmul_dw(x, dy, gs)
+    torch.cuda.synchronize()
+    assert (grouped_matmul_dx.launches, grouped_matmul_dw.launches) == (
+        before[0] + (M > 0 and K > 0), before[1] + 1)
+    assert dx.dtype == dtype and dx.shape == (M, K)
+    assert dw.dtype == dtype and dw.shape == (len(sizes), K, N)
+    assert bool(torch.isfinite(dx).all()) and bool(torch.isfinite(dw).all())
+    torch.testing.assert_close(dx.float(), grouped_matmul_dx_ref(dy, w, gs).float(),
+                               **GMM_TOL[dtype])
+    torch.testing.assert_close(dw.float(), grouped_matmul_dw_ref(x, dy, gs).float(),
+                               **GMM_TOL[dtype])
+    assert bool((dx[tail:] == 0).all())
+    for g, size in enumerate(sizes):
+        if size == 0:
+            assert bool((dw[g] == 0).all())
+    return dx, dw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("M,K,N,sizes", GMM_SWEEP)
+def test_gmm_backward_kernels_match_plain_versions(sm90, dtype, M, K, N, sizes):
+    _gmm_backward_check(M, K, N, sizes, dtype, seed=M + N)
+
+
+# The tensor-core dx and dw: groups that end mid-slice beside a non-empty
+# group (dw's slice loads the next group's rows and must zero them), K and
+# N not multiples of the tiles, empty groups, rows past the groups, and
+# NaN in those rows, which no stored value may see.
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,sizes,poison", [
+    (300, 128, 256, [70, 100, 130], False),        # every group ends mid-slice
+    (400, 64, 512, [1, 127, 129, 143], False),     # 1 row, then 127 / 129
+    (260, 200, 136, [130, 0, 130], False),         # K 200, N 136, an empty group
+    (512, 72, 264, [256, 0, 100, 56, 100], False),
+    (32, 512, 520, [2, 3, 0, 1, 4, 2, 2, 0, 3, 1, 2, 4, 3, 0, 2, 3], False),
+    (32, 1024, 1024, [0] * 15 + [32], False),      # all rows in the last group
+    (96, 256, 384, [10, 20, 30], True),            # NaN rows past the groups
+    (200, 64, 256, [64, 64, 0, 5], True),
+    # more dw tiles than SMs: each persistent block walks several tiles,
+    # across group boundaries, empty groups and slices that end mid-group
+    (2100, 1024, 2048, _cut(2000, 16, 7)[:-3] + [0, 37, 0], True),
+    (4096, 512, 4096, [300, 0, 1, 2000, 63, 65, 0, 1667], False),
+])
+def test_gmm_backward_wgmma_tiles_and_edges(sm90, M, K, N, sizes, poison):
+    from repro_torch.kernels.grouped_matmul import kernel_path
+
+    x, w, _ = _gmm_inputs(M, K, N, sizes, torch.bfloat16)
+    dy = torch.zeros(M, N, dtype=torch.bfloat16, device="cuda")
+    assert kernel_path(dy, w, kind="dx") == "wgmma"
+    assert kernel_path(x, dy, kind="dw") == "wgmma"
+    first = _gmm_backward_check(M, K, N, sizes, torch.bfloat16, seed=M + K,
+                                poison_tail=poison)
+    # dw sums each element in one order: the same bits on every run
+    again = _gmm_backward_check(M, K, N, sizes, torch.bfloat16, seed=M + K,
+                                poison_tail=poison)
+    assert torch.equal(first[1], again[1]) and torch.equal(first[0], again[0])
+
+
+@pytest.mark.cuda
+def test_gmm_backward_kernel_path_rule(sm90):
+    from repro_torch.kernels.grouped_matmul import kernel_path
+
+    x, w, _ = _gmm_inputs(64, 32, 48, [20, 0, 44], torch.bfloat16, seed=3)
+    dy = torch.zeros(64, 48, dtype=torch.bfloat16, device="cuda")
+    assert kernel_path(dy, w, kind="dx") == "wgmma"
+    assert kernel_path(x, dy, kind="dw") == "wgmma"
+    assert kernel_path(dy[:, :44].contiguous(), w[..., :44].contiguous(),
+                       kind="dx") == "scalar"                          # N % 8
+    assert kernel_path(x[:, :20].contiguous(), dy, kind="dw") == "scalar"   # K % 8
+    assert kernel_path(x[:0], dy[:0], kind="dw") == "scalar"           # no rows
+    assert kernel_path(dy.float(), w.float(), kind="dx") == "scalar"
+    assert kernel_path(x.float(), dy.float(), kind="dw") == "scalar"
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_dw, grouped_matmul_dx
+
+    gs = torch.tensor([20, 0, 44], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="does not fit"):
+        grouped_matmul_dx(dy[:, :40].contiguous(), w, gs)
+    with pytest.raises(ValueError, match="does not fit"):
+        grouped_matmul_dw(x, dy[:10].contiguous(), gs)
+    with pytest.raises(ValueError, match="dtype"):
+        grouped_matmul_dw(x, dy.float(), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul_dx(dy.T.contiguous().T, w, gs)
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_matmul_dx(dy.cpu(), w.cpu(), gs.cpu())
+    # no rows: every group's dw is 0, written by the kernel
+    dw = grouped_matmul_dw(x[:0], dy[:0], gs)
+    torch.cuda.synchronize()
+    assert dw.shape == (3, 32, 48) and bool((dw == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("needs", ["x", "w", "both"])
+def test_gmm_autograd_function_matches_plain_autograd(sm90, dtype, needs):
+    """ops.grouped_matmul under autograd on the card: the forward, dx and
+    dw kernels (only those the inputs need), never waiting for the host,
+    against autograd through grouped_matmul_ref."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_dw, grouped_matmul_dx
+
+    sizes = [70, 0, 100, 20]
+    x, w, gs = _gmm_inputs(200, 64, 136, sizes, dtype, seed=11)
+    proj = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (200, 136)).astype(np.float32)).to("cuda")
+    grads = {}
+    for impl in ("torch", "cuda"):
+        xi = x.clone().requires_grad_(needs in ("x", "both"))
+        wi = w.clone().requires_grad_(needs in ("w", "both"))
+        leaves = [t for t in (xi, wi) if t.requires_grad]
+        before = [fn.launches for fn in (grouped_matmul, grouped_matmul_dx, grouped_matmul_dw)]
+        torch.cuda.synchronize()
+        if impl == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ops.grouped_matmul(xi, wi, gs, impl=impl)
+            grads[impl] = torch.autograd.grad((out.float() * proj).sum(), leaves)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        after = [fn.launches for fn in (grouped_matmul, grouped_matmul_dx, grouped_matmul_dw)]
+        launched = [a - b for a, b in zip(after, before)]
+        if impl == "cuda":
+            assert launched == [1, int(needs != "w"), int(needs != "x")]
+        else:
+            assert launched == [0, 0, 0]
+    for got, want in zip(grads["cuda"], grads["torch"]):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **GMM_TOL[dtype])
 
 
 @pytest.mark.cuda
