@@ -130,7 +130,27 @@ non-zero exit:
            (masked and overlap) and the serving CLI must write files the
            port's readers load;
 7. tests   the card-only tests (``pytest -m cuda
-           tests/test_torch_kernels_cuda.py``) in a child process.
+           tests/test_torch_kernels_cuda.py``) in a child process;
+8. dryrun  the dry run (``repro_torch.launch.dryrun``: each configuration
+           above traced on meta tensors) against the card, configuration
+           by configuration: the masked and the overlap training step
+           (internlm2-1.8b, 2 layers, 8 nodes, 4 x 128 tokens), each served
+           model's prefill and one decode step (B 8 x 2048; whisper 384),
+           the dbrx replica, the dbrx MoE block at 8 x 2048 and
+           sdpa_chunked at S 8192 (fp32 and bf16): resident bytes against
+           memory_allocated before the first step (within the allocator's
+           512-byte rounding of each storage), the peak against
+           max_memory_allocated, reset per configuration (within 10%), and
+           every kernel's launches against its counter (exact);
+9. sweep   every registry kernel case (``analysis.kernel_cases``: flash at
+           256 and a ragged 197 positions and windowed, SSD at two chunks,
+           the grouped matmul and its dx and dw at 512 and a ragged 549
+           rows, the two gossip cases; tiny and full widths of all ten
+           models): the path taken, ``analysis.kernel_lint`` over the launch
+           configuration the library reports, and the kernel against its
+           plain version at the phase-2 tolerances (gossip bit for bit);
+10. examples the four examples (``repro_torch.examples``) on the card at a
+           few steps each.
 
 Then it prints the card's name and power limit, one JSON line with every
 ported kernel's numbers, and, last, the device JSON line.
@@ -330,7 +350,7 @@ def in_turns(torch, kernel, library, iters: int, warmup: int = 2):
 
 def phase_kernels(torch, leaf_shapes, alpha: float):
     """gossip_axpy against gossip_axpy_ref; returns the JSON row's times."""
-    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.kernels.gossip_axpy import cost, gossip_axpy
     from repro_torch.kernels.ref import gossip_axpy_ref
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -382,7 +402,7 @@ def phase_kernels(torch, leaf_shapes, alpha: float):
     if not torch.equal(got, gossip_axpy_ref(x, y, alpha)):
         fail(f"kernel on {big}: not bit-equal to the plain version")
     del got
-    leaf_bound = 12 * n / HBM_BYTES_PER_S * 1e3
+    leaf_bound = cost(n, f32, f32)[1] / HBM_BYTES_PER_S * 1e3
     (k1, k2), (l1, l2) = in_turns(torch, lambda: gossip_axpy(x, y, alpha),
                                   lambda: torch.lerp(x, y, alpha), 10)
     k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
@@ -408,13 +428,14 @@ def phase_kernels(torch, leaf_shapes, alpha: float):
                 fn(xi, yi)
         return run
 
-    step_bound = 12 * elems / HBM_BYTES_PER_S * 1e3
+    step_bytes = cost(elems, f32, f32)[1]
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
     (k1, k2), (l1, l2) = in_turns(torch, all_leaves(lambda a, b: gossip_axpy(a, b, alpha)),
                                   all_leaves(lambda a, b: torch.lerp(a, b, alpha)), 10)
     k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
     p_ms = cuda_ms(torch, all_leaves(lambda a, b: gossip_axpy_ref(a, b, alpha)), 5)
     log(f"kernels: gossip_axpy one step ({len(xs)} leaves, {elems} elements, "
-        f"{12 * elems / 1e9:.1f} GB): in turns kernel {k1:.3f} ms, torch.lerp "
+        f"{step_bytes / 1e9:.1f} GB): in turns kernel {k1:.3f} ms, torch.lerp "
         f"{l1:.3f} ms, torch.lerp {l2:.3f} ms, kernel {k2:.3f} ms ({k_ms / l_ms:.3f}x "
         f"lerp), plain {p_ms:.3f} ms, bound {step_bound:.3f} ms "
         f"({step_bound / k_ms:.1%} of the HBM roofline; lerp {step_bound / l_ms:.1%})")
@@ -435,21 +456,11 @@ def close(torch, got, want, atol: float, rtol: float) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def flash_pairs(Sq: int, Sk: int, causal: bool, window: int, kv_len: int) -> int:
-    """Live (query, key) pairs: the work this input needs."""
-    n = kv_len or Sk
-    total = 0
-    for i in range(Sq):
-        hi = min(n, i + 1) if causal else n
-        lo = max(0, i - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
-
-
 def phase_flash(torch, ptxas):
     """flash_attention against attention_ref; returns the JSON row."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import cost as fa_cost
     from repro_torch.kernels.flash_attention import flash_attention, kernel_path
     from repro_torch.kernels.ref import attention_ref
 
@@ -524,8 +535,8 @@ def phase_flash(torch, ptxas):
         max_err = max(max_err, err)
         del got, want
         torch.cuda.empty_cache()
-        flops = 4 * hd * B * Hq * flash_pairs(Sq, Sk, causal, window, 0)
-        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+        flops, nbytes = fa_cost(B, Sq, Sk, Hq, Hkv, hd, q.dtype, causal=causal,
+                                window=window)
         bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
         bound_by = ("operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
                     else "bytes")
@@ -570,6 +581,7 @@ def flash_wide(torch, qkv) -> float:
     attention_ref, timed in turns with sdpa; returns the max abs error."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import cost as fa_cost
     from repro_torch.kernels.flash_attention import flash_attention, kernel_path
     from repro_torch.kernels.ref import attention_ref
 
@@ -599,8 +611,7 @@ def flash_wide(torch, qkv) -> float:
             (k1, k2), (l1, l2) = in_turns(torch, run, sdpa, 5, warmup=1)
             p_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window),
                            2, warmup=1)
-            flops = 4 * hd * B * Hq * flash_pairs(S, S, True, window, 0)
-            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            flops, nbytes = fa_cost(B, S, S, Hq, Hkv, hd, dtype, causal=True, window=window)
             rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
             t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
             bound = max(t_ops, t_bytes) * 1e3
@@ -619,11 +630,13 @@ def flash_wide(torch, qkv) -> float:
 
 
 def ssd_bound(B: int, S: int, H: int, P: int, N: int, Q: int):
-    """(flops, bytes, bound ms, bound_by) of one SSD chunk scan: bf16 x, y,
-    B and C, fp32 dt, A and final states, each read or written once."""
-    tri = Q * (Q + 1) // 2
-    flops = B * H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
-    nbytes = 2 * B * S * H * P * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2 + B * H * N * P * 4
+    """(flops, bytes, bound ms, bound_by) of one bf16 SSD chunk scan
+    (``ssm_scan.cost``)."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import cost
+
+    flops, nbytes = cost(B, S, H, P, N, Q, torch.bfloat16)
     t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return flops, nbytes, max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -771,6 +784,7 @@ def router_group_sizes(torch, cfg, tokens: int, seed: int):
 def phase_gmm(torch, ptxas):
     """grouped_matmul against grouped_matmul_ref; returns the JSON row
     (dbrx's prefill w1/w3 shape, bf16)."""
+    from repro_torch.kernels.grouped_matmul import cost as gmm_cost
     from repro_torch.kernels.grouped_matmul import grouped_matmul, kernel_path
     from repro_torch.kernels.ref import grouped_matmul_ref
 
@@ -803,11 +817,9 @@ def phase_gmm(torch, ptxas):
 
     def bound(x, w, sizes, elem):
         M, K = x.shape
-        N = w.shape[2]
-        rows = int(sizes.sum())
-        flops = 2 * rows * K * N
-        live = int((sizes > 0).sum())
-        nbytes = (M * K + live * K * N + M * N) * elem + 4 * sizes.numel()
+        G, _, N = w.shape
+        flops, nbytes = gmm_cost("forward", M, K, N, G, x.dtype, rows=int(sizes.sum()),
+                                 live=int((sizes > 0).sum()))
         rate = BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S
         t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
@@ -932,6 +944,7 @@ def gmm_backward(torch, ptxas):
     passes, timed in turns with torch._grouped_mm; returns {kind: JSON
     row} at the prefill w1/w3 shape."""
     from repro_torch.kernels.grouped_matmul import (
+        cost,
         grouped_matmul_dw,
         grouped_matmul_dx,
         kernel_path,
@@ -958,19 +971,17 @@ def gmm_backward(torch, ptxas):
             torch.bfloat16)
         dy = torch.randn(M, N, generator=gen, device="cuda").to(torch.bfloat16)
         offs = torch.cumsum(gs, 0, dtype=torch.int32)
-        flops = 2 * M * K * N
         for kind in ("dx", "dw"):
+            flops, nbytes = cost(kind, M, K, N, E, torch.bfloat16, live=live)
             if kind == "dx":
                 run = lambda: grouped_matmul_dx(dy, w, gs)
                 plain = lambda: grouped_matmul_dx_ref(dy, w, gs)
                 lib = lambda: torch._grouped_mm(dy, w.transpose(-2, -1), offs=offs)
-                nbytes = (M * N + live * K * N + M * K) * 2 + 4 * E
                 path = kernel_path(dy, w, kind="dx")
             else:
                 run = lambda: grouped_matmul_dw(x, dy, gs)
                 plain = lambda: grouped_matmul_dw_ref(x, dy, gs)
                 lib = lambda: torch._grouped_mm(x.t(), dy, offs=offs)
-                nbytes = (M * K + M * N + E * K * N) * 2 + 4 * E
                 path = kernel_path(x, dy, kind="dw")
             if path != "wgmma":
                 fail(f"grouped_matmul_{kind} dbrx {label} takes the {path} kernel")
@@ -1248,12 +1259,13 @@ def gmm_counters():
 
 
 def moe_launches(cfg, passes: int = 1):
-    """Grouped-matmul launches of ``passes`` model fwd/bwd passes: per MoE
-    layer 3 forward (3 more under remat, which runs the layer again in
-    the backward), 3 dx and 3 dw."""
-    moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers))) * passes
-    return {"grouped_matmul": 3 * moe * (1 + cfg.remat),
-            "grouped_matmul_dx": 3 * moe, "grouped_matmul_dw": 3 * moe}
+    """Grouped-matmul launches of ``passes`` model fwd/bwd passes over
+    SEQ-token sequences (``analysis.launch_counts.forward_backward``: per
+    MoE layer 3 forward, 3 more under remat, 3 dx and 3 dw)."""
+    from repro_torch.analysis import launch_counts
+
+    counts = launch_counts.forward_backward(cfg, seq=SEQ, passes=passes)
+    return {k: counts[k] for k in gmm_counters()}
 
 
 def phase_moe_train(torch, plan):
@@ -1543,16 +1555,15 @@ def chunked_attention(torch):
         torch.cuda.empty_cache()
 
 
-def tiny_launches(cfg, *, encoder: bool = False):
-    """Kernel launches of a prefill from position 0 plus one decode step:
-    flash_attention per attention layer (with ``encoder``, also per
-    encoder layer and per cross-attention), ssm_scan per Mamba layer, and
-    3 grouped_matmul per MoE layer of more than 8 experts in each step."""
-    kinds = cfg.layer_kinds()
-    attn = sum(kind != "mamba" for kind in kinds)
-    moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers))) if cfg.moe_num_experts > 8 else 0
-    return {"flash_attention": attn + (cfg.encoder_layers + cfg.num_layers) * encoder,
-            "ssm_scan": len(kinds) - attn, "grouped_matmul": 6 * moe}
+def tiny_launches(cfg, seq: int, *, encoder: bool = False):
+    """Kernel launches of a prefill of ``seq`` tokens from position 0 plus
+    one decode step (``analysis.launch_counts``; ``encoder``: with the
+    encoder output in both)."""
+    from repro_torch.analysis import launch_counts
+
+    counts = launch_counts.prefill(cfg, seq=seq, encoder=encoder)
+    counts["grouped_matmul"] += launch_counts.decode(cfg)["grouped_matmul"]
+    return {k: counts[k] for k in ("flash_attention", "ssm_scan", "grouped_matmul")}
 
 
 def tiny_config(arch, **over):
@@ -1627,7 +1638,7 @@ def phase_serve_check(torch):
             leaves = [*prefill_caches.values(),
                       *(v.cpu() for v in flatten(dict(enumerate(caches))).values())]
             out[dev] = (outs, leaves, launched)
-        expected = tiny_launches(cfg, encoder=cfg.frontend == "audio")
+        expected = tiny_launches(cfg, S, encoder=cfg.frontend == "audio")
         if out["cuda"][2] != expected or any(out["cpu"][2].values()):
             fail(f"{cfg.name}: the card ran {out['cuda'][2]} kernel launches, the CPU "
                  f"{out['cpu'][2]}; expected {expected} and none")
@@ -1681,6 +1692,13 @@ def check_family_training(torch):
             fail(f"{cfg.name}: the card's training step disagrees with the CPU's")
 
 
+def peak_reading(torch) -> int:
+    """max_memory_allocated since the last reading (or reset), and a reset."""
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
 def phase_main(torch, cfg, plan):
     """The full-width decentralized trainer: the per-matching probes,
     masked steps, faulted steps, then overlap steps (plain and faulted)
@@ -1720,6 +1738,7 @@ def phase_main(torch, cfg, plan):
     torch.cuda.reset_peak_memory_stats()
     gossip_axpy.launches = 0
     step_ms, phase_ms = [], []
+    step_peaks, cons_peaks = [], []    # each step's, and the consensus reading's after it
     for k in range(STEPS + FAULTED_STEPS):
         faulted = k >= STEPS
         row = schedule.activations[k].astype("float32")
@@ -1732,11 +1751,13 @@ def phase_main(torch, cfg, plan):
         params, opt_state, losses, _ = step(params, opt_state, batches[k], bits)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_peaks.append(peak_reading(torch))
         launched = gossip_axpy.launches - before
         phases = step.last_phases.ms()
         phase_ms.append(phases)
         loss = float(losses.mean())
         cons = float(dt.consensus_distance(params))
+        cons_peaks.append(peak_reading(torch))
         faults_note = (f" faulted (p_drop {P_DROP}): {fault_sched.dropped_links(row, k)} "
                        f"node-exchanges dropped, straggler delay "
                        f"{fault_sched.max_delay(k):g} units" if faulted else "")
@@ -1749,7 +1770,7 @@ def phase_main(torch, cfg, plan):
         if not (math.isfinite(loss) and math.isfinite(cons)):
             fail(f"step {k}: loss {loss} / consensus {cons} not finite")
     launches = gossip_axpy.launches
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(step_peaks + cons_peaks)
     # step 0 pays the first-call set-up of the GEMM libraries
     steady = sorted(range(1, STEPS), key=lambda k: step_ms[k])
     mid = steady[len(steady) // 2]
@@ -1759,7 +1780,9 @@ def phase_main(torch, cfg, plan):
         + ", ".join(f"{step_ms[k]:.1f} (gossip {phase_ms[k]['gossip']:.1f})"
                     for k in range(STEPS, STEPS + FAULTED_STEPS)) + " ms")
     log(f"main: gossip_axpy launches {launches} over {STEPS} masked and "
-        f"{FAULTED_STEPS} faulted steps; peak memory allocated {peak / 1e9:.2f} GB")
+        f"{FAULTED_STEPS} faulted steps; peak memory allocated {peak / 1e9:.2f} GB: the "
+        f"steps' {max(step_peaks) / 1e9:.3f} GB, consensus_distance between them "
+        f"{max(cons_peaks) / 1e9:.3f} GB")
     if launches != n_leaves * (STEPS + FAULTED_STEPS):
         fail(f"{launches} launches on the main path, expected "
              f"{n_leaves * (STEPS + FAULTED_STEPS)}")
@@ -1845,6 +1868,7 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
         f"step {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     gossip_axpy.launches = 0
     step_ms, apply_ms = [], []
+    step_peaks, cons_peaks = [], []    # each step's, and the readings' after it
     for k in range(total):
         faulted = k >= OVERLAP_STEPS
         row = schedule.activations[k].astype("float32")
@@ -1859,6 +1883,7 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
             span.fence(losses)       # a device-wide synchronize: the side stream too
         step_ms.append((time.perf_counter() - t0) * 1e3)
         step.record_launch_spans(wait=True)
+        step_peaks.append(peak_reading(torch))
         launched = gossip_axpy.launches - before
         phases = step.last_phases.ms()
         apply_ms.append(phases["gossip_apply"])
@@ -1871,6 +1896,7 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
                                  comm_ms=sum(probe_ms[j] for j in active), gossip_mode="overlap")
         loss = float(losses.mean())
         cons = float(dt.consensus_distance(params))
+        cons_peaks.append(peak_reading(torch))
         main_ms = sum(phases.values())
         faults_note = (f" faulted (p_drop {P_DROP}): {fault_sched.dropped_links(row, k)} "
                        f"node-exchanges dropped" if faulted else "")
@@ -1887,7 +1913,7 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
             fail(f"overlap step {k}: {launched} gossip_axpy launches, expected {n_leaves}")
         if not (math.isfinite(loss) and math.isfinite(cons)):
             fail(f"overlap step {k}: loss {loss} / consensus {cons} not finite")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(step_peaks + cons_peaks)
     counted = gossip_axpy.launches
     check_overlap_apply(torch, bplan, float(plan.alpha), params, gstate)
     gossip_axpy.launches = counted       # the comparison's launches are not the path's
@@ -1916,10 +1942,11 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
         f"gossip_apply {apply_ms[mid]:.1f} + the masked median's fwd_bwd and optimizer "
         f"{main_alone:.1f} + the launch alone) {serial:.1f} ms, so "
         f"{(serial - step_ms[mid]) / alone:.1%} of the launch was hidden")
-    log(f"overlap: peak memory allocated over the overlap steps {peak / 1e9:.2f} GB (masked "
-        f"steps {masked['peak'] / 1e9:.2f}"
-        f" GB), GossipState {gstate.nbytes / 1e9:.2f} GB; gossip_axpy launches {launches} over "
-        f"{total} overlap steps and the flush")
+    log(f"overlap: peak memory allocated over the overlap steps {peak / 1e9:.2f} GB: the "
+        f"steps' {max(step_peaks) / 1e9:.3f} GB, consensus_distance between them "
+        f"{max(cons_peaks) / 1e9:.3f} GB (masked {masked['peak'] / 1e9:.2f} GB), GossipState "
+        f"{gstate.nbytes / 1e9:.2f} GB; gossip_axpy launches {launches} over {total} overlap "
+        "steps and the flush")
     if launches != n_leaves * (total + 1):
         fail(f"{launches} launches on the overlap path, expected {n_leaves * (total + 1)}")
     if not math.isfinite(cons):
@@ -2297,6 +2324,247 @@ def check_crash_resume(torch):
         fail("the resumed run does not end where the uninterrupted run ends")
 
 
+DRY_PEAK_TOL = 0.10             # predicted peak within 10% of max_memory_allocated
+DRY_GEN = 2                     # serving in the dry-run phase: a prefill and one decode step
+EXAMPLE_STEPS = 6               # training steps of each example on the card
+
+
+def all_counters():
+    """Every hand-written kernel's wrapper, by name (each counts its launches)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    return {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
+            **gmm_counters(), "gossip_axpy": gossip_axpy}
+
+
+def dry_configs():
+    """(label, predict, measure) of every configuration the earlier phases
+    drive: ``predict()`` traces it on meta and returns the CostMode,
+    ``measure(counters)`` runs it on the card and returns (resident,
+    peak) bytes over what was allocated before it."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.launch import dryrun, serve
+
+    train_cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=2)
+
+    def built(build, warmup=0):
+        def predict():
+            return dryrun.trace(lambda: build("meta"), warmup=warmup)
+
+        def measure():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            state, run = build("cuda")
+            for _ in range(warmup):
+                run()
+            for fn in all_counters().values():
+                fn.launches = 0         # the measured step's launches only
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            out = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del out, state, run
+            return resident, peak
+        return predict, measure
+
+    def training(mode, warmup=0):
+        def build(device):
+            st = dryrun.train_state(train_cfg, nodes=NODES, batch=BATCH, seq=SEQ,
+                                    gossip_mode=mode, device=device)
+            return st, st.run
+        return built(build, warmup)
+
+    def consensus(mode):
+        # the consensus distance phase 3 reads between steps, over the state
+        def build(device):
+            st = dryrun.train_state(train_cfg, nodes=NODES, batch=BATCH, seq=SEQ,
+                                    gossip_mode=mode, device=device)
+            return st, lambda: dt.consensus_distance(st.params)
+        return built(build)
+
+    def serving(cfg, prompt):
+        def predict():
+            from repro_torch.analysis.cost import CostMode
+
+            with CostMode() as cm:
+                serve.run(cfg, batch=SERVE_BATCH, prompt_len=prompt, gen=DRY_GEN, seed=0,
+                          device="meta", cost=cm)
+            return cm
+
+        def measure():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            res = serve.run(cfg, batch=SERVE_BATCH, prompt_len=prompt, gen=DRY_GEN, seed=0,
+                            device="cuda")
+            out = res["resident_bytes"] - base, res["peak_bytes"] - base
+            del res
+            return out
+        return predict, measure
+
+    out = [(f"train masked ({train_cfg.name}, {train_cfg.num_layers} layers, {NODES} "
+            f"nodes, {BATCH} x {SEQ})", *training("masked")),
+           (f"train overlap ({train_cfg.name}, {train_cfg.num_layers} layers, {NODES} "
+            f"nodes, {BATCH} x {SEQ}, the step after a warm-up step: a live exchange in "
+            "flight, as phase 3's steady steps)", *training("overlap", warmup=1))]
+    for mode in ("masked", "overlap"):
+        out.append((f"consensus_distance over the {mode} state (phase 3 reads it between "
+                    "steps)", *consensus(mode)))
+    for cfg, prompt, _, _ in serving_configs():
+        out.append((f"serve {cfg.name} ({cfg.num_layers} layers, B {SERVE_BATCH} x {prompt}, "
+                    f"prefill + {DRY_GEN - 1} decode)", *serving(cfg, prompt)))
+    replica = dataclasses.replace(get_config("dbrx_132b"), num_layers=MOE_TRAIN_LAYERS)
+    out.append((f"dbrx replica ({replica.num_layers} layer, {BATCH} x {SEQ}, loss and "
+                "gradients)", *built(lambda device: dryrun.replica_call(
+                    replica, batch=BATCH, seq=SEQ, device=device))))
+    out.append((f"dbrx MoE block fwd+bwd (B {SERVE_BATCH} x {SERVE_PROMPT})",
+                *built(lambda device: dryrun.moe_block_call(
+                    dbrx_serving_config(), batch=SERVE_BATCH, seq=SERVE_PROMPT,
+                    device=device))))
+    for compute in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=1,
+                                  compute_dtype=compute)
+        out.append((f"sdpa_chunked ({cfg.name}, 1 layer, {compute}, B 1 x S 8192, loss and "
+                    "gradients)", *built(lambda device, cfg=cfg: dryrun.replica_call(
+                        cfg, batch=1, seq=8192, device=device))))
+    return out
+
+
+def phase_dryrun(torch):
+    """The dry run (``repro_torch.launch.dryrun``, meta tensors) against the
+    card for every configuration the earlier phases drive: resident bytes
+    against memory_allocated, the peak against max_memory_allocated (the
+    stats reset per configuration, each counted over what was allocated
+    before it), kernel launches against the wrappers' counters."""
+    import gc
+
+    counters = all_counters()
+    rows, failures = [], []
+    for label, predict, measure in dry_configs():
+        t0 = time.perf_counter()
+        cm = predict()
+        predicted = dict(cm.launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        resident, peak = measure()
+        launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        gc.collect()
+        torch.cuda.empty_cache()
+        p_res, p_peak = cm.argument_bytes, cm.peak
+        res_gap, peak_gap = p_res - resident, (p_peak - peak) / peak
+        log(f"dryrun: {label}: resident predicted {p_res} B ({p_res / 1e9:.3f} GB), measured "
+            f"{resident} B (memory_allocated; gap {res_gap} B, the allocator's rounding "
+            f"of {cm.resident_storages} storages allows {cm.resident_slack()}); peak "
+            f"predicted {p_peak / 1e9:.3f} GB, measured {peak / 1e9:.3f} GB "
+            f"(max_memory_allocated; gap {peak_gap:+.2%}); launches predicted {predicted}, "
+            f"counted {launched} ({time.perf_counter() - t0:.1f} s)")
+        rows.append((label, peak_gap))
+        if predicted != launched:
+            failures.append(f"{label}: predicted launches {predicted}, the card counted "
+                            f"{launched}")
+        if abs(res_gap) > cm.resident_slack():
+            failures.append(f"{label}: resident bytes {p_res} predicted, {resident} measured: "
+                            "more apart than the allocator's rounding of its storages")
+        if abs(peak_gap) > DRY_PEAK_TOL:
+            failures.append(f"{label}: peak {p_peak} predicted, {peak} measured "
+                            f"({peak_gap:+.2%}, over {DRY_PEAK_TOL:.0%})")
+    if failures:
+        fail("dry run against the card: " + "; ".join(failures))
+    log(f"dryrun: {len(rows)} configurations, launches exact, residents within the "
+        f"allocator's rounding, peaks within {max(abs(g) for _, g in rows):.2%} of the card's")
+
+
+def sweep_close(torch, case, got, want):
+    """Max abs error of a sweep case's kernel output against its plain
+    version, at the phase-2 tolerances (gossip bit for bit); inf if it
+    disagrees."""
+    k, dname = case.kernel, case.args[0][1]
+    if k == "gossip_axpy":
+        return 0.0 if torch.equal(got, want) else math.inf
+    if k == "ssm_scan":
+        atol, rtol = SSM_TOL[dname]
+        return max(close(torch, g, w, atol, rtol) for g, w in zip(got, want))
+    tol = (FA_TOL if k == "flash_attention" else GMM_TOL)[dname]
+    # in slices along dim 0: kimi-k2's dw is 11 GB in bf16, 23 GB as the
+    # plain version's fp32
+    step = max(1, (1 << 27) // max(1, got[0].numel()))
+    return max(close(torch, got[i:i + step], want[i:i + step], tol, tol)
+               for i in range(0, got.shape[0], step))
+
+
+def phase_sweep(torch):
+    """Every registry kernel case (``analysis.kernel_cases.sweep_cases``,
+    tiny and full, ragged tails included) on the card: the path it takes,
+    ``kernel_lint`` over its launch configuration, the kernel against its
+    plain version; a grouped product's rows past the groups must be 0."""
+    from repro_torch.analysis import kernel_cases, kernel_lint
+
+    cases = kernel_cases.sweep_cases()
+    t0 = time.perf_counter()
+    paths = {}
+    worst = {}
+    for case in cases:
+        t = case.make("cuda")
+        viols, stats = kernel_lint.lint_case(case, t)
+        if viols:
+            fail(f"sweep {case.label}: " + "; ".join(f"[{v.name}] {v.detail}" for v in viols))
+        got = case.run_kernel(*t)
+        torch.cuda.synchronize()
+        want = case.run_plain(*t)
+        err = sweep_close(torch, case, got, want)
+        if not math.isfinite(err):
+            fail(f"sweep {case.label}: the kernel ({stats['kernel_path']}) disagrees with its "
+                 "plain version")
+        if case.kernel in ("grouped_matmul", "grouped_matmul_dx"):
+            tail = int(t[2].sum())
+            if not bool((got[tail:] == 0).all()):
+                fail(f"sweep {case.label}: rows past the groups are not 0")
+        paths[stats["kernel_path"]] = paths.get(stats["kernel_path"], 0) + 1
+        worst[case.kernel] = max(worst.get(case.kernel, 0.0), err)
+        log(f"sweep: {case.label} {[tuple(x.shape) for x in t]} {case.args[0][1]}: path "
+            f"{stats['kernel_path']}, grid {stats['grid']} x {stats['threads']} threads, "
+            f"{stats['smem_bytes']} B shared, covers {stats['cover']} of {stats['extent']}; "
+            f"max abs err {err:.3g}")
+        del t, got, want
+        torch.cuda.empty_cache()
+    log(f"sweep: {len(cases)} registry cases pass kernel_lint and their tolerances in "
+        f"{time.perf_counter() - t0:.1f} s; paths {paths}; max abs err by kernel {worst}")
+
+
+def phase_examples(torch):
+    """The four examples (``repro_torch.examples``) on the card, at small
+    step counts."""
+    from repro_torch.examples import (
+        quickstart,
+        serve_batched,
+        topology_explorer,
+        train_decentralized,
+    )
+
+    t0 = time.perf_counter()
+    res = quickstart.main(["--steps", str(EXAMPLE_STEPS)])
+    log(f"examples: quickstart on the card, {EXAMPLE_STEPS} steps: {res}")
+    rows = topology_explorer.main([])
+    log(f"examples: topology_explorer on the card: {len(rows)} radii")
+    res = serve_batched.main(["--gen", "4"])
+    if not bool(torch.isfinite(res["logits"]).all()):
+        fail("examples: serve_batched gave non-finite logits")
+    log(f"examples: serve_batched on the card: generated {res['generated'][0].tolist()}")
+    for mode in ("masked", "overlap"):
+        res = train_decentralized.main(["--steps", str(EXAMPLE_STEPS), "--gossip-mode", mode])
+        log(f"examples: train_decentralized ({mode}) on the card, {EXAMPLE_STEPS} steps: "
+            f"losses {res['losses']}")
+    log(f"examples: all four ran on the card in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found: run chip_smoke.py from a checkout of the repo")
@@ -2344,7 +2612,11 @@ def main() -> None:
     phase_check(torch, plan)
     phase_serve_check(torch)
     phase_tests()
-    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    phase_dryrun(torch)
+    phase_sweep(torch)
+    phase_examples(torch)
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
+        "(436.9 s on an NVIDIA H100 80GB HBM3 at 700 W before phases 8-10)")
 
     kernels = [
         dict(name="gossip_axpy", route="cuda",

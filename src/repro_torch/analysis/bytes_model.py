@@ -33,6 +33,8 @@ import numpy as np
 __all__ = [
     "bucket_plan_bytes",
     "fsdp_bytes_row",
+    "train_resident_bytes",
+    "train_transient_bound",
     "tree_storage_bytes",
 ]
 
@@ -101,3 +103,58 @@ def fsdp_bytes_row(
         num_layer_groups=gplan.num_buckets,
     )
     return row
+
+
+# ---------------------------------------------------------------------------
+# One card's decentralized step (the port's replicated runtime)
+# ---------------------------------------------------------------------------
+def train_resident_bytes(cfg, *, nodes: int, batch: int, seq: int,
+                         gossip_mode: str = "masked") -> int:
+    """Bytes that exist before a step: ``nodes`` replicas in their
+    storage dtypes, their fp32 SGD velocities and int32 step counters,
+    the int32 tokens and labels, and with overlap gossip the in-flight
+    fp32 ``GossipState`` (one fp32 copy of every replica)."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import tree_leaves
+
+    shapes = Model(cfg).param_shapes()
+    elems = sum(int(np.prod(s)) for s, _ in tree_leaves(shapes))
+    out = nodes * (tree_storage_bytes(shapes) + _FP32_BYTES * elems + 4)
+    out += 2 * 4 * nodes * batch * seq
+    if gossip_mode == "overlap":
+        out += _FP32_BYTES * nodes * elems
+    return int(out)
+
+
+def train_transient_bound(cfg, *, nodes: int, batch: int, seq: int,
+                          gossip_mode: str = "masked") -> int:
+    """A bound on what a step allocates beyond its resident state: the
+    larger of one node's fwd/bwd with its update, and the gossip.
+
+    fwd/bwd and update: four fp32 replicas (the gradients, the updates,
+    the new velocities, the updated params before they are copied in),
+    per layer 24 fp32 activations of d_model (or of the widest of
+    d_model, the FFN and the heads) per token plus 3 fp32 score tensors
+    of (heads, seq, seq), and 3 fp32 logits of the padded vocabulary per
+    token. Gossip: 3 node-stacked fp32 copies of the largest leaf (the
+    delta, a gathered partner, the target), and with overlap 3 blocks of
+    ``DELTA_BLOCK`` columns on the side stream as well."""
+    from repro_torch.dist.gossip import DELTA_BLOCK
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import tree_leaves
+
+    sizes = [int(np.prod(s)) for s, _ in tree_leaves(Model(cfg).param_shapes())]
+    tokens = batch * seq
+    width = max(cfg.d_model, cfg.d_ff or 0, cfg.moe_d_ff or 0,
+                cfg.num_heads * cfg.head_dim if cfg.num_heads else 0,
+                2 * cfg.ssm_expand * cfg.d_model if cfg.ssm_state_dim else 0)
+    heads = max(cfg.num_heads, 1)
+    layers = cfg.num_layers + cfg.encoder_layers
+    acts = layers * (24 * tokens * width + 3 * batch * heads * seq * seq) * _FP32_BYTES
+    logits = 3 * tokens * cfg.padded_vocab * _FP32_BYTES
+    fwd_bwd = 4 * _FP32_BYTES * sum(sizes) + acts + logits
+    gossip = 3 * _FP32_BYTES * nodes * max(sizes)
+    if gossip_mode == "overlap":
+        gossip += 3 * _FP32_BYTES * nodes * min(DELTA_BLOCK, max(sizes))
+    return int(max(fwd_bwd, gossip) + (gossip if gossip_mode == "overlap" else 0))
+

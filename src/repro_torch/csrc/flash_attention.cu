@@ -85,6 +85,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "launch_config.cuh"
 
 namespace {
 
@@ -320,16 +321,26 @@ flash_scalar_kernel(Params prm) {
   }
 }
 
+// One block per (kBQ query rows, query head, batch row); the output's
+// dims are (Sq, Hq, B).
+template <int HD>
+LaunchConfig scalar_config(int B, int Sq, int Hq) {
+  const long long rows = (Sq + kBQ - 1) / kBQ;
+  const int smem = (2 * HD * kBQ + kBK * HD + kBK * kBQ) * static_cast<int>(sizeof(float));
+  LaunchConfig c{{rows, Hq, B}, {rows * kBQ, Hq, B}, kThreads, smem, 0, 4};
+  return c;
+}
+
 template <typename T, int HD>
 cudaError_t launch(const Params& prm, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(2 * HD * kBQ + kBK * HD + kBK * kBQ) *
-                      sizeof(float);
+  const LaunchConfig c = scalar_config<HD>(prm.B, prm.Sq, prm.Hq);
   cudaError_t err = cudaFuncSetAttribute(
       flash_scalar_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      c.smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((prm.Sq + kBQ - 1) / kBQ, prm.Hq, prm.B);
-  flash_scalar_kernel<T, HD><<<grid, kThreads, smem, stream>>>(prm);
+  const dim3 grid(static_cast<unsigned>(c.grid[0]), static_cast<unsigned>(c.grid[1]),
+                  static_cast<unsigned>(c.grid[2]));
+  flash_scalar_kernel<T, HD><<<grid, c.threads, c.smem_bytes, stream>>>(prm);
   return cudaGetLastError();
 }
 
@@ -658,19 +669,30 @@ bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int 
   return hopper::make_tensor_map_bf16(map, base, 4, dims, strides, box);
 }
 
+// One block per (kRows query rows, query head, batch row).
+template <int HD, int NWG>
+LaunchConfig wgmma_config(int B, int Sq, int Hq) {
+  using L = WgLayout<HD, NWG>;
+  const long long rows = (Sq + L::kRows - 1) / L::kRows;
+  LaunchConfig c{{rows, Hq, B}, {rows * L::kRows, Hq, B}, L::kThreads, L::kSmem, 1, 4};
+  return c;
+}
+
 template <int HD, int NWG>
 cudaError_t launch_wgmma(const Params& prm, cudaStream_t stream) {
-  using L = WgLayout<HD, NWG>;
   CUtensorMap qm, km, vm;
   if (!make_bshd_map(&qm, prm.q, prm.B, prm.Sq, prm.Hq, HD) ||
       !make_bshd_map(&km, prm.k, prm.B, prm.Sk, prm.Hkv, HD) ||
       !make_bshd_map(&vm, prm.v, prm.B, prm.Sk, prm.Hkv, HD))
     return cudaErrorInvalidValue;
+  const LaunchConfig c = wgmma_config<HD, NWG>(prm.B, prm.Sq, prm.Hq);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+      flash_wgmma_kernel<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      c.smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((prm.Sq + L::kRows - 1) / L::kRows, prm.Hq, prm.B);
-  flash_wgmma_kernel<HD, NWG><<<grid, L::kThreads, L::kSmem, stream>>>(qm, km, vm, prm);
+  const dim3 grid(static_cast<unsigned>(c.grid[0]), static_cast<unsigned>(c.grid[1]),
+                  static_cast<unsigned>(c.grid[2]));
+  flash_wgmma_kernel<HD, NWG><<<grid, c.threads, c.smem_bytes, stream>>>(qm, km, vm, prm);
   return cudaGetLastError();
 }
 
@@ -691,6 +713,31 @@ cudaError_t dispatch_wgmma(int hd, const Params& prm, cudaStream_t stream) {
     case 192: return launch_wgmma<192, 2>(prm, stream);
     case 256: return launch_wgmma<256, 2>(prm, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The configuration flash_attention_launch uses: false for a width no
+// kernel is compiled for.
+bool config_for(int dtype, int hd, int Sk, int B, int Sq, int Hq, LaunchConfig* c) {
+  if (wgmma_path(dtype, hd, Sk)) {
+    switch (hd) {
+      case 64: *c = wgmma_config<64, 1>(B, Sq, Hq); return true;
+      case 112: *c = wgmma_config<112, 1>(B, Sq, Hq); return true;
+      case 128: *c = wgmma_config<128, 1>(B, Sq, Hq); return true;
+      case 192: *c = wgmma_config<192, 2>(B, Sq, Hq); return true;
+      case 256: *c = wgmma_config<256, 2>(B, Sq, Hq); return true;
+      default: return false;
+    }
+  }
+  if (dtype != 0 && dtype != 1) return false;
+  switch (hd) {
+    case 32: *c = scalar_config<32>(B, Sq, Hq); return true;
+    case 64: *c = scalar_config<64>(B, Sq, Hq); return true;
+    case 112: *c = scalar_config<112>(B, Sq, Hq); return true;
+    case 128: *c = scalar_config<128>(B, Sq, Hq); return true;
+    case 192: *c = scalar_config<192>(B, Sq, Hq); return true;
+    case 256: *c = scalar_config<256>(B, Sq, Hq); return true;
+    default: return false;
   }
 }
 
@@ -720,4 +767,13 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
 // wgmma kernel, 0 the scalar one.
 extern "C" int flash_attention_path(int dtype, int hd, int Sk) {
   return wgmma_path(dtype, hd, Sk) ? 1 : 0;
+}
+
+// The launch configuration flash_attention_launch uses for these shapes:
+// the output's dims are (Sq, Hq, B). Returns 0, or cudaErrorInvalidValue
+// for a dtype or head width no kernel is compiled for.
+extern "C" int flash_attention_launch_config(int dtype, int B, int Sq, int Sk, int Hq,
+                                             int hd, LaunchConfig* out) {
+  return config_for(dtype, hd, Sk, B, Sq, Hq, out) ? 0
+                                                  : static_cast<int>(cudaErrorInvalidValue);
 }

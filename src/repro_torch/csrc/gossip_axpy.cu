@@ -47,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch_config.cuh"
+
 namespace {
 
 template <typename T>
@@ -166,18 +168,31 @@ gossip_axpy_kernel(const TX* x, const TY* y, TX* out, int64_t n, float alpha) {
   }
 }
 
+// One tile of kThreads x kUnroll vectors per block; the kernel loops over
+// tiles, which only matters past 2^31 - 1 blocks (the grid then covers all
+// n through the loop).
+template <typename TX, typename TY>
+LaunchConfig config(int64_t n) {
+  constexpr int kVec = VecWidth<TX, TY>::value;
+  const int64_t tile = static_cast<int64_t>(kThreads) * kUnroll;
+  int64_t blocks = ((n + kVec - 1) / kVec + tile - 1) / tile;
+  int64_t cover = blocks * tile * kVec;
+  if (blocks > 0x7fffffff) {
+    blocks = 0x7fffffff;
+    cover = n;
+  }
+  LaunchConfig c{{blocks, 1, 1}, {cover, 1, 1}, kThreads, 0, 0, 4};
+  return c;
+}
+
 template <typename TX, typename TY>
 cudaError_t launch(const void* x, const void* y, void* out, int64_t n,
                    float alpha, cudaStream_t stream) {
-  constexpr int kVec = VecWidth<TX, TY>::value;
-  // one tile of kThreads x kUnroll vectors per block (the loop over tiles
-  // only matters past 2^31 - 1 blocks)
-  const int64_t tile = static_cast<int64_t>(kThreads) * kUnroll;
-  int64_t blocks = ((n + kVec - 1) / kVec + tile - 1) / tile;
-  if (blocks > 0x7fffffff) blocks = 0x7fffffff;
-  gossip_axpy_kernel<TX, TY><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TY*>(y),
-      static_cast<TX*>(out), n, alpha);
+  const LaunchConfig c = config<TX, TY>(n);
+  gossip_axpy_kernel<TX, TY>
+      <<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TY*>(y),
+          static_cast<TX*>(out), n, alpha);
   return cudaGetLastError();
 }
 
@@ -201,4 +216,21 @@ extern "C" int gossip_axpy_launch(int x_dtype, int y_dtype, const void* x,
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The launch configuration gossip_axpy_launch uses for n elements of these
+// dtypes. Returns 0, or cudaErrorInvalidValue for an unknown dtype pair.
+extern "C" int gossip_axpy_launch_config(int x_dtype, int y_dtype, int64_t n,
+                                         LaunchConfig* out) {
+  if (x_dtype == 0 && y_dtype == 0)
+    *out = config<float, float>(n);
+  else if (x_dtype == 1 && y_dtype == 1)
+    *out = config<__nv_bfloat16, __nv_bfloat16>(n);
+  else if (x_dtype == 1 && y_dtype == 0)
+    *out = config<__nv_bfloat16, float>(n);
+  else if (x_dtype == 0 && y_dtype == 1)
+    *out = config<float, __nv_bfloat16>(n);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }

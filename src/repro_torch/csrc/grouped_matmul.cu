@@ -93,6 +93,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "launch_config.cuh"
 
 namespace {
 
@@ -694,21 +695,33 @@ bool aligned16(const void* p) {
 
 // Forward (dx false) or dx: a (M, R), out (M, C), R = K / C = N forward and
 // R = N / C = K for dx; w (G, K, N) either way.
+// Forward and dx: n_row x n_col blocks of bm x bn output tiles, n_row =
+// ceil(M / bm) + G (a group boundary can split a row tile); the output's
+// dims are (M, C, 1).
+LaunchConfig row_tile_config(int M, int C, int G, int bm, int bn, int threads, int smem,
+                             int path) {
+  const long long n_row = (M + bm - 1) / bm + G, n_col = (C + bn - 1) / bn;
+  LaunchConfig c{{n_row * n_col, 1, 1}, {(n_row - G) * bm, n_col * bn, 1}, threads, smem,
+                 path, 4};
+  return c;
+}
+
 template <typename T>
 cudaError_t launch_scalar(bool dx, const void* a, const void* w, const int* sizes,
                           void* out, int M, int K, int N, int G, cudaStream_t stream) {
   const int C = dx ? K : N;
+  const LaunchConfig c = row_tile_config(M, C, G, kSBM, kSBN, kThreads, 0, 0);
   const int n_row = (M + kSBM - 1) / kSBM + G;
   const int n_col = (C + kSBN - 1) / kSBN;
   const T* at = static_cast<const T*>(a);
   const T* wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(out);
   if (dx)
-    gmm_dx_scalar_kernel<T><<<n_row * n_col, kThreads, 0, stream>>>(
-        at, wt, sizes, ot, M, K, N, G, n_row, n_col);
+    gmm_dx_scalar_kernel<T><<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes,
+                              stream>>>(at, wt, sizes, ot, M, K, N, G, n_row, n_col);
   else
-    gmm_scalar_kernel<T><<<n_row * n_col, kThreads, 0, stream>>>(
-        at, wt, sizes, ot, M, K, N, G, n_row, n_col);
+    gmm_scalar_kernel<T><<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes,
+                           stream>>>(at, wt, sizes, ot, M, K, N, G, n_row, n_col);
   return cudaGetLastError();
 }
 
@@ -747,23 +760,46 @@ cudaError_t launch_wgmma(bool dx, const void* a, const void* w, const int* sizes
     return cudaErrorInvalidValue;
   const cudaError_t err = opt_in_smem(dx ? gmm_dx_wgmma_kernel : gmm_wgmma_kernel);
   if (err != cudaSuccess) return err;
+  const LaunchConfig c = row_tile_config(M, C, G, kBM, kBN, kWgThreads, kWgSmemBytes, 1);
   const int n_row = (M + kBM - 1) / kBM + G;
   const int n_col = (C + kBN - 1) / kBN;
   auto* o = static_cast<__nv_bfloat16*>(out);
+  const unsigned blocks = static_cast<unsigned>(c.grid[0]);
   if (dx)
-    gmm_dx_wgmma_kernel<<<n_row * n_col, kWgThreads, kWgSmemBytes, stream>>>(
+    gmm_dx_wgmma_kernel<<<blocks, c.threads, c.smem_bytes, stream>>>(
         am, wm, sizes, o, M, K, N, G, n_row, n_col);
   else
-    gmm_wgmma_kernel<<<n_row * n_col, kWgThreads, kWgSmemBytes, stream>>>(
+    gmm_wgmma_kernel<<<blocks, c.threads, c.smem_bytes, stream>>>(
         am, wm, sizes, o, M, K, N, G, n_row, n_col);
   return cudaGetLastError();
+}
+
+// dw scalar: one block per (group, bm rows of K, bn columns of N); the
+// output's dims are (K, N, G).
+LaunchConfig dw_scalar_config(int K, int N, int G) {
+  const long long n_k = (K + kSBM - 1) / kSBM, n_n = (N + kSBN - 1) / kSBN;
+  LaunchConfig c{{G * n_k * n_n, 1, 1}, {n_k * kSBM, n_n * kSBN, G}, kThreads, 0, 0, 4};
+  return c;
+}
+
+// dw wgmma: persistent, one block an SM (at most one per tile), each block
+// walking the (group, k tile, n tile) list with a stride of the grid, so
+// the grid covers every tile; `sms` is the card's SM count.
+LaunchConfig dw_wgmma_config(int K, int N, int G, int sms) {
+  const long long n_k = (K + kBM - 1) / kBM, n_n = (N + kBN - 1) / kBN;
+  const long long n_tiles = G * n_k * n_n;
+  LaunchConfig c{{n_tiles < sms ? n_tiles : sms, 1, 1}, {n_k * kBM, n_n * kBN, G},
+                 kWgThreads, kDwSmemBytes + 4 * (G + 1), 1, 4};
+  return c;
 }
 
 template <typename T>
 cudaError_t launch_dw_scalar(const void* x, const void* dy, const int* sizes, void* dw,
                              int M, int K, int N, int G, cudaStream_t stream) {
   const int n_k = (K + kSBM - 1) / kSBM, n_n = (N + kSBN - 1) / kSBN;
-  gmm_dw_scalar_kernel<T><<<G * n_k * n_n, kThreads, 0, stream>>>(
+  const LaunchConfig c = dw_scalar_config(K, N, G);
+  gmm_dw_scalar_kernel<T><<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes,
+                            stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), sizes, static_cast<T*>(dw),
       M, K, N, G, n_k, n_n);
   return cudaGetLastError();
@@ -774,21 +810,20 @@ cudaError_t launch_dw_wgmma(const void* x, const void* dy, const int* sizes, voi
   CUtensorMap xm, dym;
   if (!rows_map(&xm, x, M, K, kBK) || !rows_map(&dym, dy, M, N, kBK))
     return cudaErrorInvalidValue;
-  // the ring, the staged output tile, then the G + 1 row offsets
-  const int smem = kDwSmemBytes + 4 * (G + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      gmm_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
+  cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int n_k = (K + kBM - 1) / kBM, n_n = (N + kBN - 1) / kBN;
   const int64_t n_tiles = static_cast<int64_t>(G) * n_k * n_n;
   if (n_tiles > INT32_MAX) return cudaErrorInvalidValue;
-  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);   // one block an SM
-  gmm_dw_wgmma_kernel<<<grid, kWgThreads, smem, stream>>>(
+  // the ring, the staged output tile, then the G + 1 row offsets
+  const LaunchConfig c = dw_wgmma_config(K, N, G, sms);
+  err = cudaFuncSetAttribute(gmm_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             c.smem_bytes);
+  if (err != cudaSuccess) return err;
+  gmm_dw_wgmma_kernel<<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes, stream>>>(
       xm, dym, sizes, static_cast<__nv_bfloat16*>(dw), M, K, N, G, n_k, n_n);
   return cudaGetLastError();
 }
@@ -871,4 +906,38 @@ extern "C" int grouped_matmul_path(int which, int dtype, const void* a, const vo
   if (which == 1) return tensor_core_path(dtype, a, b, out, N, K) ? 1 : 0;
   if (which == 2) return M > 0 && tensor_core_path(dtype, a, b, out, K, N) ? 1 : 0;
   return tensor_core_path(dtype, a, b, out, K, N) ? 1 : 0;
+}
+
+// The launch configuration each launch uses for these operands (the path
+// depends on their alignment; out may be null, as in grouped_matmul_path,
+// for a fresh allocation). `which`: 0 forward (a = x, b = w), 1 dx (a = dy,
+// b = w), 2 dw (a = x, b = dy). The output's dims are (M, N, 1) forward,
+// (M, K, 1) dx and (K, N, G) dw. Returns 0, or a cudaError_t.
+extern "C" int grouped_matmul_launch_config(int which, int dtype, const void* a,
+                                            const void* b, const void* out, int M, int K,
+                                            int N, int G, LaunchConfig* cfg) {
+  if (M < 0 || K < 0 || N < 0 || G <= 0 || (dtype != 0 && dtype != 1) || which < 0 ||
+      which > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* o = out != nullptr ? out : a;   // a fresh output is 16-byte aligned
+  if (which == 2) {
+    if (M > 0 && tensor_core_path(dtype, a, b, o, K, N)) {
+      int device = 0, sms = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      *cfg = dw_wgmma_config(K, N, G, sms);
+    } else {
+      *cfg = dw_scalar_config(K, N, G);
+    }
+    return 0;
+  }
+  const bool dx = which == 1;
+  const int R = dx ? N : K, C = dx ? K : N;
+  if (tensor_core_path(dtype, a, b, o, R, C))
+    *cfg = row_tile_config(M, C, G, kBM, kBN, kWgThreads, kWgSmemBytes, 1);
+  else
+    *cfg = row_tile_config(M, C, G, kSBM, kSBN, kThreads, 0, 0);
+  return 0;
 }

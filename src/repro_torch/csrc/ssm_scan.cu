@@ -90,6 +90,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "launch_config.cuh"
 
 namespace {
 
@@ -323,16 +324,25 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int o = tid; o < N * P; o += kThreads) hb[o] = hs[o];
 }
 
+// One block per (batch row, head), walking all S positions; the output's
+// dims are (S, H, B).
+LaunchConfig scalar_config(const Dims& d) {
+  const int smem = static_cast<int>(smem_floats(d) * sizeof(float));
+  LaunchConfig c{{static_cast<long long>(d.Bsz) * d.H, 1, 1}, {d.S, d.H, d.Bsz},
+                 kThreads, smem, 0, 4};
+  return c;
+}
+
 template <typename T>
 cudaError_t launch_scalar(const void* x, const float* dt, const float* A,
                           const void* Bm, const void* Cm, void* y, float* hout,
                           const Dims& d, cudaStream_t stream) {
-  const size_t smem = smem_floats(d) * sizeof(float);
+  const LaunchConfig c = scalar_config(d);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ssd_chunk_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_bytes);
   if (err != cudaSuccess) return err;
-  ssd_chunk_scan_kernel<T><<<d.Bsz * d.H, kThreads, smem, stream>>>(
+  ssd_chunk_scan_kernel<T><<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes,
+                             stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<T*>(y), hout, d);
   return cudaGetLastError();
@@ -823,17 +833,25 @@ __global__ void __launch_bounds__(kTcThreads, 1) ssd_tc_kernel(Args g) {
   }
 }
 
+// One block per (chunk, batch row, group of heads_per_block(P) heads); the
+// output's dims are (S, H, B).
+inline LaunchConfig config(int Bsz, int S, int H, int P, int N, int Q) {
+  const int hg = heads_per_block(P);
+  const long long groups = (H + hg - 1) / hg, chunks = S / Q;
+  LaunchConfig c{{chunks * Bsz * groups, 1, 1}, {chunks * Q, groups * hg, Bsz},
+                 kTcThreads, static_cast<int>(smem_bytes(P, N, Q)), 1, 4};
+  return c;
+}
+
 template <int P>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int HG = heads_per_block(P);
-  const size_t smem = smem_bytes(a.P, a.N, a.Q);
+  const LaunchConfig c = config(a.Bsz, a.S, a.H, a.P, a.N, a.Q);
   cudaError_t err = cudaFuncSetAttribute(ssd_tc_kernel<P, HG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         c.smem_bytes);
   if (err != cudaSuccess) return err;
-  const int groups = (a.H + HG - 1) / HG;
-  const unsigned blocks = static_cast<unsigned>(a.S / a.Q) * a.Bsz * groups;
-  ssd_tc_kernel<P, HG><<<blocks, kTcThreads, smem, stream>>>(a);
+  ssd_tc_kernel<P, HG><<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -856,7 +874,9 @@ cudaError_t launch_width(const Args& a, cudaStream_t stream) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// The one rule that picks the kernel (see the top of the file).
+// The one rule that picks the kernel (see the top of the file). The dry run's
+// meta branch mirrors it in kernels/ssm_scan.py::meta_path (without the
+// addresses); change both together.
 bool tc_path(int dtype, int P, int N, int Q, const void* x, const void* Bm, const void* Cm) {
   return dtype == 1 && tc::compiled_width(P) && N % 16 == 0 && N > 0 && N <= 128 &&
          Q % 16 == 0 && Q > 0 && Q <= kMaxChunk && aligned16(x) && aligned16(Bm) &&
@@ -873,7 +893,8 @@ extern "C" int ssm_scan_path(int dtype, int P, int N, int chunk, const void* x,
 }
 
 // Bytes of dynamic shared memory one block of the scalar kernel needs (the
-// wrapper checks it against the card's limit before launching there).
+// wrapper checks it against the card's limit before launching there). The
+// meta branch mirrors it in kernels/ssm_scan.py::scalar_smem_bytes.
 extern "C" long long ssm_scan_smem_bytes(int P, int N, int Q) {
   Dims d{1, Q, 1, P, N, Q, odd_stride(N), odd_stride(Q)};
   return static_cast<long long>(smem_floats(d) * sizeof(float));
@@ -912,4 +933,22 @@ extern "C" int ssm_scan_launch(int dtype, const void* x, const void* dt,
   if (dtype == 1)
     return static_cast<int>(launch_scalar<__nv_bfloat16>(x, dtf, Af, Bm, Cm, y, hf, d, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch configuration ssm_scan_launch uses for these shapes and
+// operands (the path depends on x, B and C's alignment). Returns 0, or
+// cudaErrorInvalidValue for shapes the launch refuses.
+extern "C" int ssm_scan_launch_config(int dtype, int Bsz, int S, int H, int P, int N,
+                                      int chunk, const void* x, const void* Bm,
+                                      const void* Cm, LaunchConfig* out) {
+  if (Bsz <= 0 || H <= 0 || S <= 0 || chunk <= 0 || chunk > kMaxChunk || S % chunk != 0 ||
+      P <= 0 || N <= 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tc_path(dtype, P, N, chunk, x, Bm, Cm)) {
+    *out = tc::config(Bsz, S, H, P, N, chunk);
+  } else {
+    Dims d{Bsz, S, H, P, N, chunk, odd_stride(N), odd_stride(chunk)};
+    *out = scalar_config(d);
+  }
+  return 0;
 }

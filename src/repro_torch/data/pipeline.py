@@ -6,8 +6,9 @@ the same seed; only the final hand-off makes torch tensors on the
 requested device instead of jax arrays. Frontend models get their stub
 inputs beside the tokens, drawn from the same per-node streams: vision
 models a ``prefix_embeddings`` and audio models an ``encoder_frames``
-tensor, bf16, bit-equal to the JAX package's. The dry-run
-``input_specs`` is not ported yet (ROADMAP queue 1, item 17).
+tensor, bf16, bit-equal to the JAX package's. ``input_specs`` gives a
+workload shape's inputs as meta tensors for the dry run
+(``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 
 
@@ -42,6 +43,18 @@ class SyntheticCorpus:
             size=(self.num_states, self.vocab_size)
         ) * 2.0
 
+    def _emit_cdf(self, s: int) -> np.ndarray:
+        """State s's emission cdf, as ``Generator.choice`` builds it from
+        the softmax of its logits."""
+        cache = self.__dict__.setdefault("_cdf", {})
+        if s not in cache:
+            p = np.exp(self.emit_logits[s] - self.emit_logits[s].max())
+            p /= p.sum()
+            cdf = p.cumsum()
+            cdf /= cdf[-1]
+            cache[s] = cdf
+        return cache[s]
+
     def sample(
         self,
         rng: np.random.Generator,
@@ -61,9 +74,10 @@ class SyntheticCorpus:
         toks = np.zeros(length, np.int64)
         for t in range(length):
             states[t] = s
-            p = np.exp(self.emit_logits[s] - self.emit_logits[s].max())
-            p /= p.sum()
-            toks[t] = rng.choice(self.vocab_size, p=p)
+            # rng.choice(vocab_size, p=softmax(emit_logits[s])), draw for
+            # draw: the same cdf and one uniform, searched the same way,
+            # with each state's cdf made once instead of once a token
+            toks[t] = self._emit_cdf(s).searchsorted(rng.random(), side="right")
             trans = self.trans[s]
             if state_prior is not None:
                 trans = trans * (state_prior + 1e-6)
@@ -176,3 +190,53 @@ def to_bfloat16(a: np.ndarray) -> torch.Tensor:
     """float64 numbers -> bf16, rounded as the JAX package rounds them
     (``jnp.asarray(a, jnp.bfloat16)``)."""
     return torch.from_numpy(np.asarray(a)).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run inputs (meta tensors: shapes and dtypes, no allocation)
+# ---------------------------------------------------------------------------
+def input_specs(
+    cfg: ModelConfig,
+    shape: InputShape,
+    *,
+    num_nodes: int = 0,          # >0: training batch with node axis
+    device="meta",
+) -> Dict[str, torch.Tensor]:
+    """Model inputs for one workload shape, as meta tensors with the
+    names, shapes and dtypes of the JAX package's ``input_specs``.
+
+    train:    tokens/labels (nodes, per_node_batch, seq)
+    prefill:  tokens (batch, seq)
+    decode:   tokens (batch, 1); the caches are built by the serve step
+    Frontend stubs: precomputed embeddings of the right shape, bf16
+    (``prefix_embeddings`` for vision, ``encoder_frames`` for audio).
+    """
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    def frontend(lead):
+        out = {}
+        dims = lead + (cfg.encoder_seq, cfg.frontend_dim or cfg.d_model)
+        if cfg.frontend == "vision":
+            out["prefix_embeddings"] = spec(dims, bf16)
+        if cfg.frontend == "audio":
+            out["encoder_frames"] = spec(dims, bf16)
+        return out
+
+    if shape.kind == "train":
+        if num_nodes <= 0:
+            raise ValueError("training specs need the node count")
+        if shape.global_batch % num_nodes:
+            raise ValueError("global batch must divide node count")
+        b = shape.global_batch // num_nodes
+        lead = (num_nodes, b, shape.seq_len)
+        return {"tokens": spec(lead, i32), "labels": spec(lead, i32),
+                **frontend((num_nodes, b))}
+    if shape.kind == "prefill":
+        return {"tokens": spec((shape.global_batch, shape.seq_len), i32),
+                **frontend((shape.global_batch,))}
+    if shape.kind == "decode":
+        return {"tokens": spec((shape.global_batch, 1), i32)}
+    raise ValueError(shape.kind)

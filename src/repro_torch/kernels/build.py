@@ -105,6 +105,35 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
     return logs
 
 
+class LaunchConfig(ctypes.Structure):
+    """``csrc/launch_config.cuh``'s ``LaunchConfig``, which each library's
+    ``<name>_launch_config`` entry fills."""
+
+    _fields_ = [
+        ("grid", ctypes.c_longlong * 3),
+        ("cover", ctypes.c_longlong * 3),
+        ("threads", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+        ("path", ctypes.c_int),
+        ("acc_bytes", ctypes.c_int),
+    ]
+
+    def as_dict(self) -> dict:
+        return dict(grid=tuple(self.grid), cover=tuple(self.cover),
+                    threads=self.threads, smem_bytes=self.smem_bytes,
+                    path=self.path, acc_bytes=self.acc_bytes)
+
+
+def launch_config(fn, *args) -> dict:
+    """Call a library's ``<name>_launch_config(*args, LaunchConfig*)`` and
+    return the filled config as a dict; raises on a refused shape."""
+    cfg = LaunchConfig()
+    err = fn(*args, ctypes.byref(cfg))
+    if err:
+        raise ValueError(f"{fn.__name__} refused {args}: cudaError {err}")
+    return cfg.as_dict()
+
+
 def require_hopper(device, kernel: str) -> None:
     """Raise unless ``device`` is an sm_90 card: the kernels are built
     for sm_90a only."""

@@ -20,7 +20,11 @@ runs it, training keeps the model's ``sdpa``.
 The wrapper launches on PyTorch's current stream without synchronizing
 and counts its launches in ``flash_attention.launches``. It raises on
 anything the kernel does not take (and on a card other than sm_90); it
-never falls back to the plain version.
+never falls back to the plain version. Given meta tensors (the dry run)
+it checks them as it checks CUDA ones, allocates the kernel's output
+(no scores: the plain version's (Sq, Sk) tensor is not the kernel's),
+and reports the launch and its ``cost(...)`` to ``meta.report``; the
+``launches`` counter counts the card's launches only.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128, 192, 256)
@@ -56,6 +60,39 @@ def _library():
     return lib
 
 
+def live_pairs(Sq: int, Sk: int, causal: bool, window: int, kv_len: int) -> int:
+    """Live (query, key) pairs: the work this input needs."""
+    n = kv_len or Sk
+    total = 0
+    for i in range(Sq):
+        hi = min(n, i + 1) if causal else n
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def cost(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int, dtype: torch.dtype, *,
+         causal: bool, window: int = 0, kv_len: int = 0):
+    """``(flops, bytes)`` of one launch: 4 hd flops per live (query, key)
+    pair and query head (q k^T and p v); q, k, v read once and the
+    output written once."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    flops = 4 * hd * B * Hq * live_pairs(Sq, Sk, causal, window, kv_len)
+    nbytes = elem * B * hd * (2 * Sq * Hq + 2 * Sk * Hkv)
+    return flops, nbytes
+
+
+def launch_config(q: torch.Tensor, k: torch.Tensor) -> dict:
+    """The launch configuration ``flash_attention(q, k, v)`` uses (the C
+    function its launch calls): output dims ``(Sq, Hq, B)``."""
+    _check(q, k, k, 0)
+    fn = _library().flash_attention_launch_config
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(build.LaunchConfig)]
+    fn.restype = ctypes.c_int
+    B, Sq, Hq, hd = q.shape
+    return build.launch_config(fn, _DTYPE_CODES[q.dtype], B, Sq, k.shape[1], Hq, hd)
+
+
 def kernel_path(q: torch.Tensor, k: torch.Tensor) -> str:
     """The kernel ``flash_attention(q, k, v)`` launches for these
     operands: ``"wgmma"`` (tensor cores, TMA) or ``"scalar"``."""
@@ -65,7 +102,8 @@ def kernel_path(q: torch.Tensor, k: torch.Tensor) -> str:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int) -> None:
-    if q.device.type != "cuda":
+    on_meta = meta.is_meta(q)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(
             f"flash_attention runs on CUDA tensors, got q on {q.device}; "
             "the plain version is repro_torch.kernels.ref.attention_ref"
@@ -77,7 +115,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int) -> No
             raise ValueError(f"{name} dtype {t.dtype} differs from q's {q.dtype}")
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, S, heads, head_dim), got {tuple(t.shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (not on_meta and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {q.dtype} is not float32 or bfloat16")
@@ -92,7 +130,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int) -> No
         raise ValueError(f"{Hq} query heads do not group over {k.shape[2]} kv heads")
     if not 0 <= kv_len <= k.shape[1]:
         raise ValueError(f"kv_len {kv_len} out of range for Sk={k.shape[1]}")
-    build.require_hopper(q.device, "flash_attention")
+    if not on_meta:
+        build.require_hopper(q.device, "flash_attention")
 
 
 def flash_attention(
@@ -112,6 +151,10 @@ def flash_attention(
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    if meta.is_meta(q):
+        meta.report("flash_attention", *cost(B, Sq, Sk, Hq, Hkv, hd, q.dtype, causal=causal,
+                                             window=window, kv_len=kv_len), q.dtype)
         return out
     launch = _library().flash_attention_launch
     with torch.cuda.device(q.device):

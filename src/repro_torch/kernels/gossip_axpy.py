@@ -14,7 +14,10 @@ The wrapper launches on PyTorch's current stream without synchronizing
 and counts its launches in ``gossip_axpy.launches``, so a run can show
 that its main path went through the kernel. It raises on anything the
 kernel does not take (and on a card other than sm_90); it never falls
-back to the plain version.
+back to the plain version. Given meta tensors (the dry run) it checks
+them as it checks CUDA ones, allocates the kernel's output and reports
+the launch and its ``cost(...)`` to ``repro_torch.kernels.meta``; the
+``launches`` counter counts the card's launches only.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,8 +44,28 @@ def _library():
     return fn
 
 
+def cost(n: int, x_dtype: torch.dtype, y_dtype: torch.dtype):
+    """``(flops, bytes)`` of one launch over n elements: 3 fp32 flops an
+    element (a subtract, a multiply, an add); x and y read once, the
+    result written once in x's dtype."""
+    ex = torch.empty((), dtype=x_dtype).element_size()
+    ey = torch.empty((), dtype=y_dtype).element_size()
+    return 3 * n, n * (2 * ex + ey)
+
+
+def launch_config(x: torch.Tensor, y: torch.Tensor) -> dict:
+    """The launch configuration ``gossip_axpy(x, y, alpha)`` uses (the C
+    function its launch calls): output dims ``(n, 1, 1)``."""
+    _check(x, y)
+    fn = build.load("gossip_axpy").gossip_axpy_launch_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                   ctypes.POINTER(build.LaunchConfig)]
+    fn.restype = ctypes.c_int
+    return build.launch_config(fn, _DTYPE_CODES[x.dtype], _DTYPE_CODES[y.dtype], x.numel())
+
+
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(
             f"gossip_axpy runs on a CUDA tensor, got one on {x.device}; "
             "the plain version is repro_torch.kernels.ref.gossip_axpy_ref"
@@ -56,7 +79,8 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
     if x.shape != y.shape:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
-    build.require_hopper(x.device, "gossip_axpy")
+    if not meta.is_meta(x):
+        build.require_hopper(x.device, "gossip_axpy")
 
 
 def gossip_axpy(
@@ -71,6 +95,9 @@ def gossip_axpy(
     out = x if inplace else torch.empty_like(x)
     n = x.numel()
     if n == 0:
+        return out
+    if meta.is_meta(x):
+        meta.report("gossip_axpy", *cost(n, x.dtype, y.dtype), torch.float32)
         return out
     launch = _library()
     with torch.cuda.device(x.device):

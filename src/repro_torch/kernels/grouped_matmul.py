@@ -29,7 +29,11 @@ CPU tests reach its wiring.
 The wrappers launch on PyTorch's current stream and count their
 launches in ``<wrapper>.launches``. They raise on anything their kernel
 does not take (and on a card other than sm_90); they never fall back to
-the plain version.
+the plain version. Given meta tensors (the dry run) each checks them as
+it checks CUDA ones, allocates its kernel's output and reports the
+launch and its ``cost(...)`` to ``meta.report`` (the ``launches``
+counters count the card's launches only); ``GroupedMatmul`` then runs
+the meta branches forward and backward.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import (
     grouped_matmul_dw_ref,
     grouped_matmul_dx_ref,
@@ -75,6 +79,49 @@ def _library():
     return lib
 
 
+def cost(kind: str, M: int, K: int, N: int, G: int, dtype: torch.dtype, *,
+         rows: int = None, live: int = None):
+    """``(flops, bytes)`` of one launch of ``kind`` (``"forward"``,
+    ``"dx"`` or ``"dw"``) over x (M, K), w or dw (G, K, N) and the (M, N)
+    output or dy: 2 K N flops per row inside the groups (``rows``, all M
+    when not given: a meta tensor has no sizes); each operand read once
+    and the output written once, of w only the ``live`` groups' (non-empty;
+    all G when not given), and the (G,) int32 sizes."""
+    rows = M if rows is None else rows
+    live = G if live is None else live
+    elem = torch.empty((), dtype=dtype).element_size()
+    flops = 2 * rows * K * N
+    if kind == "dw":
+        nbytes = (M * K + M * N + G * K * N) * elem
+    elif kind in ("forward", "dx"):
+        nbytes = (M * K + live * K * N + M * N) * elem
+    else:
+        raise ValueError(f"unknown kind {kind!r}: expected one of {tuple(_KINDS)}")
+    return flops, nbytes + 4 * G
+
+
+def launch_config(a: torch.Tensor, b: torch.Tensor, G: int, *, kind: str = "forward") -> dict:
+    """The launch configuration a call of ``kind`` uses for these operands
+    (the C function its launch calls), ``G`` groups: output dims
+    ``(M, N, 1)`` forward, ``(M, K, 1)`` dx, ``(K, N, G)`` dw."""
+    if a.device.type != "cuda":
+        raise ValueError(f"the grouped matmul runs on CUDA tensors, got one on {a.device}")
+    if kind == "forward":
+        M, K, N = a.shape[0], a.shape[1], b.shape[2]
+    elif kind == "dx":
+        M, N, K = a.shape[0], a.shape[1], b.shape[1]
+    elif kind == "dw":
+        M, K, N = a.shape[0], a.shape[1], b.shape[1]
+    else:
+        raise ValueError(f"unknown kind {kind!r}: expected one of {tuple(_KINDS)}")
+    fn = _library().grouped_matmul_launch_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.POINTER(build.LaunchConfig)]
+    fn.restype = ctypes.c_int
+    return build.launch_config(fn, _KINDS[kind], _DTYPE_CODES[a.dtype], a.data_ptr(),
+                               b.data_ptr(), None, M, K, N, G)
+
+
 def kernel_path(a: torch.Tensor, b: torch.Tensor, *, kind: str = "forward") -> str:
     """The kernel a call launches for these operands: ``"wgmma"``
     (tensor cores, TMA) or ``"scalar"``. ``kind`` ``"forward"`` takes
@@ -104,7 +151,7 @@ def _check_operands(kernel: str, named, group_sizes: torch.Tensor) -> None:
     is ``[(name, tensor, rank), ...]``, the first tensor decides the
     device and dtype."""
     first, t0, _ = named[0]
-    if t0.device.type != "cuda":
+    if t0.device.type not in ("cuda", "meta"):
         raise ValueError(
             f"{kernel} runs on CUDA tensors, got {first} on {t0.device}; "
             "its plain version is in repro_torch.kernels.ref"
@@ -138,7 +185,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
             f"w {tuple(w.shape)} does not fit x {tuple(x.shape)} and "
             f"{group_sizes.shape[0]} groups"
         )
-    build.require_hopper(x.device, "grouped_matmul")
+    if not meta.is_meta(x):
+        build.require_hopper(x.device, "grouped_matmul")
 
 
 def _check_dx(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
@@ -148,7 +196,8 @@ def _check_dx(dy: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> N
             f"w {tuple(w.shape)} does not fit dy {tuple(dy.shape)} and "
             f"{group_sizes.shape[0]} groups"
         )
-    build.require_hopper(dy.device, "grouped_matmul_dx")
+    if not meta.is_meta(dy):
+        build.require_hopper(dy.device, "grouped_matmul_dx")
 
 
 def _check_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> None:
@@ -158,7 +207,15 @@ def _check_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> N
             f"dy {tuple(dy.shape)} does not fit x {tuple(x.shape)} and "
             f"{group_sizes.shape[0]} groups"
         )
-    build.require_hopper(x.device, "grouped_matmul_dw")
+    if not meta.is_meta(x):
+        build.require_hopper(x.device, "grouped_matmul_dw")
+
+
+def _meta_launch(wrapper, kind: str, out, M, K, N, G):
+    """The dry run's launch: the output is already allocated; the cost
+    (every row and group taken as live) goes to ``meta.report``."""
+    meta.report(wrapper.__name__, *cost(kind, M, K, N, G, out.dtype), out.dtype)
+    return out
 
 
 def _launch(fn_name: str, a, b, group_sizes, out, M, K, N, G) -> None:
@@ -187,6 +244,8 @@ def grouped_matmul(
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if meta.is_meta(x):
+        return _meta_launch(grouped_matmul, "forward", out, M, K, N, G)
     _launch("grouped_matmul_launch", x, w, group_sizes, out, M, K, N, G)
     grouped_matmul.launches += 1
     return out
@@ -209,6 +268,8 @@ def grouped_matmul_dx(
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
     if dx.numel() == 0:
         return dx
+    if meta.is_meta(dy):
+        return _meta_launch(grouped_matmul_dx, "dx", dx, M, K, N, G)
     _launch("grouped_matmul_dx_launch", dy, w, group_sizes, dx, M, K, N, G)
     grouped_matmul_dx.launches += 1
     return dx
@@ -232,6 +293,8 @@ def grouped_matmul_dw(
     dw = torch.empty((G, K, N), dtype=x.dtype, device=x.device)
     if dw.numel() == 0:
         return dw
+    if meta.is_meta(x):
+        return _meta_launch(grouped_matmul_dw, "dw", dw, M, K, N, G)
     _launch("grouped_matmul_dw_launch", x, dy, group_sizes, dw, M, K, N, G)
     grouped_matmul_dw.launches += 1
     return dw

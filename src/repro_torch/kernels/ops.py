@@ -10,7 +10,10 @@ decision is made, per tensor device:
   * ``"cuda"``  -> the hand-written kernel (it raises on a CPU tensor, and
     on a card other than sm_90);
   * ``"torch"`` -> the plain PyTorch version, on any device (the tests
-    and the chip smoke compare the kernel with it).
+    and the chip smoke compare the kernel with it);
+  * ``"meta"``  -> the kernel wrapper's meta branch (the dry run): taken
+    for a meta tensor under ``"auto"`` or ``"cuda"``, and for nothing
+    else.
 
 A CUDA tensor under ``"auto"`` always takes the kernel: there is no
 silent fall-back to the plain path. Unknown impl strings raise.
@@ -36,12 +39,17 @@ MODES = ("torch", "cuda")
 
 def resolve_mode(impl: str, device) -> str:
     """Resolve an ``impl`` string to an execution mode for ``device``."""
-    if impl == "auto":
-        return "cuda" if torch.device(device).type == "cuda" else "torch"
-    if impl not in MODES:
+    kind = torch.device(device).type
+    if impl not in ("auto", "meta") + MODES:
         raise ValueError(
-            f"unknown impl/mode {impl!r}: expected 'auto' or one of {MODES}"
+            f"unknown impl/mode {impl!r}: expected 'auto', 'meta' or one of {MODES}"
         )
+    if kind == "meta" and impl != "torch":
+        return "meta"
+    if impl == "meta":
+        raise ValueError(f"impl='meta' runs on meta tensors, got one on {kind}")
+    if impl == "auto":
+        return "cuda" if kind == "cuda" else "torch"
     return impl
 
 
@@ -92,7 +100,7 @@ def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
     kernels (``ctx.needs_input_grad`` decides which)."""
     if resolve_mode(impl, x.device) == "torch":
         return grouped_matmul_ref(x, w, group_sizes)
-    if x.device.type != "cuda":     # GroupedMatmul would take the plain versions
+    if x.device.type == "cpu":      # GroupedMatmul would take the plain versions
         raise ValueError(f"impl='cuda' runs on CUDA tensors, got x on {x.device}")
     return _gm.GroupedMatmul.apply(
         x.contiguous(), w.contiguous(), group_sizes.to(torch.int32).contiguous()

@@ -25,7 +25,13 @@ sizes).
 The wrapper launches on PyTorch's current stream without synchronizing
 and counts its launches in ``ssm_scan.launches``. It raises on anything
 the kernel does not take (and on a card other than sm_90); it never
-falls back to the plain version.
+falls back to the plain version. Given meta tensors (the dry run) it
+checks them as it checks CUDA ones, allocates what the kernel's launch
+allocates (y, the final state and, on the tensor-core path, the state
+ring; the path from ``meta_path``, which the card's kernel lint holds to
+the C rule) and reports the launch and its ``cost(...)`` to
+``meta.report``; the ``launches`` counter counts the card's launches
+only.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
@@ -84,6 +90,61 @@ def _scratch(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
+TC_WIDTHS = (16, 32, 48, 64, 128)    # P compiled for the tensor-core kernel
+
+
+def scalar_smem_bytes(P: int, N: int, Q: int) -> int:
+    """``ssm_scan_smem_bytes`` of ``csrc/ssm_scan.cu``: the scalar block's
+    shared memory, which the meta branch holds to the card's limit as the
+    CUDA branch does (the kernel lint compares the two on the card)."""
+    ldn, ldm = N + 1 - N % 2, Q + 1 - Q % 2       # odd_stride
+    return 4 * (N * P + Q * P + 2 * Q * ldn + min(Q, 32) * ldm + 3 * Q)
+
+
+def meta_path(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
+    """The kernel a call with these widths takes when x, B and C are
+    16-byte aligned (a fresh allocation is): the C rule ``tc_path``,
+    which a meta tensor cannot be asked (it has no address). Its shared
+    memory test is left out: at these widths the block needs at most
+    220,176 bytes. The card's kernel lint holds this to ``tc_path``."""
+    tc = (dtype == torch.bfloat16 and P in TC_WIDTHS and N % 16 == 0 and 0 < N <= 128
+          and chunk % 16 == 0 and 0 < chunk <= MAX_CHUNK)
+    return "mma" if tc else "scalar"
+
+
+def cost(B: int, S: int, H: int, P: int, N: int, chunk: int, dtype: torch.dtype):
+    """``(flops, bytes)`` of one launch: per chunk of Q = chunk positions
+    and head, the masked C B^T (2 tri N), its product with x (2 tri P)
+    and the state's update and read-out (4 Q N P), tri = Q (Q + 1) / 2;
+    x, B, C, dt and A read once, y and the fp32 final state written
+    once."""
+    Q = chunk
+    tri = Q * (Q + 1) // 2
+    elem = torch.empty((), dtype=dtype).element_size()
+    flops = B * H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
+    nbytes = (2 * B * S * H * P * elem + B * S * H * 4 + H * 4 + 2 * B * S * N * elem
+              + B * H * N * P * 4)
+    return flops, nbytes
+
+
+def launch_config(x: torch.Tensor, B_mat: torch.Tensor, chunk: int,
+                  C_mat: torch.Tensor = None) -> dict:
+    """The launch configuration ``ssm_scan(x, dt, A, B_mat, C_mat,
+    chunk=chunk)`` uses (the C function its launch calls): output dims
+    ``(S, H, B)``."""
+    C_mat = B_mat if C_mat is None else C_mat
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on CUDA tensors, got x on {x.device}")
+    fn = _library().ssm_scan_launch_config
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(build.LaunchConfig)]
+    fn.restype = ctypes.c_int
+    Bsz, S, H, P = x.shape
+    return build.launch_config(fn, _DTYPE_CODES[x.dtype], Bsz, S, H, P, B_mat.shape[-1],
+                               min(chunk, S), x.data_ptr(), B_mat.data_ptr(),
+                               C_mat.data_ptr())
+
+
 def kernel_path(x: torch.Tensor, B_mat: torch.Tensor, chunk: int,
                 C_mat: torch.Tensor = None) -> str:
     """The kernel ``ssm_scan(x, dt, A, B_mat, C_mat, chunk=chunk)``
@@ -101,7 +162,7 @@ def kernel_path(x: torch.Tensor, B_mat: torch.Tensor, chunk: int,
 
 
 def _check(x, dt, A, B_mat, C_mat, chunk: int) -> None:
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(
             f"ssm_scan runs on CUDA tensors, got x on {x.device}; "
             "the plain version is repro_torch.kernels.ref.ssm_scan_ref"
@@ -129,7 +190,8 @@ def _check(x, dt, A, B_mat, C_mat, chunk: int) -> None:
                          f"fit x {tuple(x.shape)}")
     if not 0 < chunk <= MAX_CHUNK or S % chunk:
         raise ValueError(f"chunk {chunk} must be in 1..{MAX_CHUNK} and divide S={S}")
-    build.require_hopper(x.device, "ssm_scan")
+    if not meta.is_meta(x):
+        build.require_hopper(x.device, "ssm_scan")
 
 
 def ssm_scan(
@@ -150,6 +212,8 @@ def ssm_scan(
     N = B_mat.shape[-1]
     y = torch.empty_like(x)
     h_out = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    if meta.is_meta(x):
+        return _meta_launch(x, y, h_out, Bsz, S, H, P, N, chunk)
     lib = _library()
     mma = kernel_path(x, B_mat, chunk, C_mat) == "mma"
     smem = lib.ssm_scan_smem_bytes(P, N, chunk)
@@ -181,3 +245,24 @@ def ssm_scan(
 
 
 ssm_scan.launches = 0
+
+
+def _meta_launch(x, y, h_out, Bsz, S, H, P, N, chunk):
+    """The dry run's launch: what the card's launch allocates (the state
+    ring on the tensor-core path; the zeroed scratch is kept per stream
+    and not counted) and the report of the launch and its cost."""
+    path = meta_path(x.dtype, P, N, chunk)
+    smem = scalar_smem_bytes(P, N, chunk)
+    if path == "scalar" and smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"P={P}, N={N}, chunk={chunk} needs {smem} bytes of shared memory "
+            f"per block, over the {MAX_SMEM_BYTES} an sm_90 block may use"
+        )
+    if y.numel() == 0:
+        return y, h_out
+    if path == "mma":
+        ring = torch.empty(scratch_sizes(Bsz, S, H, P, N, chunk)[0], dtype=torch.float32,
+                           device=x.device)
+        del ring
+    meta.report("ssm_scan", *cost(Bsz, S, H, P, N, chunk, x.dtype), x.dtype)
+    return y, h_out

@@ -80,15 +80,21 @@ def _sync(device) -> None:
 
 
 def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
-        device="cuda", timer=None) -> dict:
+        device="cuda", timer=None, cost=None) -> dict:
     """Serve ``batch`` prompts of ``prompt_len`` tokens from the synthetic
     corpus and decode ``gen`` tokens greedily, with random weights from
     ``seed``. Returns the prefill and per-token decode times (host clock
     around synchronized work), each kernel's launches in the prefill and
     in the decode, the generated ids (B, gen), the last logits and, on
-    the card, the peak memory allocated. An enabled ``timer``
+    the card, the bytes allocated once the weights, prompts and caches
+    are in place and the peak memory allocated. An enabled ``timer``
     (``repro_torch.telemetry.StepTimer``) records one fenced span per
-    prefill and per decode step."""
+    prefill and per decode step.
+
+    On the meta device (the dry run, ``repro_torch.launch.dryrun``) the
+    same calls run on shapes alone: ``cost``, the ``CostMode`` the call
+    runs in, takes the state as resident where the card resets its peak
+    statistics, and no ids come back."""
     import torch
 
     from repro_torch.telemetry import StepTimer
@@ -123,8 +129,12 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
             (batch, cfg.encoder_seq, cfg.frontend_dim or cfg.d_model),
             dtype=torch.bfloat16, device=device,
         )
+    resident = None
     if device.type == "cuda":
+        resident = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
+    if cost is not None:
+        resident = cost.mark_resident()
 
     def launches():
         return {name: fn.launches for name, fn in kernels.items()}
@@ -157,8 +167,10 @@ def run(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         decode_ms_per_token=t_decode / max(gen - 1, 1) * 1e3,
         prefill_launches={k: after_prefill[k] - before[k] for k in kernels},
         decode_launches={k: after_decode[k] - after_prefill[k] for k in kernels},
-        generated=torch.stack(out, dim=1).cpu().numpy(),
+        generated=(None if device.type == "meta"
+                   else torch.stack(out, dim=1).cpu().numpy()),
         logits=logits,
+        resident_bytes=resident,
         peak_bytes=(torch.cuda.max_memory_allocated(device)
                     if device.type == "cuda" else None),
     )

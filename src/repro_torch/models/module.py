@@ -84,9 +84,14 @@ class ParamBuilder:
         )
 
     def init(self, seed: int, device) -> PyTree:
+        """The tree on ``device`` from ``seed``; on the meta device (the dry
+        run) empty tensors of the same shapes and dtypes, drawn from nothing."""
         device = torch.device(device)
         out: Dict[str, Any] = {}
         for path, decl in self.decls.items():
+            if device.type == "meta":
+                _assign(out, path, torch.empty(decl.shape, dtype=decl.dtype, device=device))
+                continue
             gen = torch.Generator(device=device)
             gen.manual_seed(_fold_path(seed, path))
             _assign(out, path, decl.init(gen, decl.shape, decl.dtype, device))

@@ -43,7 +43,7 @@ Their load-balance and router-z losses are summed over the
 layers into the training loss.
 
 Where PyTorch would raise an opaque indexing error, the port raises a
-``ValueError`` naming the cause: serving positions past ``max_len`` in
+``PositionRangeError`` (a ``ValueError``) naming the cause: serving positions past ``max_len`` in
 a model with a full-length KV cache (it has no room for them; Mamba
 states and ring caches have no end) and learned positions past
 ``max_position``. The JAX model drops such cache writes and clamps such
@@ -91,6 +91,12 @@ from repro_torch.models.module import (
 from repro_torch.tree import tree_leaves, tree_map
 
 SCAN_THRESHOLD = 8
+
+
+class PositionRangeError(ValueError):
+    """Positions the model has no room for: past ``max_len`` with a
+    full-length KV cache, or past the learned or sinusoidal table. The
+    JAX model drops or clamps them; the port refuses."""
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +322,7 @@ class Model:
             table_len = cfg.max_position
         end = start + x.shape[1]
         if end > table_len:
-            raise ValueError(
+            raise PositionRangeError(
                 f"{cfg.name}: positions up to {end - 1} lie past the {cfg.pos_embed} "
                 f"position table of {table_len} (max_position); the JAX model clamps "
                 "them, the port refuses"
@@ -583,7 +589,7 @@ class Model:
         B, S = x.shape[0], x.shape[1]
         full_kv = any(spec is not None and not spec.ring for spec in self.cache_specs(max_len))
         if full_kv and start + S > max_len:
-            raise ValueError(
+            raise PositionRangeError(
                 f"{cfg.name}: serving positions {start}..{start + S - 1} do not fit "
                 f"max_len {max_len} (prefix + prompt + generated tokens); the JAX "
                 "model drops such cache writes, the port refuses"
@@ -639,7 +645,7 @@ def _stacked_init(builder: ParamBuilder, seed: int, count: int, device):
     stacked: Dict[str, Any] = {}
     for path, decl in builder.decls.items():
         leaf = torch.empty((count,) + decl.shape, dtype=decl.dtype, device=device)
-        for i in range(count):
+        for i in range(count if device.type != "meta" else 0):   # meta: nothing to draw
             gen = torch.Generator(device=device)
             gen.manual_seed(_fold_path(_fold_path(seed, str(i)), path))
             leaf[i].copy_(decl.init(gen, decl.shape, decl.dtype, device))

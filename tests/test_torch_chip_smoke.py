@@ -1,8 +1,10 @@
 """chip_smoke.py's helpers that run without a card: the ptxas report
 parser and its wgmma-serialization note, the count of live (query, key)
-pairs behind the flash bound, the SSD chunk scan's bound and the
-profiler's names of the port's kernels, and the grouped-matmul launches
-a MoE training pass makes."""
+pairs behind the flash bound (now the kernel module's ``cost()``), the
+SSD chunk scan's bound and the profiler's names of the port's kernels,
+the grouped-matmul launches a MoE training pass makes, and the dry-run,
+sweep and examples phases: listed, wired into ``main`` and, for the dry
+run, predicting on meta tensors what the card measured."""
 import importlib.util
 from pathlib import Path
 
@@ -61,7 +63,19 @@ def test_wgmma_serialized_names_the_kernels_ptxas_serializes(smoke):
 ])
 def test_flash_pairs_counts_the_live_query_key_pairs(smoke, Sq, Sk, causal, window,
                                                      kv_len, want):
-    assert smoke.flash_pairs(Sq, Sk, causal, window, kv_len) == want
+    # the count behind the flash bound lives in the kernel module's cost()
+    from repro_torch.kernels.flash_attention import cost, live_pairs
+
+    assert live_pairs(Sq, Sk, causal, window, kv_len) == want
+    flops, _ = cost(1, Sq, Sk, 1, 1, 32, smoke_bf16(), causal=causal, window=window,
+                    kv_len=kv_len)
+    assert flops == 4 * 32 * want
+
+
+def smoke_bf16():
+    import torch
+
+    return torch.bfloat16
 
 
 @pytest.mark.parametrize("H,want_mb", [(32, 153.1), (128, 587.2)], ids=["mamba2", "jamba"])
@@ -106,3 +120,82 @@ def test_moe_launches_counts_forward_remat_dx_and_dw(smoke, remat, passes):
         "grouped_matmul_dx": 2 * 3 * passes,
         "grouped_matmul_dw": 2 * 3 * passes,
     }
+
+
+def test_new_phases_are_listed_and_wired(smoke):
+    import ast
+
+    doc = smoke.__doc__
+    for n, name in ((8, "dryrun"), (9, "sweep"), (10, "examples")):
+        assert f"{n}. {name}" in doc
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    calls = [c.func.id for c in ast.walk(main)
+             if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)]
+    order = [calls.index(p) for p in ("phase_tests", "phase_dryrun", "phase_sweep",
+                                      "phase_examples")]
+    assert order == sorted(order)
+    assert smoke.DRY_PEAK_TOL == 0.10
+
+
+def test_dry_configs_cover_every_driven_configuration(smoke):
+    labels = [label for label, _, _ in smoke.dry_configs()]
+    assert len(labels) == 2 + 2 + len(smoke.serving_configs()) + 4
+    assert labels[0].startswith("train masked") and labels[1].startswith("train overlap")
+    assert "after a warm-up step" in labels[1]
+    assert all(label.startswith("consensus_distance") for label in labels[2:4])
+    assert sum(label.startswith("sdpa_chunked") for label in labels) == 2
+
+
+def test_dry_run_predicts_what_the_card_measured(smoke):
+    """The card's numbers (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6):
+    masked step resident 32,313,606,656 B, peak 44.51 GB; the dbrx MoE
+    block 6,744,834,048 B and 18.728 GB."""
+    configs = {label.split(" (")[0]: predict for label, predict, _ in smoke.dry_configs()}
+    cm = configs["train masked"]()
+    assert cm.argument_bytes == 32313606656
+    assert abs(cm.peak / 44.511e9 - 1) < smoke.DRY_PEAK_TOL
+    assert dict(cm.launches) == {"gossip_axpy": 12}
+    cm = configs["dbrx MoE block fwd+bwd"]()
+    assert cm.argument_bytes == 6744834048
+    assert abs(cm.peak / 18.728e9 - 1) < 0.001
+    assert dict(cm.launches) == dict.fromkeys(
+        ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw"), 3)
+
+
+def test_dry_run_predicts_the_steady_overlap_step_and_the_consensus_peaks(smoke):
+    """The card's numbers (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the
+    overlap step after a warm-up step 48,470,393,344 B resident and
+    56.551 GB at the peak, as from a fresh state; ``consensus_distance``
+    over the overlap state 61.359 GB and over the masked state 45.203:
+    the peaks phase 3 reports (61.427 / 45.270 GB with what else it
+    holds), which are this call's, not a step's."""
+    configs = {label.split(" (")[0]: predict for label, predict, _ in smoke.dry_configs()}
+    cm = configs["train overlap"]()
+    assert cm.argument_bytes == 48470393344
+    assert abs(cm.peak / 56.551e9 - 1) < 0.001
+    assert dict(cm.launches) == {"gossip_axpy": 12}
+    for mode, peak in (("masked", 45.203e9), ("overlap", 61.359e9)):
+        cm = configs[f"consensus_distance over the {mode} state"]()
+        assert abs(cm.peak / peak - 1) < 0.001, mode
+        assert not cm.launches
+
+
+def test_sweep_close_holds_gossip_bit_for_bit(smoke):
+    import torch
+
+    from repro_torch.analysis import kernel_cases
+
+    case = kernel_cases.shared_cases()[0]
+    x, y = case.make("cpu")
+    want = case.run_plain(x, y)
+    assert smoke.sweep_close(torch, case, want.clone(), want) == 0.0
+    off = want.clone()
+    off[0, 0] = torch.nextafter(off[0, 0], torch.tensor(1e9))
+    assert smoke.sweep_close(torch, case, off, want) == float("inf")
+    gmm = next(c for c in kernel_cases.sweep_cases("dbrx_132b")
+               if c.label == "dbrx_132b/tiny/grouped_matmul_dw/ragged")
+    t = gmm.make("cpu")
+    want = gmm.run_plain(*t)
+    assert smoke.sweep_close(torch, gmm, want + 1e-3, want) < 2e-3
+    assert smoke.sweep_close(torch, gmm, want + 1.0, want) == float("inf")

@@ -69,3 +69,24 @@ def test_importing_the_port_leaves_jax_unloaded():
     )
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.startswith("OK")
+
+
+NEW_IN_PR_21 = [
+    "launch/dryrun.py", "analysis/cost.py", "analysis/launch_counts.py",
+    "analysis/checks.py", "analysis/schedule.py", "analysis/kernel_cases.py",
+    "analysis/kernel_lint.py", "analysis/docs_lint.py", "analysis/check.py",
+    "kernels/meta.py", "examples/quickstart.py", "examples/topology_explorer.py",
+    "examples/serve_batched.py", "examples/train_decentralized.py",
+]
+
+
+def test_dry_run_analysis_and_example_modules_stand_alone():
+    """The dry run, the analysis checks and the examples are the port's
+    own modules (copies where the JAX package's are numpy only), with no
+    import of jax or of the JAX package."""
+    for rel in NEW_IN_PR_21:
+        path = PORT / rel
+        assert path.exists(), rel
+        roots = {root for _, root in _imported_roots(path)}
+        assert not roots & FORBIDDEN, (rel, roots & FORBIDDEN)
+        assert "importlib" not in roots or rel == "analysis/docs_lint.py", rel
