@@ -150,7 +150,24 @@ non-zero exit:
            configuration the library reports, and the kernel against its
            plain version at the phase-2 tolerances (gossip bit for bit);
 10. examples the four examples (``repro_torch.examples``) on the card at a
-           few steps each.
+           few steps each;
+11. fsdp   the sharded-replica trainer (``repro_torch.dist.fsdp``) in an
+           NCCL world of one (a file store in a temporary directory),
+           internlm2-1.8b at published width with depth cut 24 -> 8 (one
+           scanned segment), 4 nodes on ``ring``, MATCHA budget 0.5, 4 x
+           128 tokens a node, fp32 params, bf16 compute, SGD lr 0.05
+           momentum 0.9: 3 masked steps in the monolithic, streamed
+           (``scan_aware=False``) and scan-streamed layouts at S 1, then 3
+           overlap steps and the flush scan-streamed, each against the
+           replicated ``TrainStep`` / ``OverlapStep`` from the same weights
+           (monolithic bit for bit; the streamed layouts and overlap within
+           loss 5e-6 / 1e-6 and params 2e-6); per layout the median step,
+           its phase split, the peak above resident beside the byte
+           model's gathered view, and gossip_axpy launches equal to
+           ``analysis.launch_counts.fsdp_train_step``; one
+           ``measure_fsdp_collectives`` row. With two cards or more the S 2
+           and R_data 2 worlds run over NCCL against the world of one;
+           with one card a line says they were not run.
 
 Then it prints the card's name and power limit, one JSON line with every
 ported kernel's numbers, and, last, the device JSON line.
@@ -1954,6 +1971,338 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the sharded-replica (FSDP) trainer through NCCL
+# ---------------------------------------------------------------------------
+FSDP_LAYERS, FSDP_NODES, FSDP_STEPS = 8, 4, 3
+# streamed layouts against monolithic (tests/test_stream_fsdp.py's limits)
+FSDP_TOL = {"loss_atol": 5e-6, "loss_rtol": 1e-6, "params": 2e-6}
+FSDP_MULTI_TOL = 5e-5           # S 2 against the world of one (tests/test_fsdp_parity.py)
+FSDP_DEVICE = "cuda"            # the phase's device (NCCL on it)
+
+
+def fsdp_config():
+    """internlm2-1.8b at published width, depth 24 -> 8: one scanned
+    segment (``SCAN_THRESHOLD`` 8), so the scan-aware layout streams rows."""
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config("internlm2_1_8b"), num_layers=FSDP_LAYERS)
+
+
+def fsdp_bytes(cfg, nodes: int = FSDP_NODES) -> dict:
+    """The phase's byte reckoning from the shapes (fp32 buckets, S 1):
+    one node's params, the params, velocities and overlap GossipState of
+    every node, and the gathered view of each layout."""
+    from repro_torch.analysis import bytes_model
+
+    (row,) = bytes_model.fsdp_bytes_rows(shard_factors=(1,), cfg=cfg, label=cfg.name)
+    node = row["padded_param_bytes"]
+    return dict(params_per_node=row["raw_param_bytes"] // 4, node_bytes=node,
+                params=nodes * node, velocities=nodes * node, gossip_state=nodes * node,
+                monolithic=row["peak_transient_bytes_monolithic"],
+                streamed=row["peak_transient_bytes_streamed"],
+                scan_streamed=row["peak_transient_bytes_scan_streamed"])
+
+
+def fsdp_expected_launches(num_buckets: int, gossip_mode: str, steps: int = FSDP_STEPS) -> int:
+    from repro_torch.analysis import launch_counts
+
+    return launch_counts.fsdp_train_step(num_buckets, gossip_mode=gossip_mode, steps=steps,
+                                         flush=gossip_mode == "overlap")["gossip_axpy"]
+
+
+def fsdp_not_run_line(cards: int):
+    """The line printed when the multi-card worlds cannot run (None with
+    two cards or more)."""
+    if cards >= 2:
+        return None
+    return (f"fsdp: {cards} CUDA card here: the S 2 and R_data 2 worlds over NCCL were not "
+            "run (they need two cards; the CPU tests hold them over gloo)")
+
+
+def fsdp_replicated(torch, model, opt, plan, batches, bits, mode):
+    """The replicated step from seed 0: its params (kept on the card) and
+    its (steps, nodes) losses."""
+    from repro_torch.dist import decen_train as dt
+
+    params = dt.init_stacked_params(model, FSDP_NODES, seed=0, device=FSDP_DEVICE)
+    opt_state = dt.init_stacked_opt_state(opt, model, FSDP_NODES, device=FSDP_DEVICE)
+    step = dt.make_train_step(model, opt, plan, gossip_mode=mode)
+    gstate = (dt.init_gossip_state(plan, step.bplan, device=FSDP_DEVICE) if mode == "overlap"
+              else None)
+    losses = []
+    for batch, b in zip(batches, bits):
+        if gstate is not None:
+            params, opt_state, gstate, loss, _ = step(params, opt_state, gstate, batch, b)
+        else:
+            params, opt_state, loss, _ = step(params, opt_state, batch, b)
+        losses.append(loss)
+    if gstate is not None:
+        params = dt.make_gossip_flush(plan, step.bplan)(params, gstate, inplace=True)
+    del opt_state, gstate
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return params, torch.stack(losses)
+
+
+def fsdp_sharded(torch, model, opt, plan, spec, layout, batches, bits, mode):
+    """The sharded step from seed 0: shards, losses and the run's
+    numbers (step times, phase splits, launches, resident and peak)."""
+    from repro_torch.dist import fsdp
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+
+    shards = fsdp.init_fsdp_params(model, layout, spec, seed=0, device=FSDP_DEVICE)
+    opt_state = fsdp.init_fsdp_opt_state(opt, layout, spec, device=FSDP_DEVICE)
+    step = fsdp.make_fsdp_train_step(model, opt, plan, spec, layout, gossip_mode=mode)
+    gstate = fsdp.init_fsdp_gossip_state(layout, spec, device=FSDP_DEVICE) if mode == "overlap" \
+        else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, phases = [], [], []
+    gossip_axpy.launches = 0
+    for batch, b in zip(batches, bits):
+        t0 = time.perf_counter()
+        if gstate is not None:
+            shards, opt_state, gstate, loss, _ = step(shards, opt_state, gstate, batch, b)
+        else:
+            shards, opt_state, loss, _ = step(shards, opt_state, batch, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        phases.append(step.last_phases.ms())
+        losses.append(loss)
+    if gstate is not None:
+        shards = fsdp.make_fsdp_gossip_flush(plan, layout)(shards, gstate, inplace=True)
+    torch.cuda.synchronize()
+    launches = gossip_axpy.launches
+    peak = torch.cuda.max_memory_allocated() - resident
+    del opt_state, gstate
+    torch.cuda.empty_cache()
+    return shards, torch.stack(losses), dict(step_ms=step_ms, phases=phases,
+                                             launches=launches, resident=resident, peak=peak)
+
+
+def fsdp_params_err(torch, layout, shards, ref_params):
+    """Max abs difference of the sharded run's params (an S 1 world's
+    shards, read as views) from the replicated run's, and whether every
+    leaf is bit-equal."""
+    from repro_torch.dist import bucketing
+    from repro_torch.tree import flatten
+
+    got = flatten(layout.unravel_stacked(bucketing.unshard_buckets(
+        tuple(s.unsqueeze(1) for s in shards))))
+    want = flatten(ref_params)
+    err, equal = 0.0, True
+    for path, w in want.items():
+        equal = equal and torch.equal(got[path], w)
+        err = max(err, float((got[path] - w).abs().max()))
+    return err, equal
+
+
+def phase_fsdp(torch, cfg=None):
+    """Phase 11 (see the module docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import fsdp
+    from repro_torch.launch.mesh import backend_for, make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.telemetry import probes as tprobes
+
+    t_phase = time.perf_counter()
+    cfg = cfg or fsdp_config()
+    model = Model(cfg)
+    opt = sgd(0.05, momentum=0.9)
+    plan = plan_matcha(named_graph("ring", FSDP_NODES, seed=3), 0.5, seed=0)
+    schedule = plan.schedule(FSDP_STEPS, seed=0)
+    bits = [torch.as_tensor(schedule.activations[k].astype("float32"), device=FSDP_DEVICE)
+            for k in range(FSDP_STEPS)]
+    data = DecentralizedBatches(cfg, FSDP_NODES, BATCH, SEQ, seed=0, device=FSDP_DEVICE)
+    batches = [next(data) for _ in range(FSDP_STEPS)]
+    reck = fsdp_bytes(cfg)
+    gb = lambda b: f"{b / 1e9:.3f} GB"
+    log(f"fsdp: {cfg.name} d_model {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+        f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size}; reduced: num_layers 24 -> "
+        f"{FSDP_LAYERS}; {reck['params_per_node']} params a node ({gb(reck['node_bytes'])} fp32), "
+        f"{FSDP_NODES} nodes on ring: params {gb(reck['params'])}, velocities "
+        f"{gb(reck['velocities'])}, overlap GossipState {gb(reck['gossip_state'])}; gathered "
+        f"view monolithic {gb(reck['monolithic'])}, streamed {gb(reck['streamed'])}, "
+        f"scan-streamed {gb(reck['scan_streamed'])}")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend_for(FSDP_DEVICE), init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=torch.device(FSDP_DEVICE, 0))
+        try:
+            spec = dt.make_spec(make_mesh(shard=1, device=FSDP_DEVICE), FSDP_NODES)
+            layouts = {"monolithic": fsdp.make_layout(model, spec),
+                       "streamed": fsdp.make_stream_layout(model, spec, scan_aware=False),
+                       "scan-streamed": fsdp.make_stream_layout(model, spec)}
+            for mode in ("masked", "overlap"):
+                ref, ref_losses = fsdp_replicated(torch, model, opt, plan, batches, bits, mode)
+                names = ("scan-streamed",) if mode == "overlap" else tuple(layouts)
+                for name in names:
+                    layout = layouts[name]
+                    shards, losses, run = fsdp_sharded(
+                        torch, model, opt, plan, spec, layout, batches, bits,
+                        "sequential" if mode == "masked" else mode)
+                    err, equal = fsdp_params_err(torch, layout, shards, ref)
+                    del shards
+                    torch.cuda.empty_cache()
+                    run.update(name=f"{name} {mode}", buckets=layout.plan.num_buckets,
+                               params_err=err, params_equal=equal,
+                               loss_err=float((losses - ref_losses).abs().max()),
+                               loss_equal=torch.equal(losses, ref_losses),
+                               loss_close=torch.allclose(losses, ref_losses,
+                                                         atol=FSDP_TOL["loss_atol"],
+                                                         rtol=FSDP_TOL["loss_rtol"]),
+                               expected=fsdp_expected_launches(
+                                   layout.plan.num_buckets,
+                                   "sequential" if mode == "masked" else mode),
+                               predicted=reck[name.replace("-", "_")],
+                               loss=float(losses[-1].mean()))
+                    runs[run["name"]] = run
+                del ref
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            probe = tprobes.measure_fsdp_collectives(spec, layouts["scan-streamed"], iters=3)
+            probe_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    for run in runs.values():
+        steady = sorted(range(FSDP_STEPS), key=lambda k: run["step_ms"][k])
+        mid = steady[len(steady) // 2]
+        split = ", ".join(f"{k} {v:.1f}" for k, v in run["phases"][mid].items())
+        log(f"fsdp: {run['name']}: {run['buckets']} buckets; median step "
+            f"{run['step_ms'][mid]:.1f} ms (steps " + ", ".join(
+                f"{t:.1f}" for t in run["step_ms"]) + f" ms; phases of the median step: "
+            f"{split} ms); resident {gb(run['resident'])}, peak above resident "
+            f"{gb(run['peak'])} (byte model's gathered view {gb(run['predicted'])}); "
+            f"gossip_axpy launches {run['launches']} (expected {run['expected']}); last loss "
+            f"{run['loss']:.4f}; against the replicated step: loss max diff "
+            f"{run['loss_err']:.3e} (bit-equal {run['loss_equal']}), params max diff "
+            f"{run['params_err']:.3e} (bit-equal {run['params_equal']})")
+    bw = probe["bytes_per_node"] * FSDP_NODES / 1e9
+    log(f"fsdp: measure_fsdp_collectives over the NCCL shard group of one (scan-streamed "
+        f"layout, {FSDP_NODES} nodes, {bw:.2f} GB of fp32 buckets): gather mean "
+        f"{probe['gather']['mean_ms']:.3f} ms (p50 {probe['gather']['p50_ms']:.3f}), "
+        f"reduce_scatter mean {probe['reduce_scatter']['mean_ms']:.3f} ms (p50 "
+        f"{probe['reduce_scatter']['p50_ms']:.3f}); {probe_s:.1f} s with set-up")
+    note = fsdp_not_run_line(torch.cuda.device_count())
+    if note:
+        log(note)
+    else:
+        fsdp_multi_card(torch)
+    log(f"fsdp: phase {time.perf_counter() - t_phase:.1f} s")
+    for run in runs.values():
+        if run["launches"] != run["expected"]:
+            fail(f"fsdp {run['name']}: {run['launches']} gossip_axpy launches, "
+                 f"expected {run['expected']}")
+        if not math.isfinite(run["loss"]):
+            fail(f"fsdp {run['name']}: loss {run['loss']} not finite")
+    mono = runs["monolithic masked"]
+    if not (mono["params_equal"] and mono["loss_equal"]):
+        fail("fsdp: the monolithic S 1 step is not bit-equal to the replicated step "
+             f"(loss diff {mono['loss_err']:.3e}, params {mono['params_err']:.3e})")
+    for name in ("streamed masked", "scan-streamed masked", "scan-streamed overlap"):
+        run = runs[name]
+        if not (run["loss_close"] and run["params_err"] <= FSDP_TOL["params"]):
+            fail(f"fsdp {name}: loss diff {run['loss_err']:.3e}, params "
+                 f"{run['params_err']:.3e} past {FSDP_TOL}")
+
+
+def _fsdp_rank(rank: int, world: int, init_method: str, case: str, out: str) -> None:
+    """One rank of a two-card world (``case`` s2: S 2; r2: R_data 2) at
+    the tiny preset, fp32: 3 masked steps against the replicated
+    single-process step on this rank's card; rank 0 writes the max
+    params and loss differences to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import fsdp
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import flatten
+
+    device = init_world("cuda", rank=rank, world_size=world, init_method=init_method)
+    try:
+        cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), compute_dtype="float32")
+        model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+        plan = plan_matcha(named_graph("ring", FSDP_NODES, seed=3), 0.5, seed=0)
+        sched = plan.schedule(FSDP_STEPS, seed=0)
+        data = DecentralizedBatches(cfg, FSDP_NODES, BATCH, 32, seed=0, device=device)
+        batches = [next(data) for _ in range(FSDP_STEPS)]
+        bits = [sched.activations[k].astype("float32") for k in range(FSDP_STEPS)]
+        spec = dt.make_spec(make_mesh(shard=world if case == "s2" else 1, device=device),
+                            FSDP_NODES)
+
+        def replicated(s):
+            p = dt.init_stacked_params(model, FSDP_NODES, seed=0, device=device)
+            o = dt.init_stacked_opt_state(opt, model, FSDP_NODES, device=device)
+            if s is not None:
+                p, o = s.local(p), s.local(o)
+            step = dt.make_train_step(model, opt, plan, spec=s)
+            losses = []
+            for batch, b in zip(batches, bits):
+                p, o, loss, _ = step(p, o, batch, b)
+                losses.append(loss)
+            return p, torch.stack(losses)
+
+        ref, ref_losses = replicated(None)
+        if case == "s2":
+            layout = fsdp.make_stream_layout(model, spec)
+            shards = fsdp.init_fsdp_params(model, layout, spec, seed=0, device=device)
+            opt_state = fsdp.init_fsdp_opt_state(opt, layout, spec, device=device)
+            step = fsdp.make_fsdp_train_step(model, opt, plan, spec, layout)
+            losses = []
+            for batch, b in zip(batches, bits):
+                shards, opt_state, loss, _ = step(shards, opt_state, batch, b)
+                losses.append(loss)
+            got, losses = fsdp.gather_params(layout, shards, spec), torch.stack(losses)
+        else:
+            got, losses = replicated(spec)
+            ref = spec.local(ref)
+            ref_losses = ref_losses[:, spec.node_lo:spec.node_hi]
+        g, w = flatten(got), flatten(ref)
+        err = dict(params=max(float((g[k] - w[k]).abs().max()) for k in w),
+                   loss=float((losses - ref_losses).abs().max()))
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(err, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_multi_card(torch) -> None:
+    """The S 2 and R_data 2 worlds over NCCL on two cards against the
+    single-process step (S 2 within 5e-5, R_data 2 bit for bit)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    for case, tol in (("s2", FSDP_MULTI_TOL), ("r2", 0.0)):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "err.json")
+            spawn(_fsdp_rank, 2, "cuda", args=(case, out))
+            with open(out) as f:
+                err = json.load(f)
+        log(f"fsdp: {case} over NCCL on 2 cards against one process: params max diff "
+            f"{err['params']:.3e}, loss {err['loss']:.3e} (limit {tol})")
+        if not (err["params"] <= tol and err["loss"] <= tol):
+            fail(f"fsdp {case} over NCCL: {err} past {tol}")
+
+
 def check_overlap_apply(torch, bplan, alpha, params, gstate):
     """The pending correction landed on every leaf through the kernel and
     through the plain version, out of place, from the same state: bit
@@ -2615,6 +2964,8 @@ def main() -> None:
     phase_dryrun(torch)
     phase_sweep(torch)
     phase_examples(torch)
+    torch.cuda.empty_cache()
+    phase_fsdp(torch)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
         "(436.9 s on an NVIDIA H100 80GB HBM3 at 700 W before phases 8-10)")
 

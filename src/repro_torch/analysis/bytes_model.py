@@ -1,10 +1,10 @@
 """The analytic byte model: the port's copy of ``repro.analysis.bytes_model``.
 
 The training CLI's ``--trace`` takes each step's modeled gossip bytes
-from ``tree_storage_bytes``. The formulas are the JAX package's;
-``fsdp_bytes_rows``, which builds the FSDP bucket layouts of a smoke
-model, is not copied: it waits for the port of the FSDP runtime
-(ROADMAP queue 1, item 15).
+from ``tree_storage_bytes`` (``bucket_plan_bytes`` for a sharded run).
+The formulas are the JAX package's; ``fsdp_bytes_rows`` builds the three
+FSDP bucket layouts of a model (``repro_torch.dist.fsdp``) from its
+parameter shapes, nothing allocated.
 
 Columns (all bytes, fp32 buckets unless noted):
 
@@ -33,6 +33,7 @@ import numpy as np
 __all__ = [
     "bucket_plan_bytes",
     "fsdp_bytes_row",
+    "fsdp_bytes_rows",
     "train_resident_bytes",
     "train_transient_bound",
     "tree_storage_bytes",
@@ -103,6 +104,46 @@ def fsdp_bytes_row(
         num_layer_groups=gplan.num_buckets,
     )
     return row
+
+
+def fsdp_bytes_rows(
+    arch: str = "internlm2_1_8b",
+    shard_factors=(1, 2, 4),
+    *,
+    num_layers: int = 0,
+    label: str = "",
+    cfg=None,
+) -> list:
+    """Analytic rows for one smoke arch (or ``cfg``) across shard factors,
+    from the real bucket layouts (``pad_to=S``) of its parameter shapes.
+    ``num_layers`` / ``label`` deepen the config so a scanned stack forms
+    and report it under another label."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.dist import bucketing
+    from repro_torch.dist.fsdp import param_group_subtrees
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import tree_leaves
+
+    cfg = cfg if cfg is not None else get_smoke_config(arch)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    model = Model(cfg)
+    abs_local = model.param_shapes()
+    groups = tuple(model.param_group_specs())
+    named_groups = param_group_subtrees(model, abs_local=abs_local, groups=groups)
+    scan_repeats = tuple(g.repeats for g in groups)
+    raw_bytes = _FP32_BYTES * int(sum(np.prod(s) for s, _ in tree_leaves(abs_local)))
+    rows = []
+    for s in shard_factors:
+        bplan = bucketing.plan_buckets(abs_local, pad_to=s)
+        gplan = bucketing.plan_group_buckets(list(named_groups), pad_to=s)
+        splan = bucketing.plan_group_buckets(list(named_groups), pad_to=s,
+                                             scan_aware=True, scan_repeats=scan_repeats)
+        rows.append(fsdp_bytes_row(bplan=bplan, gplan=gplan, splan=splan, shard=int(s),
+                                   arch=label or arch, raw_param_bytes=raw_bytes))
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,9 @@ executes, nothing is allocated) and checks:
 ``--skip-steps`` runs the schedule and kernel checks only. The report is
 JSON on stdout (progress on stderr); ``--strict`` exits 1 on any
 violation. ``--shard``, ``--layouts``, ``--all-layouts`` and
-``--artifact`` (the FSDP lanes) exit: they wait for the multi-GPU port
-(ROADMAP queue 1, item 15).
+``--artifact`` (the FSDP lanes) exit: the sharded runtime is ported
+(``repro_torch.dist.fsdp``) but its check lanes wait for the rest of
+the multi-GPU port (ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import os
 import sys
 
 STEP_MODES = ("masked", "static", "overlap")
-ITEM_15 = "ROADMAP queue 1, item 15: multi-GPU, FSDP and tensor parallel"
+ITEM_15 = "ROADMAP queue 1, item 15: tensor parallel and the serving and dry-run meshes"
 _UNPORTED = ("shard", "layouts", "all_layouts", "artifact")
 
 

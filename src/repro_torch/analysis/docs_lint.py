@@ -60,6 +60,8 @@ FOREIGN_FLAGS = frozenset({
     "--timeout",                                 # a runner's time limit
     "--format",                                  # nvidia-smi
     "--query-gpu",                               # nvidia-smi
+    "--nproc-per-node",                          # torchrun
+    "--standalone",                              # torchrun
 })
 
 _FENCE_RE = re.compile(r"```[^\n]*\n(.*?)```", re.S)

@@ -20,7 +20,10 @@ code takes them:
 * a training step launches the gossip axpy once per float parameter leaf
   (masked, overlap, and static with a matching active), and the
   end-of-run flush once per leaf again. Training runs no flash or SSD
-  kernel (they have no backward).
+  kernel (they have no backward);
+* a sharded (FSDP) step launches the gossip axpy once per bucket shard of
+  its layout (sequential and overlap), and the overlap flush once per
+  bucket shard again.
 """
 from __future__ import annotations
 
@@ -124,4 +127,14 @@ def train_step(cfg, *, nodes: int, seq: int, gossip_mode: str = "masked",
     gossips = gossip_mode in ("masked", "overlap") or (gossip_mode == "static" and active)
     out = scale(forward_backward(cfg, seq=seq), nodes * steps)
     out["gossip_axpy"] = float_leaves(cfg) * steps * bool(gossips)
+    return out
+
+
+def fsdp_train_step(num_buckets: int, *, gossip_mode: str = "sequential", steps: int = 1,
+                    flush: bool = False) -> Dict[str, int]:
+    """The gossip-axpy launches of ``steps`` sharded steps over a layout
+    of ``num_buckets`` buckets (``flush``: and the overlap flush)."""
+    out = _zero()
+    gossips = gossip_mode in ("sequential", "masked", "overlap")
+    out["gossip_axpy"] = num_buckets * (steps * gossips + bool(flush))
     return out

@@ -19,9 +19,22 @@ pairs of ``Model.param_shapes()`` (only the shape and dtype are read).
 layout contract of the FSDP runtime. ``ravel_stacked`` /
 ``unravel_stacked`` are the node-stacked variants: every leaf carries a
 leading node dim and a bucket is ``(nodes, bucket_size)`` fp32, the
-layout of the overlap step's in-flight ``GossipState``. The FSDP-only
-pieces (``shard_buckets``, ``GroupedPlan``, the scan layouts) wait for
-ROADMAP queue 1, item 15.
+layout of the overlap step's in-flight ``GossipState``.
+
+The FSDP pieces (``repro_torch.dist.fsdp``), as in the JAX package:
+``shard_buckets`` / ``unshard_buckets`` split a bucket into S equal
+contiguous shards and back; ``plan_group_buckets`` builds a
+``GroupedPlan``, one single-bucket plan per layer group in execution
+order (the streamed layouts). With ``scan_aware=True`` a scanned or
+periodic group's plan describes ONE layer row (the leading ``repeats``
+dim stripped) and its bucket holds the ``repeats`` rows in shard-major
+order: the flat bucket is the logical ``(S, repeats, per_layer // S)``
+array, so the resident shard s is the ``(repeats, per_layer // S)``
+stack of every row's s-th piece and an all-gather of one resident row
+rebuilds that layer's ``(per_layer,)`` bucket in plan order.
+``rows_to_shard_major`` / ``rows_from_shard_major`` are that
+permutation; ``scan_ravel*`` / ``scan_unravel*`` compose it with the
+per-layer plan.
 """
 from __future__ import annotations
 
@@ -281,3 +294,226 @@ def unravel_stacked(
         n = bkt.shape[0]
         out[i] = bkt[:, off:off + size].reshape((n,) + plan.shapes[i])
     return unflatten(plan.treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# Shard slicing (FSDP layout helpers)
+# ---------------------------------------------------------------------------
+def shard_buckets(
+    buckets: Tuple[torch.Tensor, ...], num_shards: int
+) -> Tuple[torch.Tensor, ...]:
+    """Split buckets into ``num_shards`` equal contiguous slices along the
+    last dim: ``(..., size) -> (..., num_shards, size // num_shards)``
+    (views). Requires a plan built with ``pad_to=num_shards``."""
+    out = []
+    for bkt in buckets:
+        if bkt.shape[-1] % num_shards:
+            raise ValueError(
+                f"bucket of {bkt.shape[-1]} elements does not divide into "
+                f"{num_shards} shards: plan with pad_to={num_shards}"
+            )
+        out.append(bkt.reshape(tuple(bkt.shape[:-1]) + (num_shards, -1)))
+    return tuple(out)
+
+
+def unshard_buckets(shards: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """Inverse of ``shard_buckets``: merge the trailing ``(shards,
+    slice)`` dims back into one bucket dim."""
+    return tuple(s.reshape(tuple(s.shape[:-2]) + (-1,)) for s in shards)
+
+
+# ---------------------------------------------------------------------------
+# Layer-grouped buckets (streamed FSDP layouts)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """An ordered set of named single-bucket plans: bucket i holds the
+    whole float subtree of layer group i (one block, the embedding, the
+    head, ...), padded shard-divisible. ``repeats[i] > 1`` marks a
+    scan-aware group whose plan describes one layer row and whose
+    bucket is ``repeats[i]`` shard-major rows."""
+
+    names: Tuple[str, ...]
+    plans: Tuple[BucketPlan, ...]
+    repeats: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if len(self.names) != len(self.plans):
+            raise ValueError(
+                f"{len(self.names)} group names but {len(self.plans)} plans"
+            )
+        if not self.repeats:
+            object.__setattr__(self, "repeats", (1,) * len(self.plans))
+        if len(self.repeats) != len(self.plans):
+            raise ValueError(
+                f"{len(self.repeats)} repeat entries but {len(self.plans)} plans"
+            )
+        for name, plan, r in zip(self.names, self.plans, self.repeats):
+            if plan.num_buckets != 1:
+                raise ValueError(
+                    f"group {name!r} planned {plan.num_buckets} buckets; "
+                    "grouped plans require exactly one bucket per group"
+                )
+            if r < 1:
+                raise ValueError(f"group {name!r} has repeats={r} < 1")
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.plans)
+
+    @property
+    def per_layer_sizes(self) -> Tuple[int, ...]:
+        """Elements gathered per streamed iteration of each group: one
+        row for a scan-aware group, the whole bucket otherwise."""
+        return tuple(p.bucket_sizes[0] for p in self.plans)
+
+    @property
+    def bucket_sizes(self) -> Tuple[int, ...]:
+        return tuple(p.bucket_sizes[0] * r for p, r in zip(self.plans, self.repeats))
+
+    @property
+    def total_elements(self) -> int:
+        return sum(self.bucket_sizes)
+
+    @property
+    def max_group_elements(self) -> int:
+        """Largest full-size view a streamed step gathers at once (a
+        scan-aware group contributes one row, not its stack)."""
+        return max(self.per_layer_sizes) if self.plans else 0
+
+    @property
+    def max_scan_repeats(self) -> int:
+        return max(self.repeats) if self.plans else 0
+
+
+def _strip_leading(tree: PyTree, repeats: int, name: str) -> PyTree:
+    """The ``(shape, dtype)`` tree with the leading scan dim (checked to
+    be ``repeats``) removed from every leaf."""
+    def strip(leaf):
+        if isinstance(leaf, dict):
+            return {k: strip(v) for k, v in leaf.items()}
+        shape, floaty = _leaf_meta(leaf)
+        if not shape or shape[0] != repeats:
+            raise ValueError(
+                f"scan group {name!r}: leaf shape {shape} does not carry "
+                f"the leading repeats={repeats} scan dim"
+            )
+        dtype = leaf[1] if isinstance(leaf, tuple) else (
+            leaf.dtype if isinstance(leaf, torch.Tensor) else
+            (torch.float32 if floaty else torch.int32))
+        return (shape[1:], dtype)
+    return strip(tree)
+
+
+def plan_group_buckets(
+    named_trees,
+    *,
+    pad_to: int = 1,
+    scan_aware: bool = False,
+    scan_repeats=None,
+) -> GroupedPlan:
+    """One bucket per named subtree, in the given (execution) order, each
+    packed with ``target_bytes=None`` (one contiguous bucket whatever its
+    size). A subtree with no float leaf is rejected. ``scan_aware=True``
+    with ``scan_repeats[i] = r > 1`` plans group i per layer (every leaf
+    carries a leading ``r`` dim, stripped before planning)."""
+    if scan_repeats is not None and len(scan_repeats) != len(named_trees):
+        raise ValueError(
+            f"{len(scan_repeats)} scan_repeats entries for {len(named_trees)} groups"
+        )
+    names, plans, repeats = [], [], []
+    for gi, (name, sub) in enumerate(named_trees):
+        r = 1
+        if scan_aware and scan_repeats is not None:
+            r = int(scan_repeats[gi] or 1)
+        if r > 1:
+            sub = _strip_leading(sub, r, str(name))
+        plan = plan_buckets(sub, target_bytes=None, pad_to=pad_to)
+        if plan.num_buckets != 1:
+            raise ValueError(f"layer group {name!r} has no float leaves to bucket")
+        names.append(str(name))
+        plans.append(plan)
+        repeats.append(r)
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate layer-group names in {names}")
+    return GroupedPlan(names=tuple(names), plans=tuple(plans), repeats=tuple(repeats))
+
+
+# ---------------------------------------------------------------------------
+# Shard-major scan-row layout (scan-aware streamed FSDP)
+# ---------------------------------------------------------------------------
+def rows_to_shard_major(rows: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """``(..., repeats, per_layer) -> (..., repeats * per_layer)`` in
+    shard-major order: contiguous shard slice s of the result is the
+    ``(repeats, per_layer // num_shards)`` stack of every row's s-th
+    piece (a fresh contiguous tensor)."""
+    *lead, r, per = rows.shape
+    if per % num_shards:
+        raise ValueError(
+            f"per-layer row of {per} elements does not divide into "
+            f"{num_shards} shards: plan with pad_to={num_shards}"
+        )
+    x = rows.reshape(tuple(lead) + (r, num_shards, per // num_shards))
+    x = x.movedim(-2, -3)                  # (..., S, r, per // S)
+    return x.reshape(tuple(lead) + (r * per,))
+
+
+def rows_from_shard_major(flat: torch.Tensor, repeats: int, num_shards: int) -> torch.Tensor:
+    """Inverse of ``rows_to_shard_major``:
+    ``(..., repeats * per_layer) -> (..., repeats, per_layer)``."""
+    *lead, size = flat.shape
+    if size % (repeats * num_shards):
+        raise ValueError(
+            f"bucket of {size} elements does not factor into "
+            f"{repeats} shard-divisible rows"
+        )
+    per = size // repeats
+    x = flat.reshape(tuple(lead) + (num_shards, repeats, per // num_shards))
+    x = x.movedim(-3, -2)                  # (..., r, S, per // S)
+    return x.reshape(tuple(lead) + (repeats, per))
+
+
+def scan_ravel(plan: BucketPlan, tree: PyTree, repeats: int, num_shards: int) -> torch.Tensor:
+    """A scan-stacked subtree (every leaf ``(repeats, ...)``) as one flat
+    shard-major fp32 bucket of ``repeats * per_layer`` elements;
+    ``plan`` is the per-layer plan."""
+    rows = ravel_stacked(plan, tree)[0]          # (repeats, per_layer)
+    return rows_to_shard_major(rows, num_shards)
+
+
+def scan_unravel(plan: BucketPlan, bucket: torch.Tensor, repeats: int,
+                 num_shards: int) -> PyTree:
+    """Inverse of ``scan_ravel`` (float leaves fp32, leading ``repeats``
+    dim)."""
+    rows = rows_from_shard_major(bucket, repeats, num_shards)
+    return unravel_stacked(plan, (rows,))
+
+
+def scan_ravel_stacked(plan: BucketPlan, tree: PyTree, repeats: int,
+                       num_shards: int) -> torch.Tensor:
+    """Node-stacked ``scan_ravel``: leaves ``(nodes, repeats, ...)`` to a
+    ``(nodes, repeats * per_layer)`` shard-major bucket."""
+    leaves = [leaf for _, leaf in _flatten(tree)]
+    if not leaves:
+        raise ValueError("scan group subtree has no leaves")
+    nodes = int(leaves[0].shape[0])
+    merged = _map_leaves(lambda a: a.reshape((-1,) + tuple(a.shape[2:])), tree)
+    rows = ravel_stacked(plan, merged)[0]        # (nodes * repeats, per)
+    return rows_to_shard_major(rows.reshape(nodes, repeats, -1), num_shards)
+
+
+def scan_unravel_stacked(plan: BucketPlan, bucket: torch.Tensor, repeats: int,
+                         num_shards: int) -> PyTree:
+    """Inverse of ``scan_ravel_stacked``: a ``(nodes, size)`` shard-major
+    bucket back to ``(nodes, repeats, ...)`` leaves (fp32)."""
+    nodes = int(bucket.shape[0])
+    rows = rows_from_shard_major(bucket, repeats, num_shards)
+    merged = unravel_stacked(plan, (rows.reshape(nodes * repeats, -1),))
+    return _map_leaves(
+        lambda a: a.reshape((nodes, repeats) + tuple(a.shape[1:])), merged)
+
+
+def _map_leaves(fn, tree: PyTree) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)

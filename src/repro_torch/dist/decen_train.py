@@ -26,6 +26,14 @@ activation array (``repro_torch.faults.FaultSchedule.node_bits``), which
 masked and overlap gossip take as it is and static gossip as its
 ``gate_bits``.
 
+Over a mesh of several data ranks (``repro_torch.launch.mesh``,
+``DistSpec``) each rank holds its consecutive range of the nodes:
+the steps take the run's whole batch and bits, keep their own nodes'
+rows, and the gossip exchanges partners on other data ranks through
+paired send/recv (``repro_torch.dist.gossip.NodeAxis``), bit for bit
+the single-process step; ``consensus_distance`` then all-reduces over
+the data ranks.
+
 ``make_phased_train_step`` is the telemetry variant: the same step with
 every phase span fenced and recorded into a ``StepTimer``
 (``repro_torch.telemetry``); overlap is refused there and timed whole
@@ -43,7 +51,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import bucketing
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.gossip import (
+    NodeAxis,
     delayed_delta_inplace,
     mix_matchings,
     mix_matchings_masked,
@@ -55,6 +65,72 @@ from repro_torch.telemetry.trace import TraceEvent
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class DistSpec:
+    """Mesh + node layout of one decentralized run: the node count, this
+    rank's node range ``node_lo .. node_hi - 1`` and the shard factor."""
+
+    mesh: Any
+    num_nodes: int
+    node_lo: int
+    node_hi: int
+    num_shards: int = 1
+
+    @property
+    def local_nodes(self) -> int:
+        return self.node_hi - self.node_lo
+
+    @property
+    def node_axis(self) -> Optional[NodeAxis]:
+        """The gossip's node axis: ``None`` when one data rank holds
+        every node (the single-process exchange)."""
+        if self.mesh.data == 1:
+            return None
+        return NodeAxis(self.num_nodes, self.node_lo, self.node_hi,
+                        tuple(self.mesh.global_rank(d) for d in range(self.mesh.data)))
+
+    def local(self, tree: PyTree) -> PyTree:
+        """This rank's nodes' rows of a node-leading tree or batch."""
+        if self.local_nodes == self.num_nodes:
+            return tree
+        return tree_map(lambda a: a[self.node_lo:self.node_hi], tree)
+
+    def gather_nodes(self, tree: PyTree) -> PyTree:
+        """This rank's ``(local nodes, ...)`` rows of every leaf,
+        all-gathered over the data ranks to ``(nodes, ...)``."""
+        if self.mesh.data == 1:
+            return tree
+        gather = shd.collective("all_gather_single")
+
+        def leaf(a):
+            # the ranks' rows concatenated along dim 0, in data-rank order
+            out = a.new_empty((self.num_nodes,) + tuple(a.shape[1:]))
+            gather(out, a.contiguous(), group=self.mesh.data_group)
+            return out
+
+        return tree_map(leaf, tree)
+
+    def node_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data ranks, in place (identity for one)."""
+        if self.mesh.data > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, group=self.mesh.data_group)
+        return t
+
+    def node_mean(self, per_node: torch.Tensor) -> float:
+        """The mean of a ``(local nodes,)`` value over every node."""
+        return float(self.node_sum(per_node.float().sum()) / self.num_nodes)
+
+
+def make_spec(mesh, num_nodes: int, *, multi_pod: bool = False) -> DistSpec:
+    """Resolve ``mesh`` and the node count into a ``DistSpec``:
+    ``sharding.num_nodes`` (the one authority) checks the split."""
+    lo, hi = shd.node_range(mesh, shd.num_nodes(mesh, num_nodes, multi_pod=multi_pod))
+    return DistSpec(mesh=mesh, num_nodes=int(num_nodes), node_lo=lo, node_hi=hi,
+                    num_shards=shd.num_shards(mesh))
 
 
 def _stack(tree: PyTree, num_nodes: int) -> PyTree:
@@ -83,20 +159,29 @@ def init_stacked_opt_state(
     return _stack(opt.init(zeros_local), num_nodes)
 
 
-def consensus_distance(stacked_params: PyTree) -> torch.Tensor:
+def consensus_distance(stacked_params: PyTree, spec: Optional[DistSpec] = None) -> torch.Tensor:
     """RMS-over-nodes Frobenius distance to the node mean:
     sqrt(mean_i sum_leaves ||x_i - x_bar||^2). The quantity MATCHA's
-    Theorem 1 bounds; 'local' (no-gossip) training makes it blow up."""
+    Theorem 1 bounds; 'local' (no-gossip) training makes it blow up.
+    With ``spec`` the params are this rank's nodes and the node mean and
+    the sum over nodes are all-reduced over the data ranks."""
+    spread = spec is not None and spec.mesh.data > 1
     acc = None
     for leaf in tree_leaves(stacked_params):
         if not leaf.is_floating_point():
             continue
         x = leaf.float()
-        sq = (x - x.mean(dim=0, keepdim=True)).square_()
+        if spread:
+            mu = spec.node_sum(x.sum(dim=0, keepdim=True)) / spec.num_nodes
+        else:
+            mu = x.mean(dim=0, keepdim=True)
+        sq = (x - mu).square_()
         d = sq.sum(dim=tuple(range(1, x.dim()))) if x.dim() > 1 else sq
         acc = d if acc is None else acc + d
     if acc is None:
         return torch.zeros((), dtype=torch.float32)
+    if spread:
+        return torch.sqrt(spec.node_sum(acc.sum()) / spec.num_nodes)
     return torch.sqrt(torch.mean(acc))
 
 
@@ -142,11 +227,12 @@ def param_bucket_plan(
     return bucketing.plan_buckets(model.param_shapes(), target_bytes=target_bytes)
 
 
-def init_gossip_state(plan, bplan: bucketing.BucketPlan, *, device="cuda") -> GossipState:
-    """Empty in-flight buffers: a zero delta, so the first step's delayed
-    correction is exactly zero."""
+def init_gossip_state(plan, bplan: bucketing.BucketPlan, *, device="cuda",
+                      spec: Optional[DistSpec] = None) -> GossipState:
+    """Empty in-flight buffers (this rank's nodes with ``spec``): a zero
+    delta, so the first step's delayed correction is exactly zero."""
     device = resolve_device(device)
-    n = int(np.shape(plan.permutations)[1])
+    n = spec.local_nodes if spec is not None else int(np.shape(plan.permutations)[1])
     return GossipState(delta=tuple(
         torch.zeros((n, size), dtype=torch.float32, device=device)
         for size in bplan.bucket_sizes
@@ -268,7 +354,10 @@ class TrainStep:
     (M,) activation row of the a-priori schedule (ignored by "static"
     and "none"), or with ``faulted`` the (nodes, M) per-node effective
     bits (the gates of "static"). ``losses`` and each metric come back
-    per node, shape (nodes,). After a call, ``last_phases.ms()`` (or
+    per node, shape (nodes,). With a ``spec`` over several data ranks
+    ``params``/``opt_state`` hold this rank's nodes, ``batch`` and
+    per-node ``bits`` are the run's (each rank keeps its rows), and the
+    results are this rank's nodes'. After a call, ``last_phases.ms()`` (or
     ``last_phase_ms``) splits its time into fwd_bwd, optimizer and
     gossip. With a ``timer`` every phase span is fenced and recorded
     (``make_phased_train_step``); the arithmetic is the same, so the
@@ -278,8 +367,10 @@ class TrainStep:
 
     def __init__(self, model, opt: Optimizer, plan, *, gossip_mode: str,
                  active: Sequence[int], grad_clip: float, faulted: bool,
-                 timer=None):
+                 timer=None, spec: Optional[DistSpec] = None):
         self.model = model
+        self.spec = spec
+        self.nodes = spec.node_axis if spec is not None else None
         self.opt = opt
         self.gossip_mode = gossip_mode
         self.perms = np.asarray(plan.permutations)
@@ -320,10 +411,16 @@ class TrainStep:
             tree_map(lambda dst, src: dst.copy_(src), s_view, s_new)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
+    @property
+    def num_local(self) -> int:
+        return self.spec.local_nodes if self.spec is not None else self.perms.shape[1]
+
     def _every_node(self, params, opt_state, batch, phases: PhaseTimes):
+        if self.spec is not None:
+            batch = self.spec.local(batch)
         per_node = [
             self._local_sgd(params, opt_state, batch, i, phases)
-            for i in range(self.perms.shape[1])
+            for i in range(self.num_local)
         ]
         losses = torch.stack([loss for loss, _ in per_node])
         metrics = {
@@ -340,15 +437,111 @@ class TrainStep:
             # in place: each leaf's fp32 target is complete before its
             # update overwrites the leaf, and nothing reads it afterwards
             if self.gossip_mode == "masked":
-                mix_matchings_masked(params, self.alpha, self.perms, bits, inplace=True)
+                mix_matchings_masked(params, self.alpha, self.perms, bits, inplace=True,
+                                     nodes=self.nodes)
             elif self.gossip_mode == "static":
                 mix_matchings(params, self.alpha, self.perms, self.active,
-                              gate_bits=bits if self.faulted else None, inplace=True)
+                              gate_bits=bits if self.faulted else None, inplace=True,
+                              nodes=self.nodes)
         self.last_phases = phases
         return params, opt_state, losses, metrics
 
 
-class OverlapStep(TrainStep):
+class DelayedLaunch:
+    """The overlap mode's launch of the delayed exchange over the
+    in-flight ``GossipState`` buffers, shared by the replicated
+    :class:`OverlapStep` and the sharded ``repro_torch.dist.fsdp`` step:
+    on the card on a side CUDA stream that waits for the snapshot alone,
+    timed by CUDA events there; on the CPU in order, by the host clock.
+    The step class supplies ``perms``, ``nodes`` and ``alpha``."""
+
+    def _init_launch(self, timer, num_buckets: int) -> None:
+        self.num_buckets = num_buckets
+        self.launch_timer = timer if timer is not None and timer.enabled else None
+        self.last_launch_ms = None
+        self._side = {}          # device -> (side stream, permutations on it)
+        self._pending = []       # launches whose events have not been read
+
+    def _anchor(self, device):
+        """Read the finished launches and, with a timer, an event on the
+        main stream that places this step's launch on the host clock."""
+        if device.type != "cuda":
+            return None
+        self.record_launch_spans()
+        if not self.launch_timer:
+            return None
+        ref = torch.cuda.Event(enable_timing=True)
+        anchor = (self.launch_timer.recorder.now_us(), ref)
+        ref.record()
+        return anchor
+
+    def _launch(self, gstate: GossipState, bits, device, step: int, anchor) -> None:
+        with torch.no_grad():
+            if device.type == "cuda":
+                self._launch_cuda(gstate, bits, device, step, anchor)
+            else:
+                self._launch_cpu(gstate, bits, step)
+
+    def record_launch_spans(self, *, wait: bool = False) -> None:
+        """Read the timing of every finished launch (every one, waiting
+        for the host, with ``wait``) into ``last_launch_ms`` and, with a
+        timer, the trace."""
+        keep = []
+        for step, anchor, start, done in self._pending:
+            if not wait and not done.query():
+                keep.append((step, anchor, start, done))
+                continue
+            done.synchronize()
+            # the start on the host clock: the anchor's host time plus the
+            # card's time from the anchor event to the launch
+            ts_us = anchor[0] + anchor[1].elapsed_time(start) * 1e3 if anchor else 0.0
+            self._finished(step, ts_us, start.elapsed_time(done))
+        self._pending = keep
+
+    def _finished(self, step: int, ts_us: float, ms: float) -> None:
+        self.last_launch_ms = ms
+        if self.launch_timer:
+            self.launch_timer.record(TraceEvent(
+                name="gossip_launch", cat="comm", ts_us=ts_us, dur_us=ms * 1e3,
+                step=step, pid=self.launch_timer.pid, tid=1,
+                args={"buckets": self.num_buckets},
+            ))
+
+    def _launch_cpu(self, gstate: GossipState, bits, step: int) -> None:
+        ts_us = self.launch_timer.recorder.now_us() if self.launch_timer else 0.0
+        t0 = time.perf_counter()
+        delayed_delta_inplace(gstate.delta, bits, self.perms, nodes=self.nodes)
+        gstate.done = None
+        self._finished(step, ts_us, (time.perf_counter() - t0) * 1e3)
+
+    def _launch_cuda(self, gstate: GossipState, bits, device, step: int,
+                     anchor) -> None:
+        if device not in self._side:
+            self._side[device] = (
+                torch.cuda.Stream(device),
+                torch.as_tensor(self.perms, dtype=torch.int64, device=device),
+            )
+        side, idx = self._side[device]
+        bits = torch.as_tensor(bits, dtype=torch.float32).to(device)
+        # the side stream starts once the snapshot is written; the
+        # tensors made on the main stream must outlive its work there
+        side.wait_stream(torch.cuda.current_stream(device))
+        for t in (bits, idx) + tuple(gstate.delta):
+            t.record_stream(side)
+        start = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            # over data ranks the exchange plans its own index; its
+            # send/recv handles make the side stream wait, not the main one
+            delayed_delta_inplace(gstate.delta, bits,
+                                  idx if self.nodes is None else self.perms,
+                                  nodes=self.nodes)
+            done.record(side)
+        gstate.done = done
+        self._pending.append((step, anchor, start, done))
+
+class OverlapStep(DelayedLaunch, TrainStep):
     """The overlap step (``gossip_mode="overlap"``):
 
         params, opt_state, gstate, losses, metrics = step(
@@ -378,92 +571,24 @@ class OverlapStep(TrainStep):
     """
 
     def __init__(self, model, opt: Optimizer, plan, *, bucket_plan,
-                 grad_clip: float, faulted: bool, timer=None):
+                 grad_clip: float, faulted: bool, timer=None,
+                 spec: Optional[DistSpec] = None):
         super().__init__(model, opt, plan, gossip_mode="overlap", active=(),
-                         grad_clip=grad_clip, faulted=faulted)
+                         grad_clip=grad_clip, faulted=faulted, spec=spec)
         self.bplan = bucket_plan
-        self.launch_timer = timer if timer is not None and timer.enabled else None
-        self.last_launch_ms = None
-        self._side = {}          # device -> (side stream, permutations on it)
-        self._pending = []       # launches whose events have not been read
-
-    def record_launch_spans(self, *, wait: bool = False) -> None:
-        """Read the timing of every finished launch (every one, waiting
-        for the host, with ``wait``) into ``last_launch_ms`` and, with a
-        timer, the trace."""
-        keep = []
-        for step, anchor, start, done in self._pending:
-            if not wait and not done.query():
-                keep.append((step, anchor, start, done))
-                continue
-            done.synchronize()
-            # the start on the host clock: the anchor's host time plus the
-            # card's time from the anchor event to the launch
-            ts_us = anchor[0] + anchor[1].elapsed_time(start) * 1e3 if anchor else 0.0
-            self._finished(step, ts_us, start.elapsed_time(done))
-        self._pending = keep
-
-    def _finished(self, step: int, ts_us: float, ms: float) -> None:
-        self.last_launch_ms = ms
-        if self.launch_timer:
-            self.launch_timer.record(TraceEvent(
-                name="gossip_launch", cat="comm", ts_us=ts_us, dur_us=ms * 1e3,
-                step=step, pid=self.launch_timer.pid, tid=1,
-                args={"buckets": self.bplan.num_buckets},
-            ))
-
-    def _launch_cpu(self, gstate: GossipState, bits, step: int) -> None:
-        ts_us = self.launch_timer.recorder.now_us() if self.launch_timer else 0.0
-        t0 = time.perf_counter()
-        delayed_delta_inplace(gstate.delta, bits, self.perms)
-        gstate.done = None
-        self._finished(step, ts_us, (time.perf_counter() - t0) * 1e3)
-
-    def _launch_cuda(self, gstate: GossipState, bits, device, step: int,
-                     anchor) -> None:
-        if device not in self._side:
-            self._side[device] = (
-                torch.cuda.Stream(device),
-                torch.as_tensor(self.perms, dtype=torch.int64, device=device),
-            )
-        side, idx = self._side[device]
-        bits = torch.as_tensor(bits, dtype=torch.float32).to(device)
-        # the side stream starts once the snapshot is written; the
-        # tensors made on the main stream must outlive its work there
-        side.wait_stream(torch.cuda.current_stream(device))
-        for t in (bits, idx) + tuple(gstate.delta):
-            t.record_stream(side)
-        start = torch.cuda.Event(enable_timing=True)
-        done = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(side):
-            start.record(side)
-            delayed_delta_inplace(gstate.delta, bits, idx)
-            done.record(side)
-        gstate.done = done
-        self._pending.append((step, anchor, start, done))
+        self._init_launch(timer, bucket_plan.num_buckets)
 
     def __call__(self, params, opt_state, gstate: GossipState, batch, bits, *,
                  step: int = -1):
         self._check_bits(bits)
         device = tree_leaves(params)[0].device
-        cuda = device.type == "cuda"
-        anchor = None
-        if cuda:
-            self.record_launch_spans()
-            if self.launch_timer:
-                ref = torch.cuda.Event(enable_timing=True)
-                anchor = (self.launch_timer.recorder.now_us(), ref)
-                ref.record()
+        anchor = self._anchor(device)
         phases = PhaseTimes(device)
         with phases.span("gossip_apply"), torch.no_grad():
             gstate.wait()
             _apply_delayed(params, gstate.delta, self.bplan, self.alpha, inplace=True)
             bucketing.ravel_stacked(self.bplan, params, out=gstate.delta)
-        with torch.no_grad():
-            if cuda:
-                self._launch_cuda(gstate, bits, device, step, anchor)
-            else:
-                self._launch_cpu(gstate, bits, step)
+        self._launch(gstate, bits, device, step, anchor)
         losses, metrics = self._every_node(params, opt_state, batch, phases)
         self.last_phases = phases
         return params, opt_state, gstate, losses, metrics
@@ -480,6 +605,7 @@ def make_train_step(
     bucket_plan: Optional[bucketing.BucketPlan] = None,
     faulted: bool = False,
     timer=None,
+    spec: Optional[DistSpec] = None,
 ) -> TrainStep:
     """Build the decentralized step (see :class:`TrainStep`; for
     ``gossip_mode="overlap"`` :class:`OverlapStep`, which threads the
@@ -490,7 +616,8 @@ def make_train_step(
     sums gated deltas where its plain path sums partners, as in the JAX
     package: fp32 rounding apart). ``timer`` (a ``StepTimer``) fences and
     records the phases of a sequential step (``make_phased_train_step``)
-    and records an overlap step's launches without fencing anything."""
+    and records an overlap step's launches without fencing anything.
+    ``spec``: the run's mesh when its nodes span several data ranks."""
     if gossip_mode == "sequential":   # the JAX package's other spelling
         gossip_mode = "masked"
     if gossip_mode not in ("masked", "static", "overlap", "none"):
@@ -498,10 +625,10 @@ def make_train_step(
     if gossip_mode == "overlap":
         return OverlapStep(model, opt, plan,
                            bucket_plan=bucket_plan or param_bucket_plan(model),
-                           grad_clip=grad_clip, faulted=faulted, timer=timer)
+                           grad_clip=grad_clip, faulted=faulted, timer=timer, spec=spec)
     return TrainStep(model, opt, plan, gossip_mode=gossip_mode,
                      active=active, grad_clip=grad_clip, faulted=faulted,
-                     timer=timer)
+                     timer=timer, spec=spec)
 
 
 def make_phased_train_step(
@@ -514,6 +641,7 @@ def make_phased_train_step(
     active: Sequence[int] = (),
     grad_clip: float = 0.0,
     faulted: bool = False,
+    spec: Optional[DistSpec] = None,
 ) -> TrainStep:
     """Telemetry variant of :func:`make_train_step`: the same update, with
     every fwd_bwd, optimizer (one each per node) and gossip span fenced
@@ -541,4 +669,4 @@ def make_phased_train_step(
         )
     return make_train_step(model, opt, plan, gossip_mode=gossip_mode,
                            active=active, grad_clip=grad_clip, faulted=faulted,
-                           timer=timer or StepTimer())
+                           timer=timer or StepTimer(), spec=spec)

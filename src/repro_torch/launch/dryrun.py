@@ -34,8 +34,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2_1_8b \\
       --shape train_4k --layers 2 --batch 4 --seq 128 --gossip-mode overlap
 
-``--multi-pod`` and ``--kv-seq-shard`` exit: the mesh and sharded
-lowering wait for the multi-GPU port (ROADMAP queue 1, item 15).
+``--multi-pod`` and ``--kv-seq-shard`` exit: the dry run's mesh and
+sharded lowering wait for the rest of the multi-GPU port (ROADMAP queue
+1, item 15).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ HBM_BYTES_PER_S = 3.35e12
 HBM_BYTES = 80e9
 CARD = "NVIDIA H100 SXM5 80GB (spec sheet, 700 W)"
 
-ITEM_15 = "ROADMAP queue 1, item 15: multi-GPU, FSDP and tensor parallel"
+ITEM_15 = "ROADMAP queue 1, item 15: tensor parallel and the serving and dry-run meshes"
 
 
 # ---------------------------------------------------------------------------

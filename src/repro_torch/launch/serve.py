@@ -68,7 +68,7 @@ def _reject_unported(args) -> None:
         if value != 1:
             raise SystemExit(
                 f"{flag} {value} is not ported to repro_torch yet (ROADMAP "
-                "queue 1, item 15: multi-GPU, FSDP and tensor parallel)"
+                "queue 1, item 15: tensor parallel and the serving and dry-run meshes)"
             )
 
 

@@ -82,13 +82,15 @@ def build_parser() -> argparse.ArgumentParser:
                     default="masked",
                     choices=("masked", "sequential", "static", "overlap"))
     ap.add_argument("--shard", type=int, default=1,
-                    help="FSDP shard factor (not ported: only 1)")
+                    help="FSDP shard factor: each node's replica is split over this "
+                         "many ranks (torchrun's world, or ranks this CLI starts)")
     ap.add_argument("--stream-layers", dest="stream_layers",
                     action=argparse.BooleanOptionalAction, default=None,
-                    help="FSDP layer streaming (not ported)")
+                    help="FSDP: gather one layer group at a time (default with "
+                         "--shard > 1); --no-stream-layers gathers the whole model")
     ap.add_argument("--stream-scan", dest="stream_scan",
                     action=argparse.BooleanOptionalAction, default=True,
-                    help="FSDP scan streaming (not ported)")
+                    help="streamed FSDP: gather a scanned segment one layer row at a time")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--keep-last", type=int, default=3)
@@ -110,10 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
 # Flags the port has not implemented yet, with the ROADMAP item that
 # ports them. Any value other than the default exits.
 _UNPORTED = {
-    "model_par": "queue 1, item 15 (multi-GPU, FSDP and tensor parallel)",
-    "shard": "queue 1, item 15 (multi-GPU, FSDP and tensor parallel)",
-    "stream_layers": "queue 1, item 15 (multi-GPU, FSDP and tensor parallel)",
-    "stream_scan": "queue 1, item 15 (multi-GPU, FSDP and tensor parallel)",
+    "model_par": "queue 1, item 15 (tensor parallel and the serving and dry-run meshes)",
 }
 
 
@@ -126,21 +125,85 @@ def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
             )
 
 
+def _check_args(args) -> None:
+    """The JAX CLI's checks of the FSDP flags."""
+    if args.resume == "auto" and not args.ckpt_dir:
+        raise SystemExit("--resume auto requires --ckpt-dir")
+    if args.shard < 1:
+        raise SystemExit(f"--shard must be >= 1, got {args.shard}")
+    use_fsdp = args.shard > 1
+    if args.stream_layers is None:
+        args.stream_layers = use_fsdp
+    if args.stream_layers and not use_fsdp:
+        raise SystemExit("--stream-layers streams the sharded-replica "
+                         "runtime; it requires --shard > 1")
+    if use_fsdp and args.gossip_mode == "static":
+        raise SystemExit("--shard > 1 supports --gossip-mode "
+                         "sequential/masked or overlap, not static")
+    if use_fsdp and args.batch_per_node % args.shard:
+        raise SystemExit(
+            f"--batch-per-node {args.batch_per_node} must divide by "
+            f"--shard {args.shard} (the node's batch splits over the "
+            "shard axis)")
+
+
 def main(argv=None):
+    """Run the CLI. Under ``torchrun`` the world comes from the
+    environment (``--shard S``: ``W / S`` data ranks); without it
+    ``--shard S > 1`` starts S local ranks itself (``launch.mesh.spawn``),
+    one card each on the card."""
+    import sys
+
+    from repro_torch.launch import mesh as mesh_lib
+
     ap = build_parser()
     args = ap.parse_args(argv)
     _reject_unported(ap, args)
-    if args.resume == "auto" and not args.ckpt_dir:
-        raise SystemExit("--resume auto requires --ckpt-dir")
+    _check_args(args)
+    world = mesh_lib.torchrun_world()
+    if world > 1:
+        return _run(args, rank=None, world=world)
+    if args.shard > 1:
+        argv = sys.argv[1:] if argv is None else list(argv)
+        return mesh_lib.spawn(_spawned, args.shard, args.device, args=(argv,))
+    return _run(args, rank=0, world=1)
 
-    import torch
 
+def _spawned(rank: int, world: int, init_method: str, argv) -> None:
+    args = build_parser().parse_args(argv)
+    _check_args(args)
+    _run(args, rank=rank, world=world, init_method=init_method)
+
+
+def _run(args, *, rank, world: int, init_method=None):
     from repro_torch.device import resolve_device
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.launch import mesh as mesh_lib
 
     try:
-        device = resolve_device(args.device)
+        if world > 1:
+            device = mesh_lib.init_world(args.device, rank=rank, world_size=world,
+                                         init_method=init_method)
+        else:
+            device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(str(err)) from None
+    try:
+        mesh = mesh_lib.make_mesh(shard=args.shard, device=device)
+        spec = dt.make_spec(mesh, args.nodes)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    try:
+        return _train(args, device, spec)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args, device, spec):
+    import torch
 
     from repro_torch.checkpoint import ckpt as ckpt_lib
     from repro_torch.configs.registry import get_config, get_smoke_config
@@ -150,6 +213,7 @@ def main(argv=None):
     )
     from repro_torch.data.pipeline import DecentralizedBatches
     from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import fsdp
     from repro_torch.faults import (
         FaultSpec, SimulatedCrash, make_fault_schedule, retry_with_backoff,
         verify_degraded_plan,
@@ -158,6 +222,10 @@ def main(argv=None):
     from repro_torch.optim.optimizers import sgd
     from repro_torch.tree import flatten
 
+    lead = spec.mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    use_fsdp = args.shard > 1
+    spread = spec.mesh.size > 1
     cfg = (
         get_smoke_config(args.arch) if args.preset == "tiny"
         else get_config(args.arch)
@@ -203,17 +271,47 @@ def main(argv=None):
             raise SystemExit("faults: --strict-faults: " + "; ".join(problems))
         if problems:
             for msg in problems:
-                print(f"faults: WARNING {msg}")
+                say(f"faults: WARNING {msg}")
         else:
-            print(f"faults: p_drop={args.p_drop:g} keeps the plan "
-                  f"contractive (faulted rho {rho_f:.4f} < 1)")
+            say(f"faults: p_drop={args.p_drop:g} keeps the plan "
+                f"contractive (faulted rho {rho_f:.4f} < 1)")
     elif faulted:
-        print(f"faults: mode {args.mode} has no independent-Bernoulli "
-              "spectral gate; injecting drops without a rho-under-"
-              "faults guarantee")
+        say(f"faults: mode {args.mode} has no independent-Bernoulli "
+            "spectral gate; injecting drops without a rho-under-"
+            "faults guarantee")
 
     model = Model(cfg)
     opt = sgd(args.lr, momentum=args.momentum)
+    layout = None
+    if use_fsdp:
+        layout = (
+            fsdp.make_stream_layout(model, spec, scan_aware=args.stream_scan)
+            if args.stream_layers else fsdp.make_layout(model, spec)
+        )
+        say(f"fsdp: shard={args.shard}, "
+            f"{layout.per_device_elements * 4 / 1e6:.2f} MB params/device "
+            f"(of {layout.plan.total_elements * 4 / 1e6:.2f} MB/replica)")
+        if args.stream_layers:
+            # the true per-iteration peak: a scan-aware group streams one
+            # layer row per iteration, not its whole stack
+            peak = layout.plan.max_group_elements
+            total = layout.plan.total_elements
+            scanned = [(n, r) for n, r in zip(layout.plan.names, layout.plan.repeats)
+                       if r > 1]
+            say(f"fsdp: streaming {layout.plan.num_buckets} layer groups "
+                f"({', '.join(layout.group_names)}); per-iteration peak "
+                f"gathered view {peak * 4 / 1e6:.2f} MB vs "
+                f"{total * 4 / 1e6:.2f} MB monolithic")
+            if scanned:
+                say("fsdp: scan-streaming "
+                    + ", ".join(f"{n} ({r} iterations/row gathers)" for n, r in scanned)
+                    + " — double-buffered prefetch, <= 2 layer rows live")
+            if not args.stream_scan and peak > 0.5 * total:
+                say("fsdp: WARNING largest layer group is "
+                    f"{100 * peak / total:.0f}% of the model — "
+                    "--no-stream-scan keeps each scanned segment as "
+                    "one stack-at-once gather; drop the flag to "
+                    "stream per scan iteration")
     start_step = 0
     resume_dir = args.resume
     if resume_dir == "auto":
@@ -221,10 +319,11 @@ def main(argv=None):
         # (torn entries from a crash mid-checkpoint are skipped)
         resume_dir = ckpt_lib.find_resumable(args.ckpt_dir) or ""
         if not resume_dir:
-            print("resume auto: no restorable checkpoint under "
-                  f"{args.ckpt_dir}; starting fresh")
+            say("resume auto: no restorable checkpoint under "
+                f"{args.ckpt_dir}; starting fresh")
     if resume_dir:
-        # transient read failures retry with bounded backoff
+        # checkpoints hold the gathered node-stacked tree at any shard
+        # factor; transient read failures retry with bounded backoff
         params, opt_state, start_step = retry_with_backoff(
             lambda: ckpt_lib.restore_run(resume_dir, device=device)
         )
@@ -233,13 +332,25 @@ def main(argv=None):
         if {path: tuple(a.shape) for path, a in flatten(params).items()} != want:
             raise SystemExit(f"checkpoint {resume_dir} does not hold {cfg.name} "
                              f"params for {args.nodes} nodes")
-        print(f"resumed from {resume_dir} at step {start_step}")
+        if use_fsdp:
+            params, opt_state = (fsdp.scatter_params(layout, params, spec),
+                                 fsdp.scatter_opt_state(layout, opt, opt_state, spec))
+        elif spread:
+            params, opt_state = _clone(spec.local(params)), _clone(spec.local(opt_state))
+        say(f"resumed from {resume_dir} at step {start_step}")
+    elif use_fsdp:
+        params = fsdp.init_fsdp_params(model, layout, spec, seed=args.seed, device=device)
+        opt_state = fsdp.init_fsdp_opt_state(opt, layout, spec, device=device)
     else:
         params = dt.init_stacked_params(model, args.nodes, seed=args.seed, device=device)
         opt_state = dt.init_stacked_opt_state(opt, model, args.nodes, device=device)
+        if spread:
+            params, opt_state = _clone(spec.local(params)), _clone(spec.local(opt_state))
     gossip_mode = "none" if args.mode == "local" else args.gossip_mode
-    print(f"repro_torch: {cfg.name} ({model.num_params()} params/node) on "
-          f"{device}, {args.nodes} nodes, mode {args.mode}, gossip {gossip_mode}")
+    say(f"repro_torch: {cfg.name} ({model.num_params()} params/node) on "
+        f"{device}, {args.nodes} nodes, mode {args.mode}, gossip {gossip_mode}"
+        + (f"; mesh data {spec.mesh.data} x shard {spec.mesh.shard} "
+           f"({spec.local_nodes} nodes a data rank)" if spread else ""))
 
     # --- telemetry (--trace DIR) -----------------------------------------
     # A disabled StepTimer's spans are shared no-ops, so the untraced loop
@@ -265,9 +376,13 @@ def main(argv=None):
     phased = traced and gossip_mode != "overlap"
     gstate = flush = bplan = None
     if gossip_mode == "overlap":
-        bplan = dt.param_bucket_plan(model)
-        gstate = dt.init_gossip_state(plan, bplan, device=device)
-        flush = dt.make_gossip_flush(plan, bplan)
+        if use_fsdp:
+            gstate = fsdp.init_fsdp_gossip_state(layout, spec, device=device)
+            flush = fsdp.make_fsdp_gossip_flush(plan, layout)
+        else:
+            bplan = dt.param_bucket_plan(model)
+            gstate = dt.init_gossip_state(plan, bplan, device=device, spec=spec)
+            flush = dt.make_gossip_flush(plan, bplan)
     step_cache = {}
 
     def get_step(active):
@@ -275,30 +390,53 @@ def main(argv=None):
         key = tuple(active) if gossip_mode == "static" else gossip_mode
         if key not in step_cache:
             active = tuple(active) if gossip_mode == "static" else ()
-            if phased:
+            if use_fsdp:
+                build = fsdp.make_phased_fsdp_train_step if phased else fsdp.make_fsdp_train_step
+                step_cache[key] = build(model, opt, plan, spec, layout, gossip_mode=gossip_mode,
+                                        faulted=faulted, timer=timer if traced else None)
+            elif phased:
                 step_cache[key] = dt.make_phased_train_step(
                     model, opt, plan, timer=timer, gossip_mode=gossip_mode,
-                    active=active, faulted=faulted,
+                    active=active, faulted=faulted, spec=spec,
                 )
             else:
                 step_cache[key] = dt.make_train_step(
                     model, opt, plan, gossip_mode=gossip_mode, active=active,
                     bucket_plan=bplan, faulted=faulted,
-                    timer=timer if traced else None,
+                    timer=timer if traced else None, spec=spec,
                 )
         return step_cache[key]
 
+    def gathered(p, s):
+        """The node-stacked tree of every node (a collective on a mesh):
+        the checkpoint format at any shard factor and layout."""
+        if use_fsdp:
+            return fsdp.gather_params(layout, p, spec), fsdp.gather_opt_state(layout, s, spec)
+        return spec.gather_nodes(p), spec.gather_nodes(s)
+
+    def consensus(p) -> float:
+        if use_fsdp:
+            return float(fsdp.consensus_distance_sharded(p, spec))
+        return float(dt.consensus_distance(p, spec if spread else None))
+
     def save(step, p):
         # crash-safe history layout: each checkpoint lands in its own
-        # step_XXXXXXXX/ dir, ckpt.json written last; "extra" is what a
-        # --shard 1 run of the JAX CLI records, so that it resumes here
-        retry_with_backoff(lambda: ckpt_lib.save_run_step(
-            args.ckpt_dir, p, opt_state, step=step,
-            extra={"shard": args.shard,
-                   "stream_layers": bool(args.stream_layers),
-                   "stream_scan": bool(args.stream_scan)},
-            keep_last=args.keep_last,
-        ))
+        # step_XXXXXXXX/ dir, ckpt.json written last; "extra" is what the
+        # JAX CLI records, so that each package resumes the other's.
+        # Every rank gathers; rank 0 writes.
+        tree, state = gathered(p, opt_state)
+        if lead:
+            retry_with_backoff(lambda: ckpt_lib.save_run_step(
+                args.ckpt_dir, tree, state, step=step,
+                extra={"shard": args.shard,
+                       "stream_layers": bool(args.stream_layers),
+                       "stream_scan": bool(args.stream_scan)},
+                keep_last=args.keep_last,
+            ))
+        if spread:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     data = DecentralizedBatches(
         cfg, args.nodes, args.batch_per_node, args.seq,
@@ -319,16 +457,19 @@ def main(argv=None):
         from repro_torch.analysis import bytes_model
         from repro_torch.telemetry import probes as tprobes
 
-        abs_local = model.param_shapes()
-        per_matching_bytes = bytes_model.tree_storage_bytes(abs_local)
+        if use_fsdp:
+            elems = layout.per_device_elements
+            per_matching_bytes = int(bytes_model.bucket_plan_bytes(
+                layout.plan, args.shard)["per_matching_comm_bytes"])
+        else:
+            elems = model.num_params()
+            per_matching_bytes = bytes_model.tree_storage_bytes(model.param_shapes())
         probe_rows = tprobes.measure_matchings(
-            plan, per_node_elements=model.num_params(), timer=timer, iters=3,
-            device=device,
+            plan, per_node_elements=elems, timer=timer, iters=3, device=device,
         )
         matching_ms = {r["matching"]: r["mean_ms"] for r in probe_rows}
-        print("trace: per-matching comm probes "
-              + " ".join(f"m{r['matching']}={r['mean_ms']:.2f}ms"
-                         for r in probe_rows))
+        say("trace: per-matching comm probes "
+            + " ".join(f"m{r['matching']}={r['mean_ms']:.2f}ms" for r in probe_rows))
 
     rows = []
     trace_rows = []
@@ -391,16 +532,16 @@ def main(argv=None):
                 phase_ms=phase_ms,
             )
             trace_rows.append(mrec)
-            print(tprobes.format_metrics_line(mrec))
+            say(tprobes.format_metrics_line(mrec))
         if k % 10 == 0 or k == args.steps - 1:
-            loss_mean = float(torch.mean(losses))
-            cons = float(dt.consensus_distance(params))
+            loss_mean = spec.node_mean(losses)
+            cons = consensus(params)
             rows.append(
                 dict(step=k, loss=loss_mean, consensus=cons,
                      sim_time=sim_time, comm_units=schedule.comm_units(k),
                      wall=time.time() - t0)
             )
-            print(
+            say(
                 f"step {k:4d} loss {loss_mean:.4f} consensus {cons:.3e} "
                 f"sim_time {sim_time:.0f}u active {len(active)}/{plan.num_matchings}"
             )
@@ -412,20 +553,19 @@ def main(argv=None):
         if fault_spec.crash_at_step == k:
             if traced:
                 tprobes.fault_event(recorder, step=k, kind="crash")
-            print(f"fault: simulated crash after completing step {k}")
+            say(f"fault: simulated crash after completing step {k}")
             raise SimulatedCrash(k)
 
     if gossip_mode == "overlap":
         # land the exchange still in flight from the last step
         params = flush(params, gstate, inplace=True)
-        cons = float(dt.consensus_distance(params))
-        print(f"flushed in-flight gossip: consensus {cons:.3e}")
+        say(f"flushed in-flight gossip: consensus {consensus(params):.3e}")
         if traced:
             for stepf in step_cache.values():
                 stepf.record_launch_spans(wait=True)
     if args.ckpt_dir:
         save(args.steps, params)
-    if args.csv and rows:
+    if args.csv and rows and lead:
         os.makedirs(os.path.dirname(args.csv) or ".", exist_ok=True)
         import csv as csvmod
 
@@ -433,8 +573,8 @@ def main(argv=None):
             w = csvmod.DictWriter(f, fieldnames=list(rows[0]))
             w.writeheader()
             w.writerows(rows)
-        print("wrote", args.csv)
-    if traced:
+        say("wrote", args.csv)
+    if traced and lead:
         import json
 
         jsonl_path, chrome_path = recorder.flush(args.trace)
@@ -442,10 +582,17 @@ def main(argv=None):
         with open(metrics_path, "w") as f:
             for r in trace_rows:
                 f.write(json.dumps(r) + "\n")
-        print(f"wrote trace: {jsonl_path} + {chrome_path} "
-              f"({len(recorder.events())} events, "
-              f"{recorder.num_dropped} dropped) and {metrics_path}")
+        say(f"wrote trace: {jsonl_path} + {chrome_path} "
+            f"({len(recorder.events())} events, "
+            f"{recorder.num_dropped} dropped) and {metrics_path}")
     return rows
+
+
+def _clone(tree):
+    """A tree of views as tensors of their own (a rank keeps its nodes)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda a: a.clone(), tree)
 
 
 if __name__ == "__main__":

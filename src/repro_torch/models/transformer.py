@@ -42,6 +42,16 @@ alike, and in training, whose backward runs its dx and dw kernels).
 Their load-balance and router-z losses are summed over the
 layers into the training loss.
 
+``param_group_specs`` / ``stream_stages`` are the JAX model's streaming
+view of the same forward, for the streamed FSDP layouts
+(``repro_torch.dist.fsdp``): the parameter tree as ordered layer groups
+(embedding, encoder, one group per unrolled block or one per scanned or
+periodic segment, head) and the teacher-forced loss as a walk over
+stages that each read only the groups they name. A stage over a scanned
+or periodic segment also carries a ``ScanStreamBody``, one loop
+iteration (a layer, or a whole period) given that iteration's
+parameters, so the caller can gather one layer row at a time.
+
 Where PyTorch would raise an opaque indexing error, the port raises a
 ``PositionRangeError`` (a ``ValueError``) naming the cause: serving positions past ``max_len`` in
 a model with a full-length KV cache (it has no room for them; Mamba
@@ -53,7 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,6 +184,52 @@ def segment_layers(cfg: ModelConfig) -> List:
                 )
             return segs
     return plain
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamGroup:
+    """One layer group of the parameter tree (the streaming unit):
+    ``keys`` are the top-level keys it covers; a block group of an
+    unrolled segment also carries its ``layer`` index into the segment's
+    stacked dim; a scanned or periodic segment is one group whose leaves
+    carry a leading ``repeats`` dim."""
+
+    name: str
+    keys: Tuple[str, ...]
+    segment: Optional[int] = None     # segment index for block groups
+    layer: Optional[int] = None       # layer index within an unrolled segment
+    repeats: Optional[int] = None     # loop iterations of a scanned group
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanStreamBody:
+    """One iteration of a scanned or periodic segment:
+    ``apply_layer(x, group_view) -> (x, aux)`` advances the residual
+    stream by one layer (a whole period for a periodic segment) given a
+    view holding that iteration's parameters only (leading dim
+    stripped). Positions come from ``x`` (training starts at 0)."""
+
+    repeats: int
+    apply_layer: Callable[[torch.Tensor, Dict[str, Any]],
+                          Tuple[torch.Tensor, Dict[str, Any]]]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamStage:
+    """One step of the streamed forward walk: the layer groups it reads
+    (indices into ``param_group_specs()``) and ``apply(carry,
+    group_trees) -> carry``; the caller owns the gathers and the
+    recomputation. ``scan``: the per-iteration body of a scanned or
+    periodic segment's stage (``apply`` stays its stack-at-once form)."""
+
+    name: str
+    group_ids: Tuple[int, ...]
+    apply: Callable[[Dict[str, Any], Tuple[Any, ...]], Dict[str, Any]]
+    scan: Optional[ScanStreamBody] = None
+
+
+def _add_aux(total, aux):
+    return total if aux is None else {k: total[k] + aux[k] for k in total}
 
 
 def _has_ffn(cfg: ModelConfig, seg: Segment) -> bool:
@@ -526,6 +582,143 @@ class Model:
             encoder_frames=batch.get("encoder_frames"),
         )
         return self._combine_loss(logits, batch, aux)
+
+    # -- streaming (layer-grouped) execution -----------------------------------
+    def param_group_specs(self) -> Tuple[ParamGroup, ...]:
+        """Ordered layer groups of the parameter tree, in execution order
+        (embedding, encoder, blocks by depth, head): the gather order of
+        the streamed FSDP step. Every top-level key belongs to one group;
+        with tied embeddings the head re-gathers the embedding group."""
+        cfg = self.cfg
+        has_enc = self._enc_segment is not None
+        groups: List[ParamGroup] = []
+        embed_keys = ["embed"]
+        if cfg.pos_embed == "learned":
+            embed_keys.append("pos_embed")
+        if cfg.frontend and not has_enc:
+            embed_keys.append("frontend_proj")
+        groups.append(ParamGroup("embed", tuple(embed_keys)))
+        if has_enc:
+            enc_keys = ["encoder", "enc_final_norm"]
+            if cfg.frontend:
+                enc_keys.append("frontend_proj")
+            groups.append(ParamGroup("encoder", tuple(enc_keys)))
+        for s, seg in enumerate(self.segments):
+            key = f"blocks_{s}"
+            if isinstance(seg, PeriodicSegment):
+                groups.append(ParamGroup(key, (key,), segment=s, repeats=seg.reps))
+            elif seg.scanned:
+                groups.append(ParamGroup(key, (key,), segment=s, repeats=seg.count))
+            else:
+                for i in range(seg.count):
+                    groups.append(ParamGroup(f"{key}.{i}", (key,), segment=s, layer=i))
+        head_keys = ["final_norm"]
+        if not cfg.tie_embeddings:
+            head_keys.append("unembed")
+        groups.append(ParamGroup("head", tuple(head_keys)))
+        return tuple(groups)
+
+    def _scan_stream_body(self, seg, key: str) -> ScanStreamBody:
+        """One iteration of a scanned or periodic segment, the loop body
+        of ``_run_segment`` (``_run_periodic``) op for op, without
+        caches or cross-attention."""
+        if isinstance(seg, PeriodicSegment):
+            def apply_period(x, view):
+                p_slice = view[key]
+                positions = self._positions(x.shape[0], x.shape[1], x.device)
+                aux_total = _zero_aux(x.device)
+                for j, sub in enumerate(seg.pattern):
+                    x, _, aux = self._layer_apply(p_slice[f"pos_{j}"], x, sub,
+                                                  positions=positions)
+                    aux_total = _add_aux(aux_total, aux)
+                return x, aux_total
+
+            return ScanStreamBody(repeats=seg.reps, apply_layer=apply_period)
+
+        def apply_layer(x, view):
+            positions = self._positions(x.shape[0], x.shape[1], x.device)
+            x, _, aux = self._layer_apply(view[key], x, seg, positions=positions)
+            return x, _add_aux(_zero_aux(x.device), aux)
+
+        return ScanStreamBody(repeats=seg.count, apply_layer=apply_layer)
+
+    def stream_stages(self, batch: dict) -> Tuple[StreamStage, ...]:
+        """The teacher-forced loss as a walk over layer groups, ``loss``
+        op for op: each stage reads only the groups it names. The carry
+        threads ``batch``, ``x``, ``positions``, ``prefix_len``, ``aux``
+        (and ``enc_out`` with encoder frames); the head stage adds
+        ``loss`` and ``metrics``. Cross-attention K/V are projected per
+        layer from the layer's own group."""
+        cfg = self.cfg
+        specs = self.param_group_specs()
+        index = {g.name: i for i, g in enumerate(specs)}
+        has_frames = batch.get("encoder_frames") is not None
+
+        def embed_apply(carry, groups):
+            (top,) = groups
+            b = carry["batch"]
+            x, prefix_len = self._embed(top, b["tokens"], b.get("prefix_embeddings"))
+            positions = self._positions(x.shape[0], x.shape[1], x.device)
+            x = self._add_positions(top, x, positions, 0, x.shape[1])
+            return {**carry, "x": x, "positions": positions, "prefix_len": prefix_len,
+                    "aux": _zero_aux(x.device)}
+
+        stages = [StreamStage("embed", (index["embed"],), embed_apply)]
+        if has_frames:
+            def encoder_apply(carry, groups):
+                (enc,) = groups
+                return {**carry, "enc_out": self._encode(enc, carry["batch"]["encoder_frames"])}
+
+            stages.append(StreamStage("encoder", (index["encoder"],), encoder_apply))
+
+        for g in specs:
+            if g.segment is None:
+                continue
+            seg = self.segments[g.segment]
+            if g.layer is None:
+                def seg_apply(carry, groups, _g=g, _seg=seg):
+                    (sub,) = groups
+                    pseg = sub[_g.keys[0]]
+                    cross_kvs = (_segment_cross_kv(pseg, carry["enc_out"], cfg)
+                                 if has_frames else None)
+                    x, aux = self._run_segment(pseg, carry["x"], _seg,
+                                               positions=carry["positions"],
+                                               cross_kvs=cross_kvs)
+                    return {**carry, "x": x, "aux": _add_aux(carry["aux"], aux)}
+
+                # cross-attention threads the encoder K/V through the body:
+                # such a segment keeps the stack-at-once form
+                body = None if has_frames else self._scan_stream_body(seg, g.keys[0])
+                stages.append(StreamStage(g.name, (index[g.name],), seg_apply, scan=body))
+            else:
+                def layer_apply(carry, groups, _g=g, _seg=seg):
+                    (sub,) = groups
+                    p = sub[_g.keys[0]]
+                    ckv = (encoder_kv(p["cross"], carry["enc_out"], cfg)
+                           if has_frames and "cross" in p else None)
+                    x, aux = self._run_layer(p, carry["x"], _seg,
+                                             positions=carry["positions"], cross_kv=ckv)
+                    return {**carry, "x": x, "aux": _add_aux(carry["aux"], aux)}
+
+                stages.append(StreamStage(g.name, (index[g.name],), layer_apply))
+
+        head_ids = (index["head"],)
+        if cfg.tie_embeddings:
+            head_ids = head_ids + (index["embed"],)
+
+        def head_apply(carry, groups):
+            view: Dict[str, Any] = {}
+            for sub in groups:
+                view.update(sub)
+            x = apply_norm(view["final_norm"], carry["x"], cfg.norm)
+            if carry["prefix_len"]:
+                x = x[:, carry["prefix_len"]:, :]
+            total, metrics = self._combine_loss(self._unembed(view, x), carry["batch"],
+                                                carry["aux"])
+            return {**carry, "loss": total, "metrics": metrics}
+
+        stages.append(StreamStage("head", head_ids, head_apply))
+        return tuple(stages)
 
     # -- serving ------------------------------------------------------------------
     def cache_specs(self, max_len: int) -> List[Optional[CacheSpec]]:

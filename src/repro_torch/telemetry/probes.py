@@ -12,8 +12,10 @@ host clock. All durations are milliseconds; summaries report
 mean/p50/p95 over ``iters`` repetitions after ``warmup`` uncounted
 ones.
 
-``step_metrics``, ``format_metrics_line``, ``fault_event`` and
-``summarize_ms`` are the JAX package's, unchanged.
+``measure_fsdp_collectives`` times the sharded step's all-gather and
+reduce-scatter apart, over the mesh's shard group. ``step_metrics``,
+``format_metrics_line``, ``fault_event`` and ``summarize_ms`` are the
+JAX package's, unchanged.
 """
 from __future__ import annotations
 
@@ -124,13 +126,57 @@ def measure_matchings(
     return rows
 
 
-def measure_fsdp_collectives(spec, layout, **_):
-    """The FSDP all-gather / reduce-scatter probes need the sharded
-    runtime, which the port does not have yet."""
-    raise NotImplementedError(
-        "measure_fsdp_collectives needs the FSDP runtime, not ported yet "
-        "(ROADMAP queue 1, item 15: multi-GPU, FSDP and tensor parallel)"
-    )
+def measure_fsdp_collectives(
+    spec,
+    layout,
+    *,
+    timer: Optional[StepTimer] = None,
+    iters: int = 3,
+    warmup: int = 1,
+    seed: int = 0,
+) -> Dict[str, Dict[str, float]]:
+    """Measured cost of the two FSDP collectives of one step, isolated.
+
+    ``"gather"``: every bucket shard all-gathered over the shard group,
+    once per node this rank holds (the monolithic step's
+    re-materialization). ``"reduce_scatter"``: one reduce-scatter a
+    bucket and node on full-size fp32 payloads (the gradient path). The
+    payloads are one node's buckets at ``layout.shard_sizes`` (reused
+    for every node), on the spec's device; each repetition is timed
+    with CUDA events on the card, the host clock on the CPU. Returns
+    ``{"gather": summary, "reduce_scatter": summary, "bytes_per_node":
+    ...}`` (ms summaries as :func:`summarize_ms`; bytes: the gathered
+    fp32 bucket bytes of one node)."""
+    import torch
+
+    from repro_torch.dist.fsdp import gather_shard, reduce_scatter_full
+
+    timer = timer or StepTimer()
+    mesh = spec.mesh
+    device = torch.device(mesh.device or "cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shards = [torch.randn((sz,), generator=gen, device=device) for sz in layout.shard_sizes]
+    fulls = [torch.randn((sz * layout.num_shards,), generator=gen, device=device)
+             for sz in layout.shard_sizes]
+    nodes = spec.local_nodes
+
+    def gather():
+        for _ in range(nodes):
+            for sh in shards:
+                gather_shard(sh, mesh)
+
+    def reduce_scatter():
+        for _ in range(nodes):
+            for full in fulls:
+                reduce_scatter_full(full, mesh)
+
+    out = {}
+    for name, fn in (("gather", gather), ("reduce_scatter", reduce_scatter)):
+        out[name] = _probe_loop(timer, name, fn, iters=iters, warmup=warmup,
+                                device=device, cat="comm", tid=1,
+                                buckets=len(shards), nodes=nodes)
+    out["bytes_per_node"] = 4 * sum(f.numel() for f in fulls)
+    return out
 
 
 # ---------------------------------------------------------------------------

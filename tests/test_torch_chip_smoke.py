@@ -199,3 +199,47 @@ def test_sweep_close_holds_gossip_bit_for_bit(smoke):
     want = gmm.run_plain(*t)
     assert smoke.sweep_close(torch, gmm, want + 1e-3, want) < 2e-3
     assert smoke.sweep_close(torch, gmm, want + 1.0, want) == float("inf")
+
+
+def test_fsdp_phase_is_listed_wired_and_reckons_its_bytes(smoke):
+    """Phase 11 (the sharded trainer in an NCCL world of one): listed,
+    run after the examples, and its static pieces: the byte reckoning of
+    internlm2-1.8b at depth 8 on 4 nodes (882.4 M params, 3.53 GB fp32 a
+    node, 14.12 GB of params and as much of velocities and of overlap
+    GossipState, gathered views of 3.53 / 2.01 / 0.758 GB), the layouts'
+    buckets and the gossip_axpy launches expected of each run, and the
+    line printed when one card cannot hold the two-rank worlds."""
+    import ast
+    import types
+
+    from repro_torch.dist import fsdp
+    from repro_torch.models.transformer import Model
+
+    assert "11. fsdp" in smoke.__doc__
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    calls = [c.func.id for c in ast.walk(main)
+             if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)]
+    assert calls.index("phase_fsdp") > calls.index("phase_examples")
+    cfg = smoke.fsdp_config()
+    assert (cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (8, 2048, 8192, 92544)
+    reck = smoke.fsdp_bytes(cfg)
+    assert reck["params_per_node"] == 882411520
+    assert reck["node_bytes"] == 4 * 882411520
+    gb = {k: round(v / 1e9, 3) for k, v in reck.items() if k != "params_per_node"}
+    assert gb == {"node_bytes": 3.53, "params": 14.119, "velocities": 14.119,
+                  "gossip_state": 14.119, "monolithic": 3.53, "streamed": 2.013,
+                  "scan_streamed": 0.758}
+    spec = types.SimpleNamespace(num_nodes=smoke.FSDP_NODES, num_shards=1)
+    model = Model(cfg)
+    buckets = {"monolithic": fsdp.make_layout(model, spec).plan.num_buckets,
+               "streamed": fsdp.make_stream_layout(model, spec, scan_aware=False)
+               .plan.num_buckets,
+               "scan-streamed": fsdp.make_stream_layout(model, spec).plan.num_buckets}
+    assert buckets == {"monolithic": 11, "streamed": 3, "scan-streamed": 3}
+    assert smoke.fsdp_expected_launches(11, "sequential") == 33
+    assert smoke.fsdp_expected_launches(3, "sequential") == 9
+    assert smoke.fsdp_expected_launches(3, "overlap") == 12      # 3 steps and the flush
+    assert "were not run" in smoke.fsdp_not_run_line(1)
+    assert smoke.fsdp_not_run_line(2) is None
+    assert smoke.FSDP_TOL == {"loss_atol": 5e-6, "loss_rtol": 1e-6, "params": 2e-6}

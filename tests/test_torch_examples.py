@@ -49,9 +49,15 @@ def test_train_decentralized_loss_decreases(mode, tmp_path):
     assert (tmp_path / "ck" / "ckpt.json").exists()
 
 
-def test_train_decentralized_fsdp_exits_naming_item_15():
-    with pytest.raises(SystemExit, match="item 15"):
-        train_decentralized.main(["--device", "cpu", "--shard", "2"])
+def test_train_decentralized_fsdp_exits_naming_item_15(monkeypatch):
+    """The FSDP half of ROADMAP item 15 is ported: ``--shard 2`` starts
+    two ranks, one card each, and a host with fewer cards exits naming
+    both counts (the run itself is in tests/test_torch_mesh.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="2 ranks need one CUDA card each, but this host "
+                                         "has 1 card"):
+        train_decentralized.main(["--shard", "2"])
 
 
 @pytest.mark.parametrize("name", ["quickstart", "topology_explorer", "serve_batched",

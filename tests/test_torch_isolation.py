@@ -90,3 +90,31 @@ def test_dry_run_analysis_and_example_modules_stand_alone():
         roots = {root for _, root in _imported_roots(path)}
         assert not roots & FORBIDDEN, (rel, roots & FORBIDDEN)
         assert "importlib" not in roots or rel == "analysis/docs_lint.py", rel
+
+
+NEW_IN_PR_22 = [
+    "launch/mesh.py", "dist/sharding.py", "dist/fsdp.py", "dist/gossip.py",
+    "dist/decen_train.py", "dist/bucketing.py", "launch/train.py",
+    "examples/train_decentralized.py", "telemetry/probes.py", "analysis/bytes_model.py",
+]
+
+
+def test_mesh_and_fsdp_modules_stand_alone():
+    """The mesh, the node-axis exchange and the FSDP runtime import no
+    JAX and nothing of the JAX package; the sharded pieces come from the
+    port's own modules."""
+    for rel in NEW_IN_PR_22:
+        path = PORT / rel
+        assert path.exists(), rel
+        roots = {root for _, root in _imported_roots(path)}
+        assert not roots & FORBIDDEN, (rel, roots & FORBIDDEN)
+    fsdp_imports = {name for _, name in _imported_modules(PORT / "dist/fsdp.py")}
+    assert {"repro_torch.dist", "repro_torch.dist.sharding",
+            "repro_torch.dist.decen_train"} <= fsdp_imports
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module

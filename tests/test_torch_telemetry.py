@@ -163,8 +163,16 @@ def test_step_metrics_equal_the_jax_packages():
     (ev,) = rec.events()
     assert (ev.name, ev.cat, ev.step, ev.tid, ev.args) == (
         "fault/link_drop", "fault", 4, 1, {"dropped_exchanges": 2})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tprobes.measure_fsdp_collectives(None, None)
+    # the FSDP collectives' probe, at a world of one on the CPU
+    from repro_torch.dist import fsdp
+    from repro_torch.launch.mesh import make_test_mesh
+
+    spec = dt.make_spec(make_test_mesh(), 4)
+    layout = fsdp.make_layout(Model(get_smoke_config("internlm2_1_8b")), spec)
+    got = tprobes.measure_fsdp_collectives(spec, layout, timer=tt.StepTimer(rec), iters=2)
+    assert got["gather"]["n"] == got["reduce_scatter"]["n"] == 2
+    assert got["bytes_per_node"] == 4 * layout.plan.total_elements
+    assert [e.name for e in rec.events()[1:]] == ["gather"] * 2 + ["reduce_scatter"] * 2
 
 
 def test_measure_matchings_rows_on_the_cpu():

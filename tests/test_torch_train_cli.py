@@ -158,10 +158,10 @@ def _check_ported(flags, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--shard", "2"], "item 15"),
+    (["--shard", "2", "--gossip-mode", "static"], "not static"),
     (["--model-par", "2"], "item 15"),
-    (["--stream-layers"], "item 15"),
-    (["--no-stream-scan"], "item 15"),
+    (["--stream-layers"], "requires --shard > 1"),
+    (["--no-stream-scan"], "ported"),
     (["--gossip-mode", "overlap"], "ported"),
     (["--gossip-mode", "overlap", "--p-drop", "0.1"], "ported"),
     (["--trace", "{tmp}/tr"], "ported"),
@@ -169,8 +169,10 @@ def _check_ported(flags, tmp_path, capsys):
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path, capsys):
     """Every flag the port has not implemented exits naming the ROADMAP
-    item that ports it; those ported since (overlap, ``--trace``)
-    run instead."""
+    item that ports it (``--model-par``); those ported since (overlap,
+    ``--trace``, the FSDP flags) run instead, and the FSDP flags keep the
+    JAX CLI's checks (``--stream-layers`` needs ``--shard > 1``, static
+    gossip is refused with ``--shard > 1``)."""
     if item == "ported":
         _check_ported(flags, tmp_path, capsys)
         return
