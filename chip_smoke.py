@@ -167,11 +167,44 @@ non-zero exit:
            ``analysis.launch_counts.fsdp_train_step``; one
            ``measure_fsdp_collectives`` row. With two cards or more the S 2
            and R_data 2 worlds run over NCCL against the world of one;
-           with one card a line says they were not run.
+           with one card a line says they were not run;
+12. tp     tensor parallel over a model axis of 2 (``repro_torch.models.tp``,
+           the JAX rules of ``repro_torch.dist.sharding``): with one card a
+           world of two ranks shares it over gloo (whose all-reduce takes
+           CUDA tensors), with two cards or more it runs over NCCL, and
+           with four also a (data 2, model 2) world. Training: internlm2-1.8b
+           at published width, depth 24 -> 2, 8 nodes on paper8, MATCHA
+           budget 0.5, 4 x 128 tokens a node, fp32 params, bf16 compute,
+           SGD lr 0.05 momentum 0.9: 3 masked steps against the world of
+           one's TrainStep from the same weights (each rank runs that
+           reference in turn and keeps its slices; loss within max abs
+           3e-3 and each leaf's difference within 5e-2 of the world of
+           one's change from the initial weights: T changes the order of
+           the row-parallel sums), the same steps with a planted fault
+           (attention without ``to_model``) that must exceed that limit,
+           gossip_axpy launches a step equal to the world of one's, then 2
+           overlap steps and the flush; each rank's resident and peak
+           memory, step times and the time in the model axis's
+           all-reduces. Serving at T 2, bf16, batch 8, prompt 2048, 8
+           generated tokens, seed 0: internlm2-1.8b (24 layers), mamba2-370m
+           (48 layers) and dbrx-132b at 3 layers (expert parallel: 8 of 16
+           experts a rank) against the world of one, which rank 0 serves
+           first, each decode step fed the world of one's token: every
+           step whose last position each MoE router sends to the world of
+           one's experts has its last logits within max abs 0.25 and its
+           token equal where the top-2 margin is over 0.5 (steps that
+           rounding re-routes are counted and their logits difference
+           logged; at most a quarter may be); each kernel's launches
+           equal to the world of one's and phase 4's counts, the shapes
+           each kernel received, prefill and decode times and their
+           all-reduce time; then data 2 x model 1
+           on the same ranks, each serving 4 of the 8 internlm2 requests,
+           against the world of one's rows.
 
 Then it prints the card's name and power limit, one JSON line with every
 ported kernel's numbers, and, last, the device JSON line.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -179,6 +212,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -2303,6 +2337,640 @@ def fsdp_multi_card(torch) -> None:
             fail(f"fsdp {case} over NCCL: {err} past {tol}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: tensor parallel over a model axis
+# ---------------------------------------------------------------------------
+TP = 2                          # the model axis of the phase's worlds
+TP_STEPS, TP_OVERLAP_STEPS = 3, 2
+TP_GEN = 8                      # generated tokens of each served request
+TP_SERVED = ("internlm2-1.8b", "mamba2-370m", "dbrx-132b")
+# against the world of one, bf16 compute: T changes the order of the
+# row-parallel sums and rounds each rank's partial product to bf16 before
+# the fp32 sum (measured values in PERF.md). After 3 steps: the loss's max
+# abs difference, and per leaf the norm of the params' difference over the
+# norm of the world of one's change from the initial weights (max over
+# leaves), 3x the readings; a halved gradient on a leaf reads ~0.5.
+TP_TRAIN_TOL = {"loss": 3e-3, "params": 5e-2}
+TP_LOGIT_TOL = 0.25             # max abs on each step's last logits
+
+
+def tp_world(cards: int):
+    """``(backend, share)`` of the phase's world: on fewer cards than
+    ranks, gloo with the ranks sharing the card (gloo's all-reduce takes
+    CUDA tensors, checked on the H100 once); NCCL with a card a rank."""
+    return ("gloo", True) if cards < TP else ("nccl", False)
+
+
+class CollectiveClock:
+    """Host time spent in the model axis's all-reduces
+    (``repro_torch.models.tp._sum``, patched in this rank), each fenced
+    by a synchronize before it starts and after it ends."""
+
+    def __init__(self, torch):
+        from repro_torch.models import tp
+
+        self.ms, self.calls, self.bytes = 0.0, 0, 0
+        orig = tp._sum
+
+        def timed(t, group, op=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(t, group, op)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            self.bytes += t.numel() * 4
+            return out
+
+        tp._sum = timed
+
+    def read(self):
+        return self.ms, self.calls, self.bytes
+
+
+class KernelShapes:
+    """The input shapes of every call of the three serving kernels while
+    active: ``ops.attention``, ``ops.ssd`` and ``ops.grouped_matmul``,
+    the entries the model calls them through, wrapped (the kernels'
+    wrappers and their launch counters stay as they are)."""
+
+    NAMES = {"attention": "flash_attention", "ssd": "ssm_scan",
+             "grouped_matmul": "grouped_matmul"}
+
+    def __init__(self):
+        self.seen = {}
+        self.sizes = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._orig = []
+        for entry, name in self.NAMES.items():
+            fn = getattr(ops, entry)
+            self._orig.append((ops, entry, fn))
+
+            def rec(*args, _fn=fn, _name=name, **kw):
+                key = (_name,) + tuple(tuple(a.shape) for a in args[:3]
+                                       if hasattr(a, "shape"))
+                self.seen[key] = self.seen.get(key, 0) + 1
+                if _name == "grouped_matmul":
+                    self.sizes.append(args[2])
+                return _fn(*args, **kw)
+
+            setattr(ops, entry, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, entry, fn in self._orig:
+            setattr(mod, entry, fn)
+
+    def lines(self):
+        covered = [int(s.sum()) for s in self.sizes]
+        rows = f"; grouped_matmul rows in the groups {min(covered)}-{max(covered)}" \
+            if covered else ""
+        return ", ".join(f"{k[0]} {list(k[1:])} x{n}" for k, n in self.seen.items()) + rows
+
+
+class Routes:
+    """The experts each MoE layer's router picks for the last position of
+    every row while active (``models.ffn._router`` wrapped, kept on the
+    device until read)."""
+
+    def __init__(self, rows: int):
+        self.rows, self.seen = rows, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import ffn
+
+        self._orig = orig = ffn._router
+
+        def router(p, x, cfg):
+            gates, idx, aux = orig(p, x, cfg)
+            last = idx.reshape(self.rows, -1, idx.shape[-1])[:, -1]
+            self.seen.append(torch.sort(last, dim=-1).values)
+            return gates, idx, aux
+
+        ffn._router = router
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ffn
+
+        ffn._router = self._orig
+
+    def table(self, steps: int):
+        """``(rows, steps, layers x k)``, the calls in step order."""
+        import torch
+
+        if not self.seen:
+            return torch.zeros(self.rows, steps, 1)
+        t = torch.stack(self.seen).cpu().reshape(steps, -1, self.rows, self.seen[0].shape[-1])
+        return t.permute(2, 0, 1, 3).reshape(self.rows, steps, -1).float()
+
+
+def tp_reference_train(torch, model, opt, plan, batches, bits, spec):
+    """The world of one's masked steps from seed 0 (no rules): the losses,
+    its gossip_axpy launches a step and this model rank's slices of the
+    final params, on the host."""
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist.sharding import no_rules
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.tree import flatten
+
+    dev = spec.mesh.device
+    with no_rules():
+        params = dt.init_stacked_params(model, NODES, seed=0, device=dev)
+        opt_state = dt.init_stacked_opt_state(opt, model, NODES, device=dev)
+        step = dt.make_train_step(model, opt, plan)
+        gossip_axpy.launches = 0
+        losses = []
+        for k in range(TP_STEPS):
+            params, opt_state, loss, _ = step(params, opt_state, batches[k], bits[k])
+            losses.append(loss)
+        torch.cuda.synchronize()
+    launches = gossip_axpy.launches // TP_STEPS
+    del opt_state
+    mine = {}
+    for path, leaf in flatten(spec.local(params)).items():
+        d = spec.split.get(path)
+        if d is not None:
+            k = leaf.shape[d + 1] // spec.tp
+            leaf = leaf.narrow(d + 1, spec.mesh.model_rank * k, k)
+        mine[path] = leaf.cpu()
+    del params
+    torch.cuda.empty_cache()
+    losses = torch.stack(losses)[:, spec.node_lo:spec.node_hi].cpu()
+    return dict(losses=losses, params=mine, launches=launches)
+
+
+@contextlib.contextmanager
+def attention_without_to_model():
+    """A planted fault, the training comparison's negative control: the
+    attention block's inputs enter its sharded heads without ``to_model``,
+    so each rank's backward gives them only its heads' part of their
+    gradient, and a replicated leaf upstream gets a partial gradient."""
+    from repro_torch.models import attention, tp
+
+    orig = attention.tpl
+    attention.tpl = types.SimpleNamespace(**vars(tp))
+    attention.tpl.to_model = lambda t: t
+    try:
+        yield
+    finally:
+        attention.tpl = orig
+
+
+def tp_param_errors(torch, params, want, init):
+    """This rank's params against the world of one's slices ``want``: the
+    max abs difference, and per leaf the norm of the difference over the
+    norm of the world of one's change from ``init`` (one node's initial
+    slices; every node starts there)."""
+    from repro_torch.tree import flatten
+
+    abs_err, rel = 0.0, {}
+    for path, leaf in flatten(params).items():
+        w = want[path].to(leaf.device, torch.float32)
+        d = leaf.float() - w
+        abs_err = max(abs_err, float(d.abs().max()))
+        change = w.sub_(init[path].float())
+        rel[path] = float(d.norm() / change.norm().clamp_min(1e-30))
+        del w, d, change
+    return abs_err, rel
+
+
+def tp_train(torch, mesh, clock):
+    """Phase 12's training half on this rank: the masked steps against the
+    world of one, then overlap steps and the flush."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import flatten, tree_map
+
+    dev = mesh.device
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=2)
+    model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+    plan = plan_matcha(named_graph("paper8", NODES, seed=3), 0.5, seed=0)
+    total = TP_STEPS + TP_OVERLAP_STEPS
+    schedule = plan.schedule(total, seed=0)
+    data = DecentralizedBatches(cfg, NODES, BATCH, SEQ, seed=0, device=dev)
+    batches = [next(data) for _ in range(total)]
+    bits = [torch.as_tensor(schedule.activations[k].astype("float32"), device=dev)
+            for k in range(total)]
+    spec = dt.make_spec(mesh, NODES, cfg=cfg)
+    ref = None
+    for r in range(mesh.size):          # one rank at a time: the card holds one world of one
+        if mesh.rank == r:
+            t0 = time.perf_counter()
+            ref = tp_reference_train(torch, model, opt, plan, batches, bits, spec)
+            ref["s"] = time.perf_counter() - t0
+        dist.barrier()
+    with use_rules(spec.rules):
+        params = dt.init_stacked_params(model, NODES, seed=0, device=dev)
+        opt_state = dt.init_stacked_opt_state(opt, model, NODES, device=dev)
+    if mesh.data > 1:                   # this data rank's nodes
+        params, opt_state = (tree_map(lambda a: a.clone(), spec.local(t))
+                             for t in (params, opt_state))
+    step = dt.make_train_step(model, opt, plan, spec=spec)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gossip_axpy.launches = 0
+    losses, step_ms, coll_ms = [], [], []
+    for k in range(TP_STEPS):
+        c0 = clock.ms
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = step(params, opt_state, batches[k], bits[k])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(clock.ms - c0)
+        losses.append(loss)
+    launches = gossip_axpy.launches // TP_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu()
+    with use_rules(spec.rules):
+        init = flatten(model.init(0, device=dev))
+    params_err, params_rel = tp_param_errors(torch, params, ref["params"], init)
+    # two overlap steps from here, then the flush
+    ostep = dt.make_train_step(model, opt, plan, gossip_mode="overlap", spec=spec)
+    gstate = dt.init_gossip_state(plan, ostep.bplan, device=dev, spec=spec)
+    gossip_axpy.launches = 0
+    ov_ms = []
+    for k in range(TP_STEPS, total):
+        t0 = time.perf_counter()
+        params, opt_state, gstate, loss, _ = ostep(params, opt_state, gstate, batches[k],
+                                                    bits[k])
+        torch.cuda.synchronize()
+        ov_ms.append((time.perf_counter() - t0) * 1e3)
+    params = dt.make_gossip_flush(plan, ostep.bplan)(params, gstate, inplace=True)
+    cons = float(dt.consensus_distance(params, spec))
+    torch.cuda.synchronize()
+    ov_launches = gossip_axpy.launches
+    ov_loss = float(loss.float().mean())
+    del params, opt_state, gstate
+    torch.cuda.empty_cache()
+    # the negative control: the masked steps again with a planted fault
+    with use_rules(spec.rules):
+        params = dt.init_stacked_params(model, NODES, seed=0, device=dev)
+        opt_state = dt.init_stacked_opt_state(opt, model, NODES, device=dev)
+    if mesh.data > 1:
+        params, opt_state = (tree_map(lambda a: a.clone(), spec.local(t))
+                             for t in (params, opt_state))
+    fault_losses = []
+    with attention_without_to_model():
+        for k in range(TP_STEPS):
+            params, opt_state, loss, _ = step(params, opt_state, batches[k], bits[k])
+            fault_losses.append(loss)
+    fault_abs, fault_rel = tp_param_errors(torch, params, ref["params"], init)
+    fault_loss = float((torch.stack(fault_losses).cpu() - ref["losses"]).abs().max())
+    del params, opt_state, init, ref["params"]
+    torch.cuda.empty_cache()
+    worst = max(params_rel, key=params_rel.get)
+    fault_worst = max(fault_rel, key=fault_rel.get)
+    mid = sorted(range(TP_STEPS), key=lambda k: step_ms[k])[TP_STEPS // 2]
+    return dict(cfg=cfg.name, leaves=len(spec.split), params_per_node=model.num_params(),
+                ref_launches=ref["launches"], launches=launches, ref_s=ref["s"],
+                loss_err=float((losses - ref["losses"]).abs().max()),
+                loss=float(losses[-1].mean()), params_err=params_err,
+                params_rel=params_rel[worst], params_worst=worst,
+                fault_loss=fault_loss, fault_abs=fault_abs,
+                fault_rel=fault_rel[fault_worst], fault_worst=fault_worst,
+                resident=resident, peak=peak, step_ms=step_ms, median_ms=step_ms[mid],
+                coll_ms=coll_ms, overlap_ms=ov_ms, overlap_launches=ov_launches,
+                overlap_loss=ov_loss, consensus=cons)
+
+
+def tp_serve_run(torch, cfg, prompt, rules, clock, *, rows=None, feed=None):
+    """One served batch (``SERVE_BATCH`` prompts, ``TP_GEN`` tokens, seed 0)
+    under ``rules`` (None: the world of one): each step's last logits
+    (the prefill's first), the tokens and each step's top-2 margin,
+    times, launches, the kernels' input shapes and the collectives'
+    time. ``feed``: the tokens each decode step takes, (B, TP_GEN), the
+    world of one's (by default the batch's own). ``routes``: each step's
+    experts of the last position at every MoE layer, sorted, (B, TP_GEN,
+    layers x k) (zeros, one column, for a model without experts)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.dist import serve as sv
+    from repro_torch.dist.sharding import no_rules, use_rules
+    from repro_torch.models.transformer import Model
+
+    counters = all_counters()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = Model(cfg)
+    max_len = prompt + TP_GEN
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = np.stack([corpus.sample(rng, prompt) for _ in range(SERVE_BATCH)])
+    if rows is not None:
+        prompts = prompts[rows]
+    tokens = torch.as_tensor(prompts.astype(np.int32), device=dev)
+    scope = use_rules(rules) if rules is not None else no_rules()
+    with scope:
+        params = model.init(0, device=dev)
+        caches = model.init_cache(tokens.shape[0], max_len, device=dev)
+    prefill = sv.make_prefill_step(model, rules, max_len=max_len)
+    decode = sv.make_decode_step(model, rules, max_len=max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+
+    def top2(logits):
+        v = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+        return (v[:, 0] - v[:, 1]).cpu()
+
+    with KernelShapes() as shapes, Routes(tokens.shape[0]) as routes, \
+            (no_rules() if rules is None else use_rules(rules)):
+        c0 = clock.ms
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, tokens, caches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_coll = clock.ms - c0
+        after = {k: fn.launches for k, fn in counters.items()}
+        steps = [logits[:, -1].float().cpu()]
+        out, margins = [torch.argmax(logits[:, -1], dim=-1)], [top2(logits)]
+        c0 = clock.ms
+        t0 = time.perf_counter()
+        for i in range(TP_GEN - 1):
+            nxt = out[-1] if feed is None else feed[:, i].to(dev)
+            logits, caches = decode(params, nxt[:, None].to(torch.int32), caches,
+                                    prompt + i)
+            out.append(torch.argmax(logits[:, -1], dim=-1))
+            margins.append(top2(logits))
+            steps.append(logits[:, -1].float().cpu())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (TP_GEN - 1)
+        decode_coll = (clock.ms - c0) / (TP_GEN - 1)
+    res = dict(prefill_ms=prefill_ms, decode_ms=decode_ms, prefill_coll=prefill_coll,
+               decode_coll=decode_coll, logits=torch.stack(steps, dim=1),
+               tokens=torch.stack(out, dim=1).cpu(), margins=torch.stack(margins, dim=1),
+               routes=routes.table(TP_GEN),
+               prefill_launches={k: n for k, n in after.items() if n},
+               decode_launches={k: fn.launches - after[k] for k, fn in counters.items()
+                                if fn.launches - after[k]},
+               peak=torch.cuda.max_memory_allocated(dev), shapes=shapes.lines())
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_agree(got: dict, want: dict, rows) -> dict:
+    """A batch served on the world of one's tokens (``tp_serve_run``'s
+    ``feed``) against the world of one's ``rows``. Each step whose last
+    position the routers sent to the world of one's experts at every MoE
+    layer counts (a top-k choice that rounding flips changes that
+    position's output by a whole expert's term: such steps are counted
+    apart, with their logits difference): its last logits must lie within
+    ``TP_LOGIT_TOL``, and its token must equal the world of one's where
+    the top-2 margin is over twice that (each side's logits may move by
+    the tolerance, so below that the argmax may rightly differ). At most
+    a quarter of the steps may be routed otherwise."""
+    import torch
+
+    logits, tokens, margins, routes = (want[k][rows]
+                                       for k in ("logits", "tokens", "margins", "routes"))
+    same = (got["routes"] == routes).all(dim=-1)                  # (B, steps)
+    diff = (got["logits"] - logits).abs().amax(dim=-1)
+    sure = (margins > 2 * TP_LOGIT_TOL) & same
+    res = dict(logits_err=float(diff[same].max()) if same.any() else math.inf,
+               rerouted=int((~same).sum()), steps=same.numel(),
+               rerouted_err=float(diff[~same].max()) if (~same).any() else 0.0,
+               compared=int(sure.sum()),
+               tokens_ok=torch.equal(got["tokens"][sure].long(), tokens[sure].long()))
+    res["ok"] = (res["logits_err"] <= TP_LOGIT_TOL and res["tokens_ok"]
+                 and 4 * res["rerouted"] <= res["steps"])
+    return res
+
+
+def _share(torch, res: dict, keys, src: int = 0) -> dict:
+    """``res``'s tensors at ``keys`` broadcast from rank ``src`` (the world
+    of one's, which one rank computed)."""
+    import torch.distributed as dist
+
+    out = {}
+    for key in keys:
+        t = res[key] if res is not None else None
+        shape = torch.zeros(4, dtype=torch.float32, device="cuda")    # ndim, then dims
+        if t is not None:
+            shape[:t.dim() + 1] = torch.tensor([t.dim()] + list(t.shape))
+        dist.broadcast(shape, src)
+        dims = [int(x) for x in shape.tolist()]
+        buf = (t.to("cuda", torch.float32) if t is not None
+               else torch.empty(dims[1:1 + dims[0]], device="cuda"))
+        dist.broadcast(buf, src)
+        out[key] = buf.cpu()
+    return out
+
+
+def tp_serve(torch, mesh, clock):
+    """Phase 12's serving half on this rank: each model at T 2 against the
+    world of one (which rank 0 serves first, its results broadcast)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import serve_rules
+
+    configs = {cfg.name: (cfg, prompt, pre, dec) for cfg, prompt, pre, dec in serving_configs()}
+    per = SERVE_BATCH // mesh.data
+    rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+    out = {}
+    for name in TP_SERVED:
+        cfg, prompt, pre, dec = configs[name]
+        ref = None
+        if mesh.rank == 0:
+            ref = tp_serve_run(torch, cfg, prompt, None, clock)
+        dist.barrier()
+        want = _share(torch, ref, ("logits", "tokens", "margins", "routes"))
+        got = tp_serve_run(torch, cfg, prompt, serve_rules(mesh, cfg), clock, rows=rows,
+                           feed=want["tokens"][rows].long())
+        expect_pre = {k: n for k, n in pre.items() if n}
+        expect_dec = {k: n * (TP_GEN - 1) for k, n in dec.items() if n}
+        out[name] = dict(
+            layers=cfg.num_layers, prefill_ms=got["prefill_ms"], decode_ms=got["decode_ms"],
+            prefill_coll=got["prefill_coll"], decode_coll=got["decode_coll"],
+            peak=got["peak"], shapes=got["shapes"],
+            ref_prefill_ms=ref["prefill_ms"] if ref else None,
+            ref_decode_ms=ref["decode_ms"] if ref else None,
+            ref_peak=ref["peak"] if ref else None,
+            ref_launches=(ref["prefill_launches"], ref["decode_launches"]) if ref else None,
+            launches=(got["prefill_launches"], got["decode_launches"]),
+            expected=(expect_pre, expect_dec),
+            tokens=got["tokens"][0].tolist(), ref_tokens=want["tokens"][0].long().tolist())
+        out[name].update(serve_agree(got, want, rows))
+        if name == TP_SERVED[0]:
+            out["_dense_ref"] = want
+        dist.barrier()
+    return out
+
+
+def tp_data_par(torch, mesh, clock, want):
+    """``--data-par 2`` on the same ranks (model axis 1): each serves half
+    the requests of internlm2-1.8b, against the world of one's rows."""
+    configs = {cfg.name: (cfg, prompt) for cfg, prompt, _, _ in serving_configs()}
+    cfg, prompt = configs[TP_SERVED[0]]
+    per = SERVE_BATCH // mesh.data
+    rows = slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+    got = tp_serve_run(torch, cfg, prompt, None, clock, rows=rows,
+                       feed=want["tokens"][rows].long())
+    return dict(rows=per, prefill_ms=got["prefill_ms"], decode_ms=got["decode_ms"],
+                **serve_agree(got, want, rows))
+
+
+def _tp_rank(rank: int, world: int, init_method: str, backend: str, out: str) -> None:
+    """One rank of phase 12's world; writes its results to ``out.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import init_world, make_mesh
+
+    device = init_world("cuda", rank=rank, world_size=world, init_method=init_method,
+                        backend=backend)
+    try:
+        clock = CollectiveClock(torch)
+        mesh = make_mesh(model=TP, device=device)
+        t0 = time.perf_counter()
+        res = {"train": tp_train(torch, mesh, clock)}
+        res["train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["serve"] = tp_serve(torch, mesh, clock)
+        want = res["serve"].pop("_dense_ref")
+        res["serve_s"] = time.perf_counter() - t0
+        if world == TP:
+            t0 = time.perf_counter()
+            res["data_par"] = tp_data_par(torch, make_mesh(model=1, device=device), clock, want)
+            res["data_par_s"] = time.perf_counter() - t0
+        res["collectives"] = clock.read()
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(torch):
+    """Phase 12 (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend, share = tp_world(cards)
+    worlds = [TP] + ([2 * TP] if cards >= 2 * TP else [])
+    if share:
+        log(f"tp: {cards} CUDA card here: a world of {TP} ranks shares it over gloo "
+            "(its all-reduce takes CUDA tensors; NCCL puts one rank on a card)")
+    else:
+        log(f"tp: {cards} CUDA cards: worlds over NCCL, a card a rank")
+    torch.cuda.empty_cache()
+    results = {}
+    for world in worlds:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "rank")
+            spawn(_tp_rank, world, "cuda", args=(backend, out), share=share)
+            results[world] = [json.load(open(f"{out}.{r}")) for r in range(world)]
+    failures = []
+    gb = lambda b: f"{b / 1e9:.2f} GB"
+    for world, ranks in results.items():
+        tag = f"tp: world {world} ({'data 2 x ' if world > TP else ''}model {TP}, {backend})"
+        for r, res in enumerate(ranks):
+            t = res["train"]
+            log(f"{tag} rank {r}: training {t['cfg']} at 2 layers, {NODES} nodes on paper8, "
+                f"{t['params_per_node']} params a node ({t['leaves']} leaves split): 3 masked "
+                f"steps {', '.join(f'{x:.1f}' for x in t['step_ms'])} ms (median "
+                f"{t['median_ms']:.1f}; in the model axis's all-reduces "
+                f"{', '.join(f'{x:.1f}' for x in t['coll_ms'])} ms); resident "
+                f"{gb(t['resident'])}, peak {gb(t['peak'])}; gossip_axpy launches a step "
+                f"{t['launches']} (world of one {t['ref_launches']}); against the world "
+                f"of one: loss max diff {t['loss_err']:.3e}, params max diff "
+                f"{t['params_err']:.3e}, params difference over change {t['params_rel']:.3e} "
+                f"at {t['params_worst']} (limits {TP_TRAIN_TOL}); planted fault (attention "
+                f"without to_model): loss {t['fault_loss']:.3e}, params max diff "
+                f"{t['fault_abs']:.3e}, over change {t['fault_rel']:.3e} at "
+                f"{t['fault_worst']}; last loss {t['loss']:.4f}; "
+                f"then {TP_OVERLAP_STEPS} overlap steps "
+                f"{', '.join(f'{x:.1f}' for x in t['overlap_ms'])} ms and the flush: "
+                f"{t['overlap_launches']} gossip_axpy launches, consensus "
+                f"{t['consensus']:.3e}; world of one on this rank {t['ref_s']:.1f} s")
+            if t["launches"] != t["ref_launches"]:
+                failures.append(f"rank {r}: {t['launches']} gossip_axpy launches a step, the "
+                                f"world of one {t['ref_launches']}")
+            want_ov = t["ref_launches"] * (TP_OVERLAP_STEPS + 1)
+            if t["overlap_launches"] != want_ov:
+                failures.append(f"rank {r}: {t['overlap_launches']} overlap launches, "
+                                f"expected {want_ov}")
+            if not (t["loss_err"] <= TP_TRAIN_TOL["loss"]
+                    and t["params_rel"] <= TP_TRAIN_TOL["params"]):
+                failures.append(f"rank {r}: training past {TP_TRAIN_TOL}: loss "
+                                f"{t['loss_err']:.3e}, params {t['params_rel']:.3e}")
+            if t["fault_rel"] <= TP_TRAIN_TOL["params"]:
+                failures.append(f"rank {r}: the planted fault passed the params limit "
+                                f"({t['fault_rel']:.3e})")
+            if not (math.isfinite(t["overlap_loss"]) and math.isfinite(t["consensus"])):
+                failures.append(f"rank {r}: overlap loss or consensus not finite")
+            for name, s in res["serve"].items():
+                log(f"{tag} rank {r}: serving {name} ({s['layers']} layers) batch "
+                    f"{SERVE_BATCH} prompt {SERVE_PROMPT} gen {TP_GEN}: prefill "
+                    f"{s['prefill_ms']:.1f} ms (all-reduces {s['prefill_coll']:.1f} ms), "
+                    f"decode {s['decode_ms']:.2f} ms/token (all-reduces "
+                    f"{s['decode_coll']:.2f} ms/token), peak {gb(s['peak'])}"
+                    + (f"; world of one prefill {s['ref_prefill_ms']:.1f} ms, decode "
+                       f"{s['ref_decode_ms']:.2f} ms/token, peak {gb(s['ref_peak'])}"
+                       if s["ref_prefill_ms"] else "")
+                    + f"; launches (prefill, decode) {s['launches']}, expected "
+                    f"{s['expected']}; kernel inputs: {s['shapes']}; fed the world of "
+                    f"one's tokens: {s['rerouted']} of {s['steps']} request steps routed to "
+                    f"other experts (logits max diff there {s['rerouted_err']:.3e}), the "
+                    f"others' last logits max diff {s['logits_err']:.3e} (limit "
+                    f"{TP_LOGIT_TOL}); {s['compared']} tokens past a top-2 margin of "
+                    f"{2 * TP_LOGIT_TOL} agree {s['tokens_ok']}: {s['tokens']} (world of "
+                    f"one {s['ref_tokens']})")
+                if [dict(x) for x in s["launches"]] != [dict(x) for x in s["expected"]]:
+                    failures.append(f"rank {r} {name}: launches {s['launches']}, expected "
+                                    f"{s['expected']}")
+                if s["ref_launches"] is not None and \
+                        [dict(x) for x in s["ref_launches"]] != [dict(x) for x in s["launches"]]:
+                    failures.append(f"rank {r} {name}: launches {s['launches']}, the world "
+                                    f"of one {s['ref_launches']}")
+                if not s["ok"]:
+                    failures.append(f"rank {r} {name}: logits max diff {s['logits_err']:.3e}, "
+                                    f"tokens agree {s['tokens_ok']}, {s['rerouted']} of "
+                                    f"{s['steps']} steps routed otherwise")
+            d = res.get("data_par")
+            if d:
+                log(f"tp: data 2 x model 1 on the same ranks ({backend}), rank {r}: "
+                    f"internlm2-1.8b, {d['rows']} of {SERVE_BATCH} requests: prefill "
+                    f"{d['prefill_ms']:.1f} ms, decode {d['decode_ms']:.2f} ms/token; "
+                    f"every step's last logits max diff {d['logits_err']:.3e}; "
+                    f"{d['compared']} tokens past the margin agree {d['tokens_ok']}")
+                if not d["ok"]:
+                    failures.append(f"rank {r} data-par: logits {d['logits_err']:.3e} or "
+                                    "tokens past the tolerance")
+            ms, calls, nbytes = res["collectives"]
+            log(f"{tag} rank {r}: {calls} all-reduces of {nbytes / 1e9:.2f} GB (fp32) in "
+                f"{ms / 1e3:.1f} s; training {res['train_s']:.1f} s, serving "
+                f"{res['serve_s']:.1f} s" + (f", data-par {res['data_par_s']:.1f} s"
+                                             if "data_par_s" in res else ""))
+    if cards < 2 * TP:
+        log(f"tp: {cards} CUDA card(s): the (data 2, model 2) world over NCCL was not run "
+            f"(it needs {2 * TP} cards; the CPU tests hold it over gloo)")
+    log(f"tp: phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        fail("tp: " + "; ".join(failures))
+
+
 def check_overlap_apply(torch, bplan, alpha, params, gstate):
     """The pending correction landed on every leaf through the kernel and
     through the plain version, out of place, from the same state: bit
@@ -2903,10 +3571,13 @@ def phase_examples(torch):
     log(f"examples: quickstart on the card, {EXAMPLE_STEPS} steps: {res}")
     rows = topology_explorer.main([])
     log(f"examples: topology_explorer on the card: {len(rows)} radii")
-    res = serve_batched.main(["--gen", "4"])
+    # its 2 x 2 mesh is four ranks: on fewer cards they share them over gloo
+    backend = "gloo" if torch.cuda.device_count() < 4 else "nccl"
+    res = serve_batched.main(["--gen", "4", "--backend", backend])
     if not bool(torch.isfinite(res["logits"]).all()):
         fail("examples: serve_batched gave non-finite logits")
-    log(f"examples: serve_batched on the card: generated {res['generated'][0].tolist()}")
+    log(f"examples: serve_batched on the card (data 2 x model 2 over {backend}): generated "
+        f"{res['generated'][0].tolist()}")
     for mode in ("masked", "overlap"):
         res = train_decentralized.main(["--steps", str(EXAMPLE_STEPS), "--gossip-mode", mode])
         log(f"examples: train_decentralized ({mode}) on the card, {EXAMPLE_STEPS} steps: "
@@ -2966,6 +3637,8 @@ def main() -> None:
     phase_examples(torch)
     torch.cuda.empty_cache()
     phase_fsdp(torch)
+    torch.cuda.empty_cache()
+    phase_tp(torch)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
         "(436.9 s on an NVIDIA H100 80GB HBM3 at 700 W before phases 8-10)")
 

@@ -29,8 +29,9 @@ executes, nothing is allocated) and checks:
 JSON on stdout (progress on stderr); ``--strict`` exits 1 on any
 violation. ``--shard``, ``--layouts``, ``--all-layouts`` and
 ``--artifact`` (the FSDP lanes) exit: the sharded runtime is ported
-(``repro_torch.dist.fsdp``) but its check lanes wait for the rest of
-the multi-GPU port (ROADMAP queue 1, item 15).
+(``repro_torch.dist.fsdp``) but its check lanes wait for the last
+item of the multi-GPU port, with the collective checks (ROADMAP queue
+1, item 15).
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ import json
 import os
 import sys
 
+from repro_torch.dist.sharding import NEXT_ITEM as ITEM_15
+
 STEP_MODES = ("masked", "static", "overlap")
-ITEM_15 = "ROADMAP queue 1, item 15: tensor parallel and the serving and dry-run meshes"
 _UNPORTED = ("shard", "layouts", "all_layouts", "artifact")
 
 

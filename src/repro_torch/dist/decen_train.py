@@ -34,6 +34,14 @@ paired send/recv (``repro_torch.dist.gossip.NodeAxis``), bit for bit
 the single-process step; ``consensus_distance`` then all-reduces over
 the data ranks.
 
+Over a ``model`` axis of T ranks (tensor parallel, ``DistSpec.rules``)
+each rank holds its slice of every node's params (and velocities): the
+steps run the model's sharded layers under those rules, the gossip is
+elementwise and so gives each rank its slices of the whole exchange,
+and every reduction over the parameters (``consensus_distance``, the
+global-norm clip) counts a split leaf's slices over the model group and
+a replicated leaf once.
+
 ``make_phased_train_step`` is the telemetry variant: the same step with
 every phase span fenced and recorded into a ``StepTimer``
 (``repro_torch.telemetry``); overlap is refused there and timed whole
@@ -59,10 +67,11 @@ from repro_torch.dist.gossip import (
     mix_matchings_masked,
 )
 from repro_torch.kernels import ops
+from repro_torch.models.module import _assign
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.telemetry.timers import StepTimer
 from repro_torch.telemetry.trace import TraceEvent
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 PyTree = Any
 
@@ -77,6 +86,8 @@ class DistSpec:
     node_lo: int
     node_hi: int
     num_shards: int = 1
+    rules: Any = None                 # tensor-parallel rules (model axis > 1)
+    split: Any = None                 # {path: dim} of the leaves the rules split
 
     @property
     def local_nodes(self) -> int:
@@ -124,13 +135,103 @@ class DistSpec:
         """The mean of a ``(local nodes,)`` value over every node."""
         return float(self.node_sum(per_node.float().sum()) / self.num_nodes)
 
+    @property
+    def tp(self) -> int:
+        return self.mesh.model if self.rules is not None else 1
 
-def make_spec(mesh, num_nodes: int, *, multi_pod: bool = False) -> DistSpec:
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the model ranks, in place (identity for one)."""
+        if self.tp > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, group=self.mesh.model_group)
+        return t
+
+    def weight(self, path: str) -> float:
+        """How this rank counts a leaf in a sum over the model's
+        parameters: a split leaf's slice on every model rank, a
+        replicated leaf on model rank 0 only."""
+        return 1.0 if self.tp == 1 or path in self.split or self.mesh.model_rank == 0 else 0.0
+
+    def gather_model(self, tree: PyTree) -> PyTree:
+        """A node-stacked param tree (or optimizer state, whose param-like
+        sub-trees are mapped) of this model rank's slices, made whole on
+        every rank: the checkpoint format. Only ``all_reduce``: each rank
+        writes its slice's bits into a zeroed integer buffer, so the sum
+        is the bits, unchanged."""
+        if self.tp == 1:
+            return tree
+        import torch.distributed as dist
+
+        def leaf(path, a):
+            d = self.split.get(path)
+            if d is None:
+                return a
+            bits = a.contiguous().view(_BITS[a.element_size()])
+            shape = list(bits.shape)
+            k = shape[d + 1]
+            shape[d + 1] = k * self.tp
+            buf = bits.new_zeros(shape)
+            buf.narrow(d + 1, self.mesh.model_rank * k, k).copy_(bits)
+            dist.all_reduce(buf, group=self.mesh.model_group)
+            return buf.view(a.dtype)
+
+        return _param_like(tree, leaf)
+
+    def slice_model(self, tree: PyTree) -> PyTree:
+        """This model rank's slices of a whole node-stacked tree (or
+        optimizer state): the restore path."""
+        if self.tp == 1:
+            return tree
+
+        def leaf(path, a):
+            d = self.split.get(path)
+            if d is None:
+                return a
+            k = a.shape[d + 1] // self.tp
+            return a.narrow(d + 1, self.mesh.model_rank * k, k).clone()
+
+        return _param_like(tree, leaf)
+
+
+_BITS = {4: torch.int32, 2: torch.int16, 8: torch.int64, 1: torch.int8}
+
+
+def _param_like(tree: PyTree, fn) -> PyTree:
+    """``fn(path, leaf)`` over a param tree, or over every param-like
+    sub-tree of an optimizer state (``velocity``, ``mu``, ``nu``); the
+    state's other slots (``step``) stay as they are."""
+    if "step" in tree and not isinstance(tree["step"], dict):
+        return {k: _param_like(v, fn) if isinstance(v, dict) else v for k, v in tree.items()}
+    out: dict = {}
+    for path, a in tree_items(tree):
+        _assign(out, path, fn(path, a))
+    return out
+
+
+def make_spec(mesh, num_nodes: int, *, multi_pod: bool = False, cfg=None) -> DistSpec:
     """Resolve ``mesh`` and the node count into a ``DistSpec``:
-    ``sharding.num_nodes`` (the one authority) checks the split."""
+    ``sharding.num_nodes`` (the one authority) checks the split. A mesh
+    with a ``model`` axis above 1 needs ``cfg``: the spec then carries
+    ``sharding.train_rules`` and the paths of the leaves they split."""
     lo, hi = shd.node_range(mesh, shd.num_nodes(mesh, num_nodes, multi_pod=multi_pod))
+    rules, split = None, {}
+    if getattr(mesh, "model", 1) > 1:
+        if cfg is None:
+            raise ValueError(f"a model axis of {mesh.model} needs the model's config "
+                             "for its sharding rules")
+        from repro_torch.models.module import split_of
+        from repro_torch.models.transformer import Model
+
+        rules = shd.train_rules(mesh, cfg)
+        model = Model(cfg)
+        with shd.no_rules():
+            shapes = dict(tree_items(model.param_shapes()))
+        split = {path: split_of(axes, shapes[path][0], rules)
+                 for path, axes in tree_items(model.logical_axes())}
+        split = {path: d for path, d in split.items() if d is not None}
     return DistSpec(mesh=mesh, num_nodes=int(num_nodes), node_lo=lo, node_hi=hi,
-                    num_shards=shd.num_shards(mesh))
+                    num_shards=shd.num_shards(mesh), rules=rules, split=split)
 
 
 def _stack(tree: PyTree, num_nodes: int) -> PyTree:
@@ -164,10 +265,13 @@ def consensus_distance(stacked_params: PyTree, spec: Optional[DistSpec] = None) 
     sqrt(mean_i sum_leaves ||x_i - x_bar||^2). The quantity MATCHA's
     Theorem 1 bounds; 'local' (no-gossip) training makes it blow up.
     With ``spec`` the params are this rank's nodes and the node mean and
-    the sum over nodes are all-reduced over the data ranks."""
+    the sum over nodes are all-reduced over the data ranks; under tensor
+    parallel each rank's leaves are its slices, and the sum over the
+    leaves is added over the model ranks, a replicated leaf counted once."""
     spread = spec is not None and spec.mesh.data > 1
+    tp = spec is not None and spec.tp > 1
     acc = None
-    for leaf in tree_leaves(stacked_params):
+    for path, leaf in tree_items(stacked_params):
         if not leaf.is_floating_point():
             continue
         x = leaf.float()
@@ -177,9 +281,13 @@ def consensus_distance(stacked_params: PyTree, spec: Optional[DistSpec] = None) 
             mu = x.mean(dim=0, keepdim=True)
         sq = (x - mu).square_()
         d = sq.sum(dim=tuple(range(1, x.dim()))) if x.dim() > 1 else sq
+        if tp:
+            d = d * spec.weight(path)
         acc = d if acc is None else acc + d
     if acc is None:
         return torch.zeros((), dtype=torch.float32)
+    if tp:
+        acc = spec.model_sum(acc.contiguous())
     if spread:
         return torch.sqrt(spec.node_sum(acc.sum()) / spec.num_nodes)
     return torch.sqrt(torch.mean(acc))
@@ -223,7 +331,8 @@ class GossipState:
 def param_bucket_plan(
     model, *, target_bytes: int = bucketing.DEFAULT_TARGET_BYTES
 ) -> bucketing.BucketPlan:
-    """Bucket layout of one node's (un-stacked) parameter tree."""
+    """Bucket layout of one node's (un-stacked) parameter tree (this model
+    rank's slices under the current rules)."""
     return bucketing.plan_buckets(model.param_shapes(), target_bytes=target_bytes)
 
 
@@ -397,11 +506,12 @@ class TrainStep:
         with phases.span("fwd_bwd", node=i):
             p_i = tree_map(lambda a: a[i].detach().requires_grad_(), params)
             b_i = {k: v[i] for k, v in batch.items()}
-            loss, metrics = self.model.loss(p_i, b_i)
-            grads = iter(torch.autograd.grad(loss, tree_leaves(p_i)))
+            with self._rules():
+                loss, metrics = self.model.loss(p_i, b_i)
+                grads = iter(torch.autograd.grad(loss, tree_leaves(p_i)))
             g_i = tree_map(lambda _: next(grads), p_i)
             if self.grad_clip:
-                g_i = clip_by_global_norm(g_i, self.grad_clip)
+                g_i = self._clip(g_i)
         with phases.span("optimizer", node=i), torch.no_grad():
             p_view = tree_map(lambda a: a[i], params)
             s_view = tree_map(lambda a: a[i], opt_state)
@@ -410,6 +520,21 @@ class TrainStep:
                      apply_updates(p_view, updates))
             tree_map(lambda dst, src: dst.copy_(src), s_view, s_new)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def _rules(self):
+        """The tensor-parallel rules of the run (none on a model axis of 1)."""
+        return shd.use_rules(self.spec.rules if self.spec is not None else None)
+
+    def _clip(self, grads: PyTree) -> PyTree:
+        """The global-norm clip of one node's gradient; under tensor
+        parallel the squares are summed over the model ranks, each
+        replicated leaf counted once."""
+        norm = None
+        if self.spec is not None and self.spec.tp > 1:
+            sq = sum(torch.sum(torch.square(g.float())) * self.spec.weight(path)
+                     for path, g in tree_items(grads))
+            norm = torch.sqrt(self.spec.model_sum(sq.reshape(1)))[0]
+        return clip_by_global_norm(grads, self.grad_clip, norm)
 
     @property
     def num_local(self) -> int:
@@ -623,8 +748,10 @@ def make_train_step(
     if gossip_mode not in ("masked", "static", "overlap", "none"):
         raise ValueError(f"unknown gossip_mode {gossip_mode!r}")
     if gossip_mode == "overlap":
-        return OverlapStep(model, opt, plan,
-                           bucket_plan=bucket_plan or param_bucket_plan(model),
+        if bucket_plan is None:
+            with shd.use_rules(spec.rules if spec is not None else None):
+                bucket_plan = param_bucket_plan(model)
+        return OverlapStep(model, opt, plan, bucket_plan=bucket_plan,
                            grad_clip=grad_clip, faulted=faulted, timer=timer, spec=spec)
     return TrainStep(model, opt, plan, gossip_mode=gossip_mode,
                      active=active, grad_clip=grad_clip, faulted=faulted,

@@ -66,7 +66,6 @@ import dataclasses
 from typing import Any, Optional, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import bucketing
@@ -78,11 +77,11 @@ from repro_torch.dist.decen_train import (
     TrainStep,
 )
 from repro_torch.dist.gossip import mix_matchings_masked
-from repro_torch.dist.sharding import collective
+from repro_torch.dist.sharding import bound, checkpoint, collective, use_rules
 from repro_torch.kernels import ops
-from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.telemetry.timers import StepTimer
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 PyTree = Any
 
@@ -136,8 +135,11 @@ def _join_group_subtrees(groups, subtrees, *, stacked: bool = False) -> PyTree:
     return out
 
 
-def _abs_params(model) -> PyTree:
-    abs_local = model.param_shapes()
+def _abs_params(model, spec: Optional[DistSpec] = None) -> PyTree:
+    """One node's ``(shape, dtype)`` tree: this model rank's slices under
+    the spec's tensor-parallel rules."""
+    with use_rules(getattr(spec, "rules", None)):
+        abs_local = model.param_shapes()
     for shape, dtype in tree_leaves(abs_local):
         if not dtype.is_floating_point:
             raise ValueError(
@@ -270,7 +272,7 @@ AnyFsdpLayout = Union[FsdpLayout, FsdpStreamLayout]
 def make_layout(model, spec: DistSpec, *,
                 target_bytes: int = bucketing.DEFAULT_TARGET_BYTES) -> FsdpLayout:
     """Monolithic bucket layout of one node's params, shard-divisible."""
-    abs_local = _abs_params(model)
+    abs_local = _abs_params(model, spec)
     plan = bucketing.plan_buckets(abs_local, target_bytes=target_bytes,
                                   pad_to=spec.num_shards)
     return FsdpLayout(plan=plan, abs_local=abs_local, num_nodes=spec.num_nodes,
@@ -292,7 +294,7 @@ def make_stream_layout(model, spec: DistSpec, *, scan_aware: bool = True) -> Fsd
     ``scan_aware=True`` lays a scanned or periodic segment out as
     ``repeats`` shard-major rows so the step gathers one iteration's
     params at a time; ``False`` keeps one stack-at-once gather."""
-    abs_local = _abs_params(model)
+    abs_local = _abs_params(model, spec)
     groups = tuple(model.param_group_specs())
     named = param_group_subtrees(model, abs_local=abs_local, groups=groups)
     gplan = bucketing.plan_group_buckets(
@@ -391,7 +393,9 @@ def init_fsdp_params(model, layout: AnyFsdpLayout, spec: DistSpec, seed: int = 0
     device = resolve_device(device)
     s, n = spec.mesh.shard_rank, spec.local_nodes
     out = []
-    for bkt in layout.ravel(model.init(seed, device=device)):
+    with use_rules(spec.rules):
+        full = model.init(seed, device=device)
+    for bkt in layout.ravel(full):
         mine = bkt.view(layout.num_shards, -1)[s]
         out.append(mine.unsqueeze(0).repeat(n, 1))
         del bkt, mine
@@ -429,14 +433,34 @@ def init_fsdp_gossip_state(layout: AnyFsdpLayout, spec: DistSpec, *,
         for sz in layout.shard_sizes))
 
 
+def tp_weights(layout: AnyFsdpLayout, spec: DistSpec, device) -> Optional[Tuple[torch.Tensor, ...]]:
+    """Under tensor parallel, this rank's bucket shards of ``spec.weight``
+    (1 over a split leaf's elements; over a replicated leaf's, 1 on model
+    rank 0 and 0 elsewhere; 0 over the padding): how a sum over the
+    model's parameters counts each element. None without tensor parallel."""
+    if spec.tp == 1:
+        return None
+    from repro_torch.models.module import _assign
+
+    tree: dict = {}
+    for path, (shape, _) in tree_items(layout.abs_local):
+        _assign(tree, path, torch.full(shape, spec.weight(path), dtype=torch.float32,
+                                       device=device))
+    s = spec.mesh.shard_rank
+    return tuple(b.float().view(layout.num_shards, -1)[s].clone() for b in layout.ravel(tree))
+
+
 def consensus_distance_sharded(shards: Tuple[torch.Tensor, ...],
-                               spec: Optional[DistSpec] = None) -> torch.Tensor:
+                               spec: Optional[DistSpec] = None,
+                               layout: Optional[AnyFsdpLayout] = None) -> torch.Tensor:
     """``decen_train.consensus_distance`` on the bucket shards, without
     gathering replicas: the squared node deviations decompose over the
     slices (padding is zero on every node and stays so). Without
     ``spec`` the shards are whole ``(nodes, S, size // S)`` arrays (the
     JAX package's form); with it, this rank's ``(local nodes, size //
-    S)``, reduced over the data and shard ranks."""
+    S)``, reduced over the data and shard ranks (and, under tensor
+    parallel, over the model ranks, weighed by ``tp_weights`` of
+    ``layout``)."""
     if spec is None:
         acc = None
         for s in shards:
@@ -446,15 +470,17 @@ def consensus_distance_sharded(shards: Tuple[torch.Tensor, ...],
         if acc is None:
             return torch.zeros((), dtype=torch.float32)
         return torch.sqrt(torch.mean(acc))
+    weights = tp_weights(layout, spec, shards[0].device) if spec.tp > 1 else None
     total = None
-    for s in shards:
+    for i, s in enumerate(shards):
         x = s.float()
         mu = spec.node_sum(x.sum(dim=0, keepdim=True)) / spec.num_nodes
-        d = (x - mu).square_().sum()
+        sq = (x - mu).square_()
+        d = (sq * weights[i]).sum() if weights is not None else sq.sum()
         total = d if total is None else total + d
     if total is None:
         return torch.zeros((), dtype=torch.float32)
-    total = spec.node_sum(_shard_sum(total, spec.mesh))
+    total = spec.model_sum(spec.node_sum(_shard_sum(total, spec.mesh)))
     return torch.sqrt(total / spec.num_nodes)
 
 
@@ -586,7 +612,8 @@ class _ScanStreamSegment(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, rows, layout, gi, body, mesh):
-        ctx.meta = (layout, gi, body, mesh)
+        # the backward runs on autograd's thread: carry the rules there
+        ctx.meta = (layout, gi, bound(body.apply_layer), mesh)
         ctx.save_for_backward(x, rows)
         aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in _AUX}
         for _, full in _ScanStreamSegment._rows(rows, mesh, range(rows.shape[0])):
@@ -596,7 +623,7 @@ class _ScanStreamSegment(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dx, *daux):
-        layout, gi, body, mesh = ctx.meta
+        layout, gi, apply_layer, mesh = ctx.meta
         x0, rows = ctx.saved_tensors
         reps = rows.shape[0]
         inputs = []
@@ -604,13 +631,13 @@ class _ScanStreamSegment(torch.autograd.Function):
             x = x0
             for _, full in _ScanStreamSegment._rows(rows, mesh, range(reps)):
                 inputs.append(x)
-                x, _ = body.apply_layer(x, _row_view(layout, gi, full))
+                x, _ = apply_layer(x, _row_view(layout, gi, full))
         drows = torch.empty_like(rows)
         for i, full in _ScanStreamSegment._rows(rows, mesh, range(reps - 1, -1, -1)):
             with torch.enable_grad():
                 x_in = inputs[i].detach().requires_grad_()
                 raw = full.detach().requires_grad_()
-                y, aux = body.apply_layer(x_in, _row_view(layout, gi, raw))
+                y, aux = apply_layer(x_in, _row_view(layout, gi, raw))
                 outs, grads = [y], [dx]
                 for k, d in zip(_AUX, daux):
                     if d is not None and aux[k].requires_grad:
@@ -658,17 +685,20 @@ def _stream_loss(model, layout: FsdpStreamLayout, shards, batch, mesh):
                           for gi, sh in zip(_st.group_ids, gshards))
             return _st.apply(carry, trees)
 
-        carry = checkpoint(run, carry, *(shards[gi] for gi in st.group_ids),
-                           use_reentrant=False)
+        carry = checkpoint(run, carry, *(shards[gi] for gi in st.group_ids))
     return carry["loss"], carry["metrics"]
 
 
-def _clip_sharded(g_shards, max_norm: float, mesh):
-    """Global-norm clip of the node's full gradient from its shards."""
-    sq = sum(torch.sum(torch.square(g)) for g in g_shards)
-    norm = torch.sqrt(_shard_sum(sq, mesh))
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tuple(g * scale for g in g_shards)
+def _clip_sharded(g_shards, max_norm: float, spec: DistSpec, weights=None):
+    """Global-norm clip of the node's full gradient from its shards
+    (under tensor parallel weighed by ``tp_weights`` and summed over the
+    model ranks too)."""
+    if weights is None:
+        sq = sum(torch.sum(torch.square(g)) for g in g_shards)
+    else:
+        sq = sum(torch.sum(torch.square(g) * w) for g, w in zip(g_shards, weights))
+    norm = torch.sqrt(spec.model_sum(_shard_sum(sq, spec.mesh)))
+    return tuple(clip_by_global_norm(dict(enumerate(g_shards)), max_norm, norm).values())
 
 
 # ---------------------------------------------------------------------------
@@ -703,6 +733,7 @@ class FsdpTrainStep(TrainStep):
         self.layout = layout
         self.mesh = spec.mesh
         self.streaming = isinstance(layout, FsdpStreamLayout)
+        self._weights = None      # tp_weights, built at the first clip
 
     def _sub_batch(self, batch: dict) -> dict:
         """This rank's nodes and its 1/S of each node's rows."""
@@ -720,21 +751,24 @@ class FsdpTrainStep(TrainStep):
     def _node(self, shards, opt_state, batch, i: int, phases: PhaseTimes):
         S = self.layout.num_shards
         b_i = {k: v[i] for k, v in batch.items()}
-        if self.streaming:
-            with phases.span("fwd_bwd", node=i):
-                ps = tuple(b[i].detach().requires_grad_() for b in shards)
-                loss, metrics = _stream_loss(self.model, self.layout, ps, b_i, self.mesh)
-                g = torch.autograd.grad(loss, ps)
-                del ps
-        else:
-            loss, metrics, g = _grads_monolithic(
-                self.model, self.layout, self.mesh, tuple(b[i] for b in shards), b_i,
-                phases, i)
+        with self._rules():
+            if self.streaming:
+                with phases.span("fwd_bwd", node=i):
+                    ps = tuple(b[i].detach().requires_grad_() for b in shards)
+                    loss, metrics = _stream_loss(self.model, self.layout, ps, b_i, self.mesh)
+                    g = torch.autograd.grad(loss, ps)
+                    del ps
+            else:
+                loss, metrics, g = _grads_monolithic(
+                    self.model, self.layout, self.mesh, tuple(b[i] for b in shards), b_i,
+                    phases, i)
         with torch.no_grad():
             if S > 1:
                 g = tuple(x / S for x in g)
             if self.grad_clip:
-                g = _clip_sharded(g, self.grad_clip, self.mesh)
+                if self.spec.tp > 1 and self._weights is None:
+                    self._weights = tp_weights(self.layout, self.spec, g[0].device)
+                g = _clip_sharded(g, self.grad_clip, self.spec, self._weights)
         with phases.span("optimizer", node=i), torch.no_grad():
             p_view = _as_tree(b[i] for b in shards)
             s_view = {k: _as_tree(t[i] for t in v) if isinstance(v, tuple) else

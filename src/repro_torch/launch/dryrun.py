@@ -35,8 +35,8 @@ Usage:
       --shape train_4k --layers 2 --batch 4 --seq 128 --gossip-mode overlap
 
 ``--multi-pod`` and ``--kv-seq-shard`` exit: the dry run's mesh and
-sharded lowering wait for the rest of the multi-GPU port (ROADMAP queue
-1, item 15).
+sharded lowering wait for the last item of the multi-GPU port (ROADMAP
+queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -51,14 +51,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import NEXT_ITEM as ITEM_15
+
 # NVIDIA's data sheet for the H100 SXM5 80GB, dense rates at a 700 W limit:
 # the spec sheet's figures, not measurements of this port.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 HBM_BYTES = 80e9
 CARD = "NVIDIA H100 SXM5 80GB (spec sheet, 700 W)"
-
-ITEM_15 = "ROADMAP queue 1, item 15: tensor parallel and the serving and dry-run meshes"
 
 
 # ---------------------------------------------------------------------------

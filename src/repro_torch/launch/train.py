@@ -37,8 +37,14 @@ receives ``events.jsonl``, ``trace.json`` and ``metrics.jsonl`` (schema
 costs the overlap of host and card, so traced step times are an upper
 bound.
 
-Flags of the JAX CLI that the port does not implement yet exit with
-a message naming the ROADMAP item; none is silently ignored.
+``--model-par T`` trains tensor-parallel over a ``model`` axis of T
+ranks (``repro_torch.dist.sharding``'s rules, ``repro_torch.models.tp``),
+with ``--shard S`` too: S·T ranks a data rank, which this CLI starts
+itself without torchrun, or torchrun's world. Checkpoints hold the
+whole tree in the JAX format at any T and resume at any other.
+``--backend`` names the process group's backend: NCCL on the card and
+gloo on the CPU by default; ``--backend gloo`` on the card lets the
+ranks share a card (gloo's all-reduce takes CUDA tensors).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2_1_8b \
@@ -50,6 +56,8 @@ Examples:
       --crash-at-step 4        # then the same with --resume auto
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --preset tiny --steps 4 --gossip-mode overlap --trace out/trace
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --preset tiny --model-par 2 --steps 3
 """
 from __future__ import annotations
 
@@ -106,31 +114,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", default="", metavar="DIR")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the run goes; the default needs a CUDA card")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the process group's backend (default: nccl on the card, gloo "
+                         "on the CPU); gloo lets several ranks share one card")
     return ap
 
 
-# Flags the port has not implemented yet, with the ROADMAP item that
-# ports them. Any value other than the default exits.
-_UNPORTED = {
-    "model_par": "queue 1, item 15 (tensor parallel and the serving and dry-run meshes)",
-}
-
-
-def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
-    for dest, item in _UNPORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(
-                f"{flag} is not ported to repro_torch yet (ROADMAP {item})"
-            )
-
-
 def _check_args(args) -> None:
-    """The JAX CLI's checks of the FSDP flags."""
+    """The JAX CLI's checks of the FSDP flags, and the mesh factors'."""
     if args.resume == "auto" and not args.ckpt_dir:
         raise SystemExit("--resume auto requires --ckpt-dir")
     if args.shard < 1:
         raise SystemExit(f"--shard must be >= 1, got {args.shard}")
+    if args.model_par < 1:
+        raise SystemExit(f"--model-par must be >= 1, got {args.model_par}")
     use_fsdp = args.shard > 1
     if args.stream_layers is None:
         args.stream_layers = use_fsdp
@@ -149,23 +146,25 @@ def _check_args(args) -> None:
 
 def main(argv=None):
     """Run the CLI. Under ``torchrun`` the world comes from the
-    environment (``--shard S``: ``W / S`` data ranks); without it
-    ``--shard S > 1`` starts S local ranks itself (``launch.mesh.spawn``),
-    one card each on the card."""
+    environment (``--shard S --model-par T``: ``W / (S T)`` data ranks);
+    without it ``S * T > 1`` local ranks start here
+    (``launch.mesh.spawn``), one card each on the card unless
+    ``--backend gloo`` lets them share."""
     import sys
 
     from repro_torch.launch import mesh as mesh_lib
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    _reject_unported(ap, args)
     _check_args(args)
     world = mesh_lib.torchrun_world()
     if world > 1:
         return _run(args, rank=None, world=world)
-    if args.shard > 1:
+    ranks = args.shard * args.model_par
+    if ranks > 1:
         argv = sys.argv[1:] if argv is None else list(argv)
-        return mesh_lib.spawn(_spawned, args.shard, args.device, args=(argv,))
+        return mesh_lib.spawn(_spawned, ranks, args.device, args=(argv,),
+                              share=args.backend == "gloo")
     return _run(args, rank=0, world=1)
 
 
@@ -183,18 +182,21 @@ def _run(args, *, rank, world: int, init_method=None):
     try:
         if world > 1:
             device = mesh_lib.init_world(args.device, rank=rank, world_size=world,
-                                         init_method=init_method)
+                                         init_method=init_method, backend=args.backend)
         else:
             device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(str(err)) from None
     try:
-        mesh = mesh_lib.make_mesh(shard=args.shard, device=device)
-        spec = dt.make_spec(mesh, args.nodes)
+        mesh = mesh_lib.make_mesh(shard=args.shard, model=args.model_par, device=device)
+        spec = dt.make_spec(mesh, args.nodes, cfg=_config(args))
     except ValueError as err:
         raise SystemExit(str(err)) from None
     try:
-        return _train(args, device, spec)
+        from repro_torch.dist.sharding import use_rules
+
+        with use_rules(spec.rules):
+            return _train(args, device, spec)
     finally:
         if world > 1:
             import torch.distributed as dist
@@ -202,11 +204,27 @@ def _run(args, *, rank, world: int, init_method=None):
             dist.destroy_process_group()
 
 
+def _config(args):
+    """The run's model config (``--arch`` at ``--preset``)."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+
+    cfg = (
+        get_smoke_config(args.arch) if args.preset == "tiny"
+        else get_config(args.arch)
+    )
+    if args.preset == "small":
+        cfg = dataclasses.replace(
+            get_config(args.arch),
+            num_layers=min(get_config(args.arch).num_layers, 8),
+        )
+    return cfg
+
+
 def _train(args, device, spec):
+    """The run on this rank, under the spec's tensor-parallel rules."""
     import torch
 
     from repro_torch.checkpoint import ckpt as ckpt_lib
-    from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.core import (
         named_graph, periodic_schedule, plan_matcha, plan_periodic,
         plan_vanilla, vanilla_schedule,
@@ -214,6 +232,7 @@ def _train(args, device, spec):
     from repro_torch.data.pipeline import DecentralizedBatches
     from repro_torch.dist import decen_train as dt
     from repro_torch.dist import fsdp
+    from repro_torch.dist.sharding import no_rules
     from repro_torch.faults import (
         FaultSpec, SimulatedCrash, make_fault_schedule, retry_with_backoff,
         verify_degraded_plan,
@@ -226,15 +245,7 @@ def _train(args, device, spec):
     say = print if lead else (lambda *a, **k: None)
     use_fsdp = args.shard > 1
     spread = spec.mesh.size > 1
-    cfg = (
-        get_smoke_config(args.arch) if args.preset == "tiny"
-        else get_config(args.arch)
-    )
-    if args.preset == "small":
-        cfg = dataclasses.replace(
-            get_config(args.arch),
-            num_layers=min(get_config(args.arch).num_layers, 8),
-        )
+    cfg = _config(args)
 
     graph = named_graph(args.graph, args.nodes, seed=3)
     if graph.m != args.nodes:
@@ -322,16 +333,20 @@ def _train(args, device, spec):
             say("resume auto: no restorable checkpoint under "
                 f"{args.ckpt_dir}; starting fresh")
     if resume_dir:
-        # checkpoints hold the gathered node-stacked tree at any shard
-        # factor; transient read failures retry with bounded backoff
+        # checkpoints hold the gathered node-stacked whole tree at any
+        # shard and model factor; transient read failures retry with
+        # bounded backoff
         params, opt_state, start_step = retry_with_backoff(
             lambda: ckpt_lib.restore_run(resume_dir, device=device)
         )
+        with no_rules():
+            whole = model.param_shapes()
         want = {path: (args.nodes,) + tuple(shape)
-                for path, (shape, _) in flatten(model.param_shapes()).items()}
+                for path, (shape, _) in flatten(whole).items()}
         if {path: tuple(a.shape) for path, a in flatten(params).items()} != want:
             raise SystemExit(f"checkpoint {resume_dir} does not hold {cfg.name} "
                              f"params for {args.nodes} nodes")
+        params, opt_state = spec.slice_model(params), spec.slice_model(opt_state)
         if use_fsdp:
             params, opt_state = (fsdp.scatter_params(layout, params, spec),
                                  fsdp.scatter_opt_state(layout, opt, opt_state, spec))
@@ -349,8 +364,9 @@ def _train(args, device, spec):
     gossip_mode = "none" if args.mode == "local" else args.gossip_mode
     say(f"repro_torch: {cfg.name} ({model.num_params()} params/node) on "
         f"{device}, {args.nodes} nodes, mode {args.mode}, gossip {gossip_mode}"
-        + (f"; mesh data {spec.mesh.data} x shard {spec.mesh.shard} "
-           f"({spec.local_nodes} nodes a data rank)" if spread else ""))
+        + (f"; mesh data {spec.mesh.data} x shard {spec.mesh.shard}"
+           + (f" x model {spec.mesh.model}" if spec.mesh.model > 1 else "")
+           + f" ({spec.local_nodes} nodes a data rank)" if spread else ""))
 
     # --- telemetry (--trace DIR) -----------------------------------------
     # A disabled StepTimer's spans are shared no-ops, so the untraced loop
@@ -408,15 +424,18 @@ def _train(args, device, spec):
         return step_cache[key]
 
     def gathered(p, s):
-        """The node-stacked tree of every node (a collective on a mesh):
-        the checkpoint format at any shard factor and layout."""
+        """The node-stacked whole tree of every node (a collective on a
+        mesh): the checkpoint format at any shard and model factor and
+        layout."""
         if use_fsdp:
-            return fsdp.gather_params(layout, p, spec), fsdp.gather_opt_state(layout, s, spec)
-        return spec.gather_nodes(p), spec.gather_nodes(s)
+            p, s = fsdp.gather_params(layout, p, spec), fsdp.gather_opt_state(layout, s, spec)
+        else:
+            p, s = spec.gather_nodes(p), spec.gather_nodes(s)
+        return spec.gather_model(p), spec.gather_model(s)
 
     def consensus(p) -> float:
         if use_fsdp:
-            return float(fsdp.consensus_distance_sharded(p, spec))
+            return float(fsdp.consensus_distance_sharded(p, spec, layout))
         return float(dt.consensus_distance(p, spec if spread else None))
 
     def save(step, p):

@@ -20,6 +20,17 @@ declaration, as in the JAX package:
     prefills and training stay on ``sdpa`` (the backward kernel is a
     later slice of the port).
 
+Under tensor parallel (``repro_torch.models.tp``) the block shards over
+heads, following the rules: where ``heads`` / ``kv_heads`` divide the
+model axis, ``wq`` / ``wk`` / ``wv`` are column-parallel and each rank
+attends with its H/T query and KV/T kv heads (the flash kernel receives
+those); where the kv heads do not divide, the rule's ``kv_in`` split
+holds ``wk`` / ``wv`` split on ``d_model``, the partial products are
+reduced, every rank holds every kv head, and its query heads pick their
+GQA group from them (``q_in`` likewise for the query heads, whose block
+then runs replicated). ``wo`` is row-parallel. A cache holds the rank's
+kv heads; whisper's cross-attention is sharded the same way.
+
 Decode uses an explicit-position KV cache: positions are stored next to
 k/v, so full caches and ring-buffer (sliding-window) caches share one
 code path. The port writes caches in place: ``cache_write`` updates the
@@ -36,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import tp as tpl
 from repro_torch.models.layers import apply_dense, apply_rope, declare_dense
 from repro_torch.models.module import ParamBuilder, ones_init, torch_dtype
 
@@ -183,6 +195,58 @@ def cache_write(
     return cache
 
 
+@dataclasses.dataclass(frozen=True)
+class _Heads:
+    """How one attention block splits over the model axis."""
+
+    tp: Optional[tpl.TP]
+    q: str          # "heads": column-parallel; "in": split on d_model; "": replicated
+    kv: str
+    hq: int         # this rank's query heads
+    hkv: int        # kv heads its projections give
+
+    @property
+    def sharded(self) -> bool:
+        return self.q == "heads"
+
+
+def _heads(cfg: ModelConfig) -> _Heads:
+    tp = tpl.context()
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if tp is None:
+        return _Heads(None, "", "", h, kv)
+    q = "heads" if tp.sharded("heads_proj") else "in" if tp.sharded("q_in") else ""
+    k = "heads" if tp.sharded("kv_proj") else "in" if tp.sharded("kv_in") else ""
+    return _Heads(tp, q, k, h // tp.size if q == "heads" else h,
+                  kv // tp.size if k == "heads" else kv)
+
+
+def _project(p, x, xm, how: str, dtype) -> torch.Tensor:
+    """A q / k / v projection: column-parallel over heads from ``xm``
+    (``to_model(x)``), split on ``d_model`` with the partial products
+    reduced, or replicated."""
+    if how == "heads":
+        return apply_dense(p, xm, dtype)
+    if how == "in":
+        return tpl.reduce_from_model(apply_dense(p, tpl.local(xm, -1, tpl.context()), dtype))
+    return apply_dense(p, x, dtype)
+
+
+def _kv_for_heads(t: torch.Tensor, cfg: ModelConfig, hd: _Heads) -> torch.Tensor:
+    """The kv heads this rank's query heads read, from a tensor holding
+    every kv head (dim 2), as a sharded tensor. A contiguous run of kv
+    heads keeps the GQA grouping; otherwise each local query head gets
+    its own copy (groups of 1)."""
+    t = tpl.to_model(t)
+    g = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = hd.tp.part(cfg.num_heads)
+    idx = [i // g for i in range(lo, hi)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if len(idx) % n == 0 and idx == [first + j // (len(idx) // n) for j in range(len(idx))]:
+        return t.narrow(2, first, n)
+    return t.index_select(2, torch.tensor(idx, device=t.device))
+
+
 def attention_block(
     p: dict,
     x: torch.Tensor,                    # (B, Sq, D)
@@ -211,16 +275,25 @@ def attention_block(
 
     Returns ``(y, new_cache)``."""
     dtype = torch_dtype(cfg.compute_dtype)
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd_ = _heads(cfg)
+    hd = cfg.head_dim
     kernel = not cfg.logit_softcap
+    xm = tpl.to_model(x) if hd_.tp is not None else x
 
-    q = _split_heads(apply_dense(p["wq"], x, dtype), h, hd)
+    q = _split_heads(_project(p["wq"], x, xm, hd_.q, dtype), hd_.hq, hd)
     if cfg.qk_norm:
-        q = _rms(q, p["q_norm"]["scale"])
+        q = _rms(q, tpl.to_model(p["q_norm"]["scale"]) if hd_.sharded
+                 else p["q_norm"]["scale"])
     sdpa_kw = dict(causal=causal, window=window, logit_softcap=cfg.logit_softcap)
 
+    def mine(t):
+        """k or v as this rank's query heads read it."""
+        if hd_.sharded and hd_.kv != "heads":
+            return _kv_for_heads(t, cfg, hd_)
+        return t
+
     if cross_kv is not None:
-        k, v = cross_kv
+        k, v = mine(cross_kv[0]), mine(cross_kv[1])
         if kernel and prefill_from_zero:
             out = ops.attention(q, k, v, causal=False)
         else:
@@ -230,22 +303,22 @@ def attention_block(
                                  k_positions=k_pos[None, :].expand(x.shape[0], Sk),
                                  causal=False, window=0,
                                  logit_softcap=cfg.logit_softcap)
-        y = apply_dense(p["wo"], out.reshape(*x.shape[:-1], h * hd), dtype)
-        return y, None
+        return _out(p, out, x, hd_, dtype), None
 
-    k = _split_heads(apply_dense(p["wk"], x, dtype), kv, hd)
-    v = _split_heads(apply_dense(p["wv"], x, dtype), kv, hd)
+    k = _split_heads(_project(p["wk"], x, xm, hd_.kv, dtype), hd_.hkv, hd)
+    v = _split_heads(_project(p["wv"], x, xm, hd_.kv, dtype), hd_.hkv, hd)
     if cfg.qk_norm:
-        k = _rms(k, p["k_norm"]["scale"])
+        k = _rms(k, tpl.to_model(p["k_norm"]["scale"]) if hd_.kv == "heads"
+                 else p["k_norm"]["scale"])
     if use_rope and cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         if kernel and prefill_from_zero:
-            out = ops.attention(q, k, v, causal=causal, window=window)
+            out = ops.attention(q, mine(k), mine(v), causal=causal, window=window)
         else:
-            out = _dispatch_sdpa(q, k, v, q_positions=positions,
+            out = _dispatch_sdpa(q, mine(k), mine(v), q_positions=positions,
                                  k_positions=positions, **sdpa_kw)
         new_cache = None
     else:
@@ -253,26 +326,34 @@ def attention_block(
         new_cache = cache_write(cache, k, v, positions, cache_spec)
         multi = q.shape[1] > 1
         if multi and prefill_from_zero and kernel:
-            out = ops.attention(q, k, v, causal=causal, window=window)
+            out = ops.attention(q, mine(k), mine(v), causal=causal, window=window)
         elif cache_spec.ring and multi:
             # Windowed prefill: a ring cache shorter than the chunk has
             # already overwritten the oldest keys, but every query's
             # window lies inside the in-flight chunk (prefill starts at
             # position 0), so attend over k/v directly.
-            out = _dispatch_sdpa(q, k, v, q_positions=positions,
+            out = _dispatch_sdpa(q, mine(k), mine(v), q_positions=positions,
                                  k_positions=positions, **sdpa_kw)
         else:
-            out = _dispatch_sdpa(q, new_cache["k"], new_cache["v"],
+            out = _dispatch_sdpa(q, mine(new_cache["k"]), mine(new_cache["v"]),
                                  q_positions=positions,
                                  k_positions=new_cache["pos"], **sdpa_kw)
-    y = apply_dense(p["wo"], out.reshape(*x.shape[:-1], h * hd), dtype)
-    return y, new_cache
+    return _out(p, out, x, hd_, dtype), new_cache
+
+
+def _out(p, out: torch.Tensor, x: torch.Tensor, hd_: _Heads, dtype) -> torch.Tensor:
+    """``wo``: row-parallel over the rank's heads (the partial products
+    reduced), or replicated."""
+    y = apply_dense(p["wo"], out.reshape(*x.shape[:-1], -1), dtype)
+    return tpl.reduce_from_model(y) if hd_.sharded else y
 
 
 def encoder_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
-    """Cross-attention K/V of one layer from the encoder output."""
+    """Cross-attention K/V of one layer from the encoder output (the
+    rank's kv heads, or every kv head, as its projections give them)."""
     dtype = torch_dtype(cfg.compute_dtype)
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
-    k = _split_heads(apply_dense(p["wk"], enc_out, dtype), kv, hd)
-    v = _split_heads(apply_dense(p["wv"], enc_out, dtype), kv, hd)
+    hd_ = _heads(cfg)
+    xm = tpl.to_model(enc_out) if hd_.tp is not None else enc_out
+    k = _split_heads(_project(p["wk"], enc_out, xm, hd_.kv, dtype), hd_.hkv, cfg.head_dim)
+    v = _split_heads(_project(p["wv"], enc_out, xm, hd_.kv, dtype), hd_.hkv, cfg.head_dim)
     return k, v

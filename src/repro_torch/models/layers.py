@@ -2,6 +2,14 @@
 
 The port of ``repro.models.layers``: the same arithmetic in the same
 dtypes, op for op, so the tests can hold each function to the JAX one.
+
+Under tensor parallel (``repro_torch.models.tp``) with the vocabulary
+split over the model axis, the embedding is vocab-parallel (each rank
+looks up the ids in its rows, the others read 0, and the partial rows
+are added), the unembedding is column-parallel over the vocabulary and
+``softmax_cross_entropy`` takes the rank's logit columns: the max, the
+sum of exps and the target logit are each reduced over the ranks, so no
+rank builds the full logits.
 """
 from __future__ import annotations
 
@@ -11,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp as tpl
 from repro_torch.models.module import (
     ParamBuilder,
     embedding_init,
@@ -79,9 +88,32 @@ def declare_embedding(b: ParamBuilder, path: str, vocab: int, dim: int) -> None:
     b.declare(f"{path}.table", (vocab, dim), ("vocab", None), init=embedding_init)
 
 
+def vocab_parallel() -> Optional[tpl.TP]:
+    """The tensor-parallel context when the vocabulary is split, else None."""
+    tp = tpl.context()
+    return tp if tp is not None and tp.sharded("vocab") else None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``, in the table's dtype. Vocab-parallel:
+    ids outside this rank's rows read 0 and the ranks' rows are added,
+    which is exact (one row is nonzero)."""
+    tp = vocab_parallel()
+    if tp is None:
+        return F.embedding(tokens.long(), table)
+    rows = table.shape[0]
+    ids = tokens.long() - tp.rank * rows
+    inside = (ids >= 0) & (ids < rows)
+    out = F.embedding(ids.clamp(0, rows - 1), table) * inside[..., None].to(table.dtype)
+    return tpl.reduce_from_model(out)
+
+
 def unembed(p, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """Tied unembedding: logits = x @ table^T (in the wider of the two
-    dtypes, as jnp promotes a mixed matmul)."""
+    dtypes, as jnp promotes a mixed matmul); this rank's vocabulary
+    columns when it is split."""
+    if vocab_parallel() is not None:
+        x = tpl.to_model(x)
     table = p["table"].to(compute_dtype)
     dtype = torch.promote_types(x.dtype, table.dtype)
     return torch.matmul(x.to(dtype), table.to(dtype).T)
@@ -146,10 +178,22 @@ def activation_fn(name: str):
 def softmax_cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Mean token cross-entropy, fp32 logsumexp."""
+    """Mean token cross-entropy, fp32 logsumexp. Vocab-parallel, ``logits``
+    are this rank's columns."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    tp = vocab_parallel()
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        cols = logits.shape[-1]
+        top = tpl.model_max(logits.amax(dim=-1, keepdim=True))
+        sumexp = tpl.reduce_from_model(torch.exp(logits - top).sum(dim=-1))
+        logz = torch.log(sumexp) + top[..., 0]
+        ids = labels.long() - tp.rank * cols
+        inside = (ids >= 0) & (ids < cols)
+        mine = torch.gather(logits, -1, ids.clamp(0, cols - 1)[..., None])[..., 0]
+        gold = tpl.reduce_from_model(mine * inside)
     nll = logz - gold
     if mask is not None:
         nll = nll * mask

@@ -8,7 +8,13 @@ with its shape, dtype, initializer and logical sharding axes, and can
     parameter from its own ``torch.Generator`` seeded from the seed and
     the parameter's path (so adding a parameter never shifts another's
     numbers), and
-  * report the tree's shapes without allocating (``abstract``).
+  * report the tree's shapes without allocating (``abstract``), and
+  * report each parameter's logical axes (``logical_axes``).
+
+Under sharding rules with a ``model`` axis (``repro_torch.dist.sharding``)
+``init`` and ``abstract`` give this rank's slice: each parameter is
+drawn whole from its own generator and sliced along the dim its axes
+split, so every model rank holds a slice of the one-device tree.
 
 ``torch.Generator`` cannot reproduce ``jax.random``: parity tests carry
 the JAX package's initial weights across with ``repro_torch.convert``.
@@ -54,10 +60,45 @@ class ParamDecl:
     axes: Axes
 
 
+def split_of(axes: Axes, shape: Sequence[int], rules) -> Optional[int]:
+    """The dim of a leaf of ``shape`` and logical ``axes`` that ``rules``
+    split over the ``model`` axis, or None (no rules, a model axis of 1,
+    or a replicated leaf)."""
+    from repro_torch.dist.sharding import logical_to_pspec, model_dim
+
+    if rules is None or rules.tp == 1:
+        return None
+    return model_dim(logical_to_pspec(axes, rules, shape))
+
+
+def local_shape(axes: Axes, shape: Sequence[int], rules) -> Tuple[int, ...]:
+    """``shape`` with its split dim divided by the model axis."""
+    shape = tuple(shape)
+    d = split_of(axes, shape, rules)
+    if d is None:
+        return shape
+    return shape[:d] + (shape[d] // rules.tp,) + shape[d + 1:]
+
+
+def local_slice(t: torch.Tensor, axes: Axes, rules, rank: int) -> torch.Tensor:
+    """Model rank ``rank``'s slice of a whole leaf (``t`` itself when the
+    leaf is replicated)."""
+    d = split_of(axes, tuple(t.shape), rules)
+    if d is None:
+        return t
+    k = t.shape[d] // rules.tp
+    return t.narrow(d, rank * k, k)
+
+
+def _current_rules():
+    from repro_torch.dist.sharding import current_rules
+
+    return current_rules()
+
+
 class ParamBuilder:
-    """Declare parameters once; materialize them, or just their shapes.
-    Each declaration keeps its logical sharding axes for the multi-GPU
-    port (ROADMAP queue 1, item 15)."""
+    """Declare parameters once; materialize them, or just their shapes,
+    whole or as this model rank's slice."""
 
     def __init__(self, param_dtype=torch.float32):
         self.decls: Dict[str, ParamDecl] = {}
@@ -84,24 +125,39 @@ class ParamBuilder:
         )
 
     def init(self, seed: int, device) -> PyTree:
-        """The tree on ``device`` from ``seed``; on the meta device (the dry
-        run) empty tensors of the same shapes and dtypes, drawn from nothing."""
+        """The tree on ``device`` from ``seed`` (this model rank's slices
+        under the current rules); on the meta device (the dry run) empty
+        tensors of the same shapes and dtypes, drawn from nothing."""
         device = torch.device(device)
+        rules = _current_rules()
         out: Dict[str, Any] = {}
         for path, decl in self.decls.items():
             if device.type == "meta":
-                _assign(out, path, torch.empty(decl.shape, dtype=decl.dtype, device=device))
+                _assign(out, path, torch.empty(local_shape(decl.axes, decl.shape, rules),
+                                               dtype=decl.dtype, device=device))
                 continue
             gen = torch.Generator(device=device)
             gen.manual_seed(_fold_path(seed, path))
-            _assign(out, path, decl.init(gen, decl.shape, decl.dtype, device))
+            leaf = decl.init(gen, decl.shape, decl.dtype, device)
+            if split_of(decl.axes, decl.shape, rules) is not None:
+                leaf = local_slice(leaf, decl.axes, rules, rules.mesh.model_rank).clone()
+            _assign(out, path, leaf)
         return out
 
     def abstract(self) -> PyTree:
-        """Shapes and dtypes as ``(shape, dtype)`` leaves, no allocation."""
+        """Shapes and dtypes as ``(shape, dtype)`` leaves, no allocation
+        (this model rank's shapes under the current rules)."""
+        rules = _current_rules()
         out: Dict[str, Any] = {}
         for path, decl in self.decls.items():
-            _assign(out, path, (decl.shape, decl.dtype))
+            _assign(out, path, (local_shape(decl.axes, decl.shape, rules), decl.dtype))
+        return out
+
+    def logical_axes(self) -> PyTree:
+        """The tree of each parameter's logical axes."""
+        out: Dict[str, Any] = {}
+        for path, decl in self.decls.items():
+            _assign(out, path, decl.axes)
         return out
 
 

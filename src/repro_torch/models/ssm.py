@@ -22,6 +22,17 @@ Three execution paths, as in the JAX package:
 
 dt and A are fp32; the gated RMSNorm keeps fp32 statistics; the final
 state is cast to x's dtype, as in the JAX package.
+
+Under tensor parallel (``repro_torch.models.tp``) the mixer shards over
+its heads, following the rules: ``in_z`` / ``in_x`` are column-parallel
+over ``ssm_inner``, ``in_dt``, ``A_log``, ``D`` and ``dt_bias`` over
+``ssm_heads``; ``in_b`` / ``in_c`` stay replicated and enter the
+sharded region through ``to_model``. The depthwise conv runs over the
+rank's x columns plus B and C: ``conv_w`` / ``conv_b`` are replicated
+(as in JAX) and each rank slices their columns. The gated RMSNorm's
+mean runs over the whole ``d_inner`` (the sum of squares is reduced),
+``out`` is row-parallel, ``ops.ssd`` receives the rank's H/T heads, and
+a rank's Mamba cache holds its heads and its conv columns.
 """
 from __future__ import annotations
 
@@ -33,14 +44,19 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import tp as tpl
 from repro_torch.models.layers import apply_dense, declare_dense
 from repro_torch.models.module import ParamBuilder, ones_init, torch_dtype, zeros_init
 
 
-def ssm_dims(cfg: ModelConfig) -> dict:
+def ssm_dims(cfg: ModelConfig, tp: Optional[tpl.TP] = None) -> dict:
+    """The mixer's dims; with ``tp``, this rank's share of them (x
+    columns and heads; B and C stay whole)."""
     d_inner = cfg.ssm_expand * cfg.d_model
     head_dim = cfg.ssm_head_dim or 64
     nheads = cfg.ssm_num_heads or d_inner // head_dim
+    if tp is not None and _split(tp):
+        d_inner, nheads = d_inner // tp.size, nheads // tp.size
     return dict(
         d_inner=d_inner,
         head_dim=head_dim,
@@ -49,6 +65,19 @@ def ssm_dims(cfg: ModelConfig) -> dict:
         conv_width=cfg.ssm_conv_width,
         conv_dim=d_inner + 2 * cfg.ssm_state_dim,   # x, B, C are conv'd
     )
+
+
+def _split(tp: Optional[tpl.TP]) -> bool:
+    """Whether the mixer is sharded: its inner columns and its heads
+    split together (a head's P columns are contiguous), or neither."""
+    if tp is None:
+        return False
+    inner, heads = tp.sharded("ssm_inner"), tp.sharded("ssm_heads")
+    if inner != heads:
+        raise ValueError(
+            "the rules split the Mamba2 mixer's inner dim and its heads differently "
+            f"(ssm_inner {inner}, ssm_heads {heads}): a head's columns would cross ranks")
+    return inner
 
 
 # ---------------------------------------------------------------------------
@@ -221,25 +250,39 @@ def mamba_block(
     on the card. Otherwise a multi-token step runs ``ssd_chunked`` and a
     single token ``ssd_sequential``, as in the JAX block."""
     dtype = torch_dtype(cfg.compute_dtype)
-    dims = ssm_dims(cfg)
+    tp = tpl.context()
+    split = _split(tp)
+    dims = ssm_dims(cfg, tp)
     H, P, N = dims["nheads"], dims["head_dim"], dims["dstate"]
+    di = dims["d_inner"]
     Bsz, S, _ = x.shape
 
-    z = apply_dense(p["in_z"], x, dtype)                     # (B,S,di)
-    xs = apply_dense(p["in_x"], x, dtype)
+    xm = tpl.to_model(x) if split else x
+    z = apply_dense(p["in_z"], xm, dtype)                    # (B,S,di)
+    xs = apply_dense(p["in_x"], xm, dtype)
     bs = apply_dense(p["in_b"], x, dtype)                    # (B,S,N)
     cs = apply_dense(p["in_c"], x, dtype)
-    dt_raw = apply_dense(p["in_dt"], x, dtype)               # (B,S,H)
+    dt_raw = apply_dense(p["in_dt"], xm, dtype)              # (B,S,H)
 
     conv_in = torch.cat([xs, bs, cs], dim=-1)
     conv_state = None if state is None else state["conv"]
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if split:
+        # the rank's x columns of the replicated conv (their gradient is
+        # added over the ranks) beside the B and C columns every rank runs
+        full = cfg.ssm_expand * cfg.d_model
+        lo = tp.rank * di
+        conv_w = torch.cat([tpl.to_model(conv_w[:, :full])[:, lo:lo + di],
+                            conv_w[:, full:]], dim=-1)
+        conv_b = torch.cat([tpl.to_model(conv_b[:full])[lo:lo + di], conv_b[full:]])
     conv_out, new_conv_state = causal_conv1d(
-        conv_in, p["conv_w"].to(dtype), p["conv_b"].to(dtype), conv_state,
+        conv_in, conv_w.to(dtype), conv_b.to(dtype), conv_state,
     )
-    di = dims["d_inner"]
     xs = conv_out[..., :di]
     bs = conv_out[..., di: di + N]
     cs = conv_out[..., di + N:]
+    if split:
+        bs, cs = tpl.to_model(bs), tpl.to_model(cs)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
@@ -266,16 +309,25 @@ def mamba_block(
     # gated RMSNorm (mamba2): norm(y * silu(z)); fp32 statistics only
     y = (y * F.silu(z)).to(dtype)
     yf = y.float()
-    stat = torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
+    if split:
+        # the mean over the whole d_inner: the ranks' sums of squares added
+        sq = tpl.model_sum(torch.sum(yf * yf, dim=-1, keepdim=True))
+        stat = torch.rsqrt(sq / (di * tp.size) + 1e-6)
+    else:
+        stat = torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
     y = y * stat.to(dtype) * p["norm_scale"].to(dtype)
     out = apply_dense(p["out"], y, dtype)
+    if split:
+        out = tpl.reduce_from_model(out)
     if return_state:
         return out, {"ssm": h_final, "conv": new_conv_state}
     return out, None
 
 
 def init_mamba_state(batch: int, cfg: ModelConfig, dtype, device) -> dict:
-    dims = ssm_dims(cfg)
+    """A zero state: this rank's heads and conv columns under tensor
+    parallel."""
+    dims = ssm_dims(cfg, tpl.context())
     return {
         "ssm": torch.zeros(
             (batch, dims["nheads"], dims["dstate"], dims["head_dim"]),

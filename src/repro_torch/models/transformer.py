@@ -52,6 +52,14 @@ or periodic segment also carries a ``ScanStreamBody``, one loop
 iteration (a layer, or a whole period) given that iteration's
 parameters, so the caller can gather one layer row at a time.
 
+Under tensor parallel (sharding rules with a ``model`` axis current,
+``repro_torch.dist.sharding.use_rules``) ``init``, ``param_shapes`` and
+``init_cache`` give this model rank's slices and every layer runs its
+sharded form (``repro_torch.models.tp``); ``logical_axes`` is the JAX
+model's tree of each parameter's logical axes. The loss is
+vocab-parallel and ``serve_forward`` makes the last position's logits
+whole (``tp.gather_vocab``).
+
 Where PyTorch would raise an opaque indexing error, the port raises a
 ``PositionRangeError`` (a ``ValueError``) naming the cause: serving positions past ``max_len`` in
 a model with a full-length KV cache (it has no room for them; Mamba
@@ -67,11 +75,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import checkpoint, current_rules, no_rules
 from repro_torch.models.attention import (
     CacheSpec,
     attention_block,
@@ -79,6 +86,7 @@ from repro_torch.models.attention import (
     encoder_kv,
     init_kv_cache,
 )
+from repro_torch.models import tp as tpl
 from repro_torch.models.ffn import declare_ffn, declare_moe, ffn_block, moe_block
 from repro_torch.models.layers import (
     apply_dense,
@@ -86,9 +94,11 @@ from repro_torch.models.layers import (
     declare_dense,
     declare_embedding,
     declare_norm,
+    embed_lookup,
     sinusoidal_table,
     softmax_cross_entropy,
     unembed,
+    vocab_parallel,
 )
 from repro_torch.models.ssm import declare_mamba, init_mamba_state, mamba_block
 from repro_torch.models.module import (
@@ -96,6 +106,9 @@ from repro_torch.models.module import (
     _assign,
     _fold_path,
     embedding_init,
+    local_shape,
+    local_slice,
+    split_of,
     torch_dtype,
 )
 from repro_torch.tree import tree_leaves, tree_map
@@ -325,7 +338,8 @@ class Model:
             yield ("encoder",), _stack_builder(self.cfg, self._enc_segment), self.cfg.encoder_layers
 
     def init(self, seed: int, *, device="cuda") -> Dict[str, Any]:
-        """Random initial parameters on ``device`` from ``seed``."""
+        """Random initial parameters on ``device`` from ``seed``: this model
+        rank's slices of them under the current rules."""
         device = resolve_device(device)
         params: Dict[str, Any] = dict(_top_builder(self.cfg).init(seed, device))
         for path, builder, count in self._stacks():
@@ -341,10 +355,21 @@ class Model:
                 lambda sd, n=count: ((n,) + sd[0], sd[1]), builder.abstract()["layer"]))
         return shapes
 
+    def logical_axes(self) -> Dict[str, Any]:
+        """Each parameter's logical axes, in the tree ``init`` returns
+        (stacked leaves lead with ``"layers"``), as in the JAX model."""
+        axes: Dict[str, Any] = dict(_top_builder(self.cfg).logical_axes())
+        for path, builder, _ in self._stacks():
+            _assign(axes, ".".join(path), tree_map(
+                lambda a: ("layers",) + a, builder.logical_axes()["layer"]))
+        return axes
+
     def num_params(self) -> int:
-        return int(sum(
-            np.prod(shape) for shape, _ in tree_leaves(self.param_shapes())
-        ))
+        """The whole model's parameter count (under any rules)."""
+        with no_rules():
+            return int(sum(
+                np.prod(shape) for shape, _ in tree_leaves(self.param_shapes())
+            ))
 
     # -- forward ----------------------------------------------------------------
     def _embed(self, params, tokens: torch.Tensor, prefix_embeddings=None):
@@ -352,7 +377,7 @@ class Model:
         given: ``(x, prefix length)``."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
-        x = F.embedding(tokens.long(), params["embed"]["table"]).to(dtype)
+        x = embed_lookup(params["embed"]["table"], tokens).to(dtype)
         if cfg.name.startswith("gemma"):
             # the JAX model multiplies by a numpy float64 scalar, which
             # promotes a bf16 residual stream to fp32; mirror that
@@ -449,7 +474,7 @@ class Model:
             return x, aux
 
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(one, x, p, cross_kv, use_reentrant=False)
+            return checkpoint(one, x, p, cross_kv)
         return one(x, p, cross_kv)
 
     def _run_segment(self, params_seg, x, seg, *, positions, caches=None,
@@ -519,7 +544,7 @@ class Model:
         remat = cfg.remat and torch.is_grad_enabled()
         for i in range(self._enc_segment.count):
             p_i = tree_map(lambda a: a[i], params["encoder"])
-            x = checkpoint(one, x, p_i, use_reentrant=False) if remat else one(x, p_i)
+            x = checkpoint(one, x, p_i) if remat else one(x, p_i)
         return apply_norm(params["enc_final_norm"], x, cfg.norm)
 
     def forward(self, params, tokens: torch.Tensor, *,
@@ -556,11 +581,15 @@ class Model:
         if cfg.tie_embeddings:
             logits = unembed(params["embed"], x, dtype)
         else:
-            logits = apply_dense(params["unembed"], x, dtype)
+            # column-parallel over the vocabulary when it is split
+            xin = tpl.to_model(x) if vocab_parallel() is not None else x
+            logits = apply_dense(params["unembed"], xin, dtype)
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
-            pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+            cols = logits.shape[-1]
+            lo = vocab_parallel().rank * cols if cols != cfg.padded_vocab else 0
+            pad = torch.arange(lo, lo + cols, device=x.device) >= cfg.vocab_size
             neg = torch.tensor(-1e30, dtype=torch.float32).to(logits.dtype)
             logits = torch.where(pad, neg.to(x.device), logits)
         return logits
@@ -740,15 +769,18 @@ class Model:
         if kind == "mamba":
             one = init_mamba_state(batch, self.cfg, dtype, device)
         else:
-            one = init_kv_cache(
-                batch, spec, self.cfg.num_kv_heads, self.cfg.head_dim, dtype, device
-            )
+            tp = tpl.context()
+            kv = self.cfg.num_kv_heads
+            if tp is not None and tp.sharded("kv_proj"):
+                kv //= tp.size
+            one = init_kv_cache(batch, spec, kv, self.cfg.head_dim, dtype, device)
         return {key: a[None].repeat((count,) + (1,) * a.dim()) for key, a in one.items()}
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda") -> List[dict]:
         """Per-segment caches, stacked on a leading layer dim (periodic
         segments nest them as ``{pos_j: stacked over the repeats}``), in
-        the compute dtype on ``device``."""
+        the compute dtype on ``device``: this model rank's kv heads and
+        Mamba heads and conv columns under the current rules."""
         device = resolve_device(device)
         dtype = torch_dtype(self.cfg.compute_dtype)
         specs = self.cache_specs(max_len)
@@ -806,7 +838,7 @@ class Model:
             )
             li += seg.count
         x = apply_norm(params["final_norm"], x, cfg.norm)
-        return self._unembed(params, x[:, -1:, :]), caches
+        return tpl.gather_vocab(self._unembed(params, x[:, -1:, :]), cfg.padded_vocab), caches
 
 
 @functools.lru_cache(maxsize=16)
@@ -834,13 +866,20 @@ def _stacked_init(builder: ParamBuilder, seed: int, count: int, device):
     Each stacked leaf is allocated once and layer i is drawn into it in
     place, leaf by leaf, so no more than one layer's copy of one leaf is
     ever held beside the stack (the same numbers as drawing every layer's
-    tree and stacking them, at about half the peak memory)."""
+    tree and stacking them, at about half the peak memory). Under rules
+    with a model axis each layer is drawn whole and its model rank's
+    slice kept."""
+    rules = current_rules()
     stacked: Dict[str, Any] = {}
     for path, decl in builder.decls.items():
-        leaf = torch.empty((count,) + decl.shape, dtype=decl.dtype, device=device)
+        shape = local_shape(decl.axes, decl.shape, rules)
+        leaf = torch.empty((count,) + shape, dtype=decl.dtype, device=device)
         for i in range(count if device.type != "meta" else 0):   # meta: nothing to draw
             gen = torch.Generator(device=device)
             gen.manual_seed(_fold_path(_fold_path(seed, str(i)), path))
-            leaf[i].copy_(decl.init(gen, decl.shape, decl.dtype, device))
+            one = decl.init(gen, decl.shape, decl.dtype, device)
+            if split_of(decl.axes, decl.shape, rules) is not None:
+                one = local_slice(one, decl.axes, rules, rules.mesh.model_rank)
+            leaf[i].copy_(one)
         _assign(stacked, path, leaf)
     return stacked["layer"]

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Tuple, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -41,8 +41,13 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> PyTree:
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``norm``,
+    where given, is their global norm (a sharded gradient's, summed over
+    the ranks that hold its pieces)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads)
 

@@ -243,3 +243,56 @@ def test_fsdp_phase_is_listed_wired_and_reckons_its_bytes(smoke):
     assert "were not run" in smoke.fsdp_not_run_line(1)
     assert smoke.fsdp_not_run_line(2) is None
     assert smoke.FSDP_TOL == {"loss_atol": 5e-6, "loss_rtol": 1e-6, "params": 2e-6}
+
+
+def test_tp_phase_is_listed_wired_and_decides_its_world(smoke):
+    """Phase 12 (tensor parallel): listed, run after phase 11; the world
+    it picks (gloo with the ranks sharing one card, NCCL with a card a
+    rank) and its serving rule (every step routed as the world of one
+    routes it: its logits within the tolerance and its token equal where
+    the top-2 margin is over twice that; at most a quarter of the steps
+    routed otherwise)."""
+    import ast
+
+    import torch
+
+    assert "12. tp" in smoke.__doc__
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    calls = [c.func.id for c in ast.walk(main)
+             if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)]
+    assert calls.index("phase_tp") > calls.index("phase_fsdp")
+    assert smoke.tp_world(1) == ("gloo", True)
+    assert smoke.tp_world(2) == ("nccl", False) and smoke.tp_world(8) == ("nccl", False)
+    tol = smoke.TP_LOGIT_TOL
+    logits = torch.zeros(2, 4, 5)
+    routes = torch.arange(16.).reshape(2, 4, 2)
+    want = {"logits": logits, "tokens": torch.tensor([[1., 2., 3., 4.], [5., 6., 7., 8.]]),
+            "margins": torch.full((2, 4), 3 * tol), "routes": routes}
+    rows = slice(0, 2)
+
+    def agree(tokens, margins=None, err=0.0, moved=()):
+        w = dict(want, margins=margins) if margins is not None else want
+        got_logits, got_routes = logits + err, routes.clone()
+        for b, i in moved:           # another expert, and a whole expert's term
+            got_routes[b, i, 0] = -1
+            got_logits[b, i] += 2.0
+        return smoke.serve_agree({"logits": got_logits, "tokens": torch.tensor(tokens),
+                                  "routes": got_routes}, w, rows)
+
+    same = [[1, 2, 3, 4], [5, 6, 7, 8]]
+    res = agree(same)
+    assert res["ok"] and res["logits_err"] == 0.0 and res["compared"] == 8
+    assert not agree(same, err=2 * tol)["ok"]
+    assert not agree([[1, 9, 3, 4], [5, 6, 7, 8]])["ok"]
+    narrow = want["margins"].clone()
+    narrow[0, 1] = 2 * tol          # a near tie at step 1: the argmax may differ there only
+    res = agree([[1, 9, 3, 4], [5, 6, 7, 8]], narrow)
+    assert res["ok"] and res["compared"] == 7
+    assert not agree([[7, 9, 3, 4], [5, 6, 7, 8]], narrow)["ok"]
+    # a re-routed step is counted apart; more than a quarter of them fails
+    res = agree([[1, 9, 3, 4], [5, 6, 7, 8]], moved=[(0, 1), (1, 2)])
+    assert res["ok"] and res["rerouted"] == 2 and res["rerouted_err"] == 2.0
+    assert res["logits_err"] == 0.0 and res["compared"] == 6
+    assert not agree(same, moved=[(0, 1), (1, 2), (1, 3)])["ok"]
+    assert set(smoke.TP_SERVED) <= {cfg.name for cfg, *_ in smoke.serving_configs()}

@@ -20,7 +20,8 @@ JAX CLI's ``fsdp:`` lines (their numbers from the JAX package's own
 layouts); a ``--shard 2`` streamed checkpoint resumes under
 ``--no-stream-layers``, under ``--shard 1`` and in the JAX package's
 ``restore_run`` with the next step's loss of the unbroken run.
-``--model-par`` still exits naming ROADMAP item 15.
+``--model-par`` below 1 exits (``tests/test_torch_tp.py`` holds the
+model axis's worlds).
 """
 import csv
 import os
@@ -70,7 +71,8 @@ def _one_thread():
 # ---------------------------------------------------------------------------
 def test_mesh_ranks_and_the_count_authorities():
     m = mesh_lib.Mesh(2, 2, rank=3)
-    assert (m.axis_names, m.shape, m.size) == (("data", "shard"), {"data": 2, "shard": 2}, 4)
+    assert (m.axis_names, m.shape, m.size) == (
+        ("data", "shard", "model"), {"data": 2, "shard": 2, "model": 1}, 4)
     assert (m.data_rank, m.shard_rank) == (1, 1)
     assert [m.global_rank(d) for d in range(2)] == [1, 3]
     assert m.global_rank(0, 0) == 0
@@ -201,8 +203,8 @@ def test_cli_shard_2_prints_the_jax_clis_fsdp_lines(sharded_run):
     assert "mesh data 1 x shard 2 (4 nodes a data rank)" in sharded_run.out
     assert sorted(sharded_run.rows) == [0, 2]
     assert sorted(os.listdir(sharded_run.ck)) == ["step_00000002", "step_00000003"]
-    with pytest.raises(SystemExit, match="item 15"):
-        train.main([*CLI, "--model-par", "2"])
+    with pytest.raises(SystemExit, match="--model-par must be >= 1"):
+        train.main([*CLI, "--model-par", "0"])
     with pytest.raises(SystemExit, match="must divide by --shard 2"):
         train.main([*CLI, "--shard", "2", "--batch-per-node", "3"])
 
@@ -240,3 +242,130 @@ def test_shard_2_streamed_checkpoint_resumes_across_layouts_shards_and_packages(
     np.testing.assert_allclose(jloss, want, rtol=2e-3)
     info = ckpt.verify_run(step2)
     assert (info["shard"], info["stream_layers"], info["num_nodes"]) == (2, True, 4)
+
+
+# ---------------------------------------------------------------------------
+# --model-par: the CLIs and checkpoints across model factors and packages
+# ---------------------------------------------------------------------------
+SHORT = ["--steps", "3", "--seq", "32"]
+
+
+def _start(*args, module="repro_torch.launch.train"):
+    """The CLI in a process group of its own, started (``_finish`` waits)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    extra = CLI if module.endswith("train") else []
+    return subprocess.Popen([sys.executable, "-m", module, *extra, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=REPO, start_new_session=True)
+
+
+def _finish(proc, timeout=150):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"the CLI did not finish in {timeout} s") from None
+    assert proc.returncode == 0, err[-4000:]
+    return out
+
+
+SERVE = ["--device", "cpu", "--batch", "4", "--prompt-len", "16", "--gen", "6"]
+
+
+@pytest.fixture(scope="module")
+def model_par_runs(tmp_path_factory):
+    """Side by side: 3 steps at ``--model-par 2`` and at ``--shard 2
+    --model-par 2``, each checkpointing every 2, the serving CLI at
+    ``--data-par 2 --model-par 2``; then the training run at
+    ``--model-par 1`` in process."""
+    tmp = tmp_path_factory.mktemp("model_par")
+    procs = {name: _start(*flags, *SHORT, "--ckpt-dir", str(tmp / name), "--ckpt-every", "2",
+                          "--csv", str(tmp / f"{name}.csv"))
+             for name, flags in (("t2", ["--model-par", "2"]),
+                                 ("s2t2", ["--shard", "2", "--model-par", "2"]))}
+    serve = _start(*SERVE, "--data-par", "2", "--model-par", "2",
+                   module="repro_torch.launch.serve")
+    runs = {name: types.SimpleNamespace(out=_finish(p), ck=tmp / name,
+                                        rows=_csv(tmp / f"{name}.csv"))
+            for name, p in procs.items()}
+    runs["serve"] = _finish(serve)
+    runs["t1"] = types.SimpleNamespace(rows={r["step"]: r["loss"] for r in train.main(
+        [*CLI, *SHORT])})
+    return types.SimpleNamespace(tmp=tmp, **runs)
+
+
+def test_cli_model_par_2_trains_like_model_par_1(model_par_runs):
+    """The header names the mesh and the whole model's parameter count;
+    the losses are the world of one's within bf16 compute rounding (T
+    changes the order of the row-parallel sums)."""
+    t2, s2t2, t1 = model_par_runs.t2, model_par_runs.s2t2, model_par_runs.t1
+    n = JaxModel(jax_smoke_config("internlm2_1_8b")).num_params()
+    assert f"({n} params/node)" in t2.out
+    assert "mesh data 1 x shard 1 x model 2 (4 nodes a data rank)" in t2.out
+    assert "mesh data 1 x shard 2 x model 2 (4 nodes a data rank)" in s2t2.out
+    assert [ln for ln in s2t2.out.splitlines() if ln.startswith("fsdp:")]
+    for run in (t2, s2t2):
+        assert sorted(run.rows) == [0, 2]
+        for k in (0, 2):
+            np.testing.assert_allclose(run.rows[k], t1.rows[k], rtol=1e-3)
+        assert sorted(os.listdir(run.ck)) == ["step_00000002", "step_00000003"]
+
+
+def test_model_par_checkpoints_resume_across_model_factors_and_packages(model_par_runs,
+                                                                        capsys):
+    """A ``--model-par 2`` checkpoint (and one of ``--shard 2 --model-par
+    2``) holds the whole tree in the JAX format: the JAX package restores
+    the same bytes; resumed at ``--model-par 2`` it gives the unbroken
+    run's next loss within bf16 compute rounding, and the JAX model's
+    loss on it (bf16 compute in both packages). A save by the JAX package
+    of the same bytes resumes at ``--model-par 2`` with the unbroken
+    run's next loss exactly."""
+    runs = model_par_runs
+    step2 = str(runs.t2.ck / "step_00000002")
+    jparams, jstate, jstep = jckpt.restore_run(step2)
+    params, _, _ = ckpt.restore_run(step2, device="cpu")
+    got = {".".join(k.key for k in p): np.asarray(v)
+           for p, v in jax.tree_util.tree_leaves_with_path(jparams)}
+    for k, v in flatten(params).items():
+        np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)
+    for name in ("t2", "s2t2"):
+        ck = str(getattr(runs, name).ck / "step_00000002")
+        rows = train.main([*CLI, *SHORT, "--resume", ck])
+        assert f"resumed from {ck} at step 2" in capsys.readouterr().out
+        np.testing.assert_allclose(rows[-1]["loss"], getattr(runs, name).rows[2], rtol=1e-3)
+    cfg = jax_smoke_config("internlm2_1_8b")
+    it = iter(JaxBatches(cfg, 4, 4, 32, seed=0))
+    for _ in range(2):
+        next(it)
+    batch = next(it)
+    loss = jax.jit(lambda p, b: JaxModel(cfg).loss(p, b)[0])
+    node = lambda t, i: jax.tree.map(lambda a: a[i], t)
+    jloss = float(np.mean([loss(node(jparams, i), node(batch, i)) for i in range(4)]))
+    np.testing.assert_allclose(jloss, rows[-1]["loss"], rtol=2e-3)
+    # the JAX package's own save of the same state: its bytes restore into
+    # the unbroken run's next step exactly
+    jroot = str(runs.tmp / "jax")
+    jdir = jckpt.save_run_step(jroot, jparams, jstate, step=jstep,
+                               extra={"shard": 1, "stream_layers": False,
+                                      "stream_scan": True})
+    _cli("--model-par", "2", *SHORT, "--resume", jdir, "--csv", str(runs.tmp / "rj.csv"))
+    assert _csv(runs.tmp / "rj.csv")[2] == runs.t2.rows[2]
+
+
+def test_serve_cli_model_par_2_gives_the_world_of_ones_tokens(model_par_runs, capsys):
+    """``--data-par 2 --model-par 2`` over gloo (four ranks, each data
+    rank serving 2 of the 4 requests): the JAX CLI's lines, and the
+    greedy tokens of the world of one."""
+    from repro_torch.launch import serve
+
+    one = serve.main(SERVE)
+    want, got = capsys.readouterr().out, model_par_runs.serve
+    assert "mesh data 2 x model 2" in got
+    ids = [[ln for ln in out.splitlines() if ln.startswith("generated token ids")]
+           for out in (want, got)]
+    assert ids[0] and ids[1] == ids[0]
+    assert one["generated"].shape == (4, 6)
+    for out in (want, got):
+        assert "arch=internlm2-smoke batch=4 prompt=16 gen=6" in out
+        assert "prefill:" in out and "ms/token" in out

@@ -14,6 +14,11 @@ Inputs and weights are drawn with numpy and fed to both
   smoke model (first layer dense, shared expert), from the JAX
   ``Model.init`` weights carried across.
 
+And run to run: two identical runs of the masked ``TrainStep`` over
+the 16-expert dbrx (the ragged branch) on several CPU threads are bit
+for bit equal in losses, params and velocities (the backward of the
+dispatch gather adds in a fixed order, ``ffn._PairRows``).
+
 Tolerances: 2e-5 abs and 1e-5 rel on layer outputs and aux losses
 (summation order only: the combine adds each token's k terms in the JAX
 order, ascending expert, in fp32); the loss to 1e-5 relative and each
@@ -184,3 +189,42 @@ def test_loss_and_grads_match_jax(arch, kw, branch):
     for path, want in jgrads.items():
         assert tgrads[path].shape == want.shape, path
         assert _rel(tgrads[path], np.asarray(want, np.float32)) <= 1e-5, path
+
+
+def test_ragged_train_step_is_bit_equal_run_to_run():
+    """Two identical 3-step runs of the 16-expert tiny dbrx ``TrainStep``
+    on 4 CPU threads: the same bits (an accumulating ``index_put`` in the
+    dispatch's backward added repeated rows in the threads' order)."""
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.optim.optimizers import sgd
+
+    cfg = dataclasses.replace(get_smoke_config("dbrx_132b"), moe_num_experts=16,
+                              moe_top_k=4, compute_dtype="float32")
+    model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+    plan = plan_matcha(named_graph("ring", 4, seed=3), 0.5, seed=0)
+    sched = plan.schedule(3, seed=0)
+
+    def run():
+        data = DecentralizedBatches(cfg, 4, 4, 32, seed=0, device="cpu")
+        params = dt.init_stacked_params(model, 4, seed=0, device="cpu")
+        state = dt.init_stacked_opt_state(opt, model, 4, device="cpu")
+        step = dt.make_train_step(model, opt, plan)
+        losses = []
+        for k in range(3):
+            bits = torch.as_tensor(sched.activations[k].astype(np.float32))
+            params, state, loss, _ = step(params, state, next(data), bits)
+            losses.append(loss)
+        return torch.stack(losses), flatten(params), flatten(state["velocity"])
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        (la, pa, va), (lb, pb, vb) = run(), run()
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(la, lb)
+    for tree_a, tree_b in ((pa, pb), (va, vb)):
+        for path, a in tree_a.items():
+            assert torch.equal(a, tree_b[path]), path

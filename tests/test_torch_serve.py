@@ -22,7 +22,7 @@
 * ``python -m repro_torch.launch.serve --device cpu --preset tiny`` for
   internlm2, mamba2, dbrx, gemma3, jamba, whisper (zero frames through
   the encoder) and internvl2; without ``--device cpu`` and without a card it exits with
-  a message; unported flags exit naming their ROADMAP item, and ``--trace``
+  a message; the mesh flags keep their checks, and ``--trace``
   writes spans the JAX package's readers load.
 """
 import dataclasses
@@ -165,13 +165,14 @@ def test_cli_without_a_card_needs_device_cpu():
 
 @pytest.mark.parametrize("flags,item", [
     (["--trace", "{tmp}/tr"], "ported"),
-    (["--data-par", "2"], "item 15"),
-    (["--model-par", "2"], "item 15"),
+    (["--data-par", "2", "--batch", "3"], "batch must divide data_par"),
+    (["--model-par", "0"], "--model-par must be >= 1"),
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path):
-    """Unported flags exit naming their ROADMAP item; ``--trace`` is
-    ported: one fenced prefill span and one decode span per
-    step, in files the JAX package's readers load."""
+    """The mesh flags are ported and keep their checks (the JAX CLI's
+    ``batch % data_par``; factors >= 1); ``--trace`` is ported too: one
+    fenced prefill span and one decode span per step, in files the JAX
+    package's readers load."""
     flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
     if item != "ported":
         with pytest.raises(SystemExit, match=item):

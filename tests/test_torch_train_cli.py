@@ -159,7 +159,7 @@ def _check_ported(flags, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--shard", "2", "--gossip-mode", "static"], "not static"),
-    (["--model-par", "2"], "item 15"),
+    (["--model-par", "0"], "--model-par must be >= 1"),
     (["--stream-layers"], "requires --shard > 1"),
     (["--no-stream-scan"], "ported"),
     (["--gossip-mode", "overlap"], "ported"),
@@ -168,11 +168,11 @@ def _check_ported(flags, tmp_path, capsys):
     (["--trace", "{tmp}/tr", "--ckpt-dir", "{tmp}/ck", "--resume", "auto"], "ported"),
 ])
 def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path, capsys):
-    """Every flag the port has not implemented exits naming the ROADMAP
-    item that ports it (``--model-par``); those ported since (overlap,
-    ``--trace``, the FSDP flags) run instead, and the FSDP flags keep the
-    JAX CLI's checks (``--stream-layers`` needs ``--shard > 1``, static
-    gossip is refused with ``--shard > 1``)."""
+    """Every flag of the JAX CLI is ported now: overlap, ``--trace`` and
+    the FSDP flags run, and the FSDP flags keep the JAX CLI's checks
+    (``--stream-layers`` needs ``--shard > 1``, static gossip is refused
+    with ``--shard > 1``), as ``--model-par`` keeps its factor >= 1
+    (``tests/test_torch_tp.py`` runs it)."""
     if item == "ported":
         _check_ported(flags, tmp_path, capsys)
         return
