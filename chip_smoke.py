@@ -149,6 +149,12 @@ non-zero exit:
            models): the path taken, ``analysis.kernel_lint`` over the launch
            configuration the library reports, and the kernel against its
            plain version at the phase-2 tolerances (gossip bit for bit);
+           then ``python -m repro_torch.analysis.check --shard 2
+           --all-layouts --faults --strict``: the one-process steps, the
+           replicated and FSDP mesh lanes (every rank's view on meta, the
+           collective inventory held to the plan, the modules' contracts,
+           the byte model and the committed artifact), the schedule gates
+           and the arch's kernel cases linted on the card;
 10. examples the four examples (``repro_torch.examples``) on the card at a
            few steps each;
 11. fsdp   the sharded-replica trainer (``repro_torch.dist.fsdp``) in an
@@ -184,8 +190,8 @@ non-zero exit:
            (attention without ``to_model``) that must exceed that limit,
            gossip_axpy launches a step equal to the world of one's, then 2
            overlap steps and the flush; each rank's resident and peak
-           memory, step times and the time in the model axis's
-           all-reduces. Serving at T 2, bf16, batch 8, prompt 2048, 8
+           memory, step times and the time in its collectives.
+           Serving at T 2, bf16, batch 8, prompt 2048, 8
            generated tokens, seed 0: internlm2-1.8b (24 layers), mamba2-370m
            (48 layers) and dbrx-132b at 3 layers (expert parallel: 8 of 16
            experts a rank) against the world of one, which rank 0 serves
@@ -200,6 +206,30 @@ non-zero exit:
            all-reduce time; then data 2 x model 1
            on the same ranks, each serving 4 of the 8 internlm2 requests,
            against the world of one's rows.
+
+13. sp     sequence parallel and kv-seq-sharded serving at T 2, in a world
+           of two ranks (gloo sharing one card, whose all-gather,
+           reduce-scatter and send/recv of CUDA tensors
+           ``repro_torch.dist.comm`` moves through host copies; NCCL with a
+           card a rank): internlm2-1.8b at published width, depth 2, 8
+           nodes on paper8, 3 masked steps under
+           ``train_rules(sequence_parallel=True)`` against the world of
+           one by phase 12's limits, and the same steps with a planted
+           fault (the row-parallel outputs skip their reduce-scatter) that
+           must exceed the params limit; internlm2-1.8b served at batch 8,
+           prompt 512, 8 tokens with the KV caches split over their
+           positions (``serve_rules(kv_seq_sharded=True)``), each decode
+           step fed the world of one's token, the last logits within 0.25,
+           and the same with a planted fault (flash-decoding's combine
+           without its outputs' all-reduce) that must exceed that limit,
+           each rank's flash launches equal to the dry run's for that rank
+           (``dryrun.mesh_serve_call``); the collectives recorded from the
+           first training step and from a prefill and a decode step equal,
+           op for op, the one-process meta inventory of the same rank
+           (``analysis.collectives``); the time and bytes in each kind of
+           collective.
+           With two cards or more, the (pod 2, data 1) gossip over NCCL
+           against one process.
 
 Then it prints the card's name and power limit, one JSON line with every
 ported kernel's numbers, and, last, the device JSON line.
@@ -2361,31 +2391,51 @@ def tp_world(cards: int):
     return ("gloo", True) if cards < TP else ("nccl", False)
 
 
-class CollectiveClock:
-    """Host time spent in the model axis's all-reduces
-    (``repro_torch.models.tp._sum``, patched in this rank), each fenced
-    by a synchronize before it starts and after it ends."""
+class CommClock:
+    """Host time, calls and bytes of every collective
+    ``repro_torch.dist.comm`` issues over a group in this rank (its four
+    entries patched), each fenced by a synchronize before it starts and
+    after it ends, by entry. The bytes are the tensor reduced, the
+    all-gather's output, the reduce-scatter's input, the exchange's
+    sends."""
+
+    ENTRIES = ("all_reduce", "all_gather", "reduce_scatter", "exchange")
+    GROUP_ARG = {"all_reduce": 1, "all_gather": 2, "reduce_scatter": 2, "exchange": 1}
 
     def __init__(self, torch):
-        from repro_torch.models import tp
+        from repro_torch.dist import comm
 
-        self.ms, self.calls, self.bytes = 0.0, 0, 0
-        orig = tp._sum
+        self.by_entry = dict.fromkeys(self.ENTRIES, 0.0)
+        self.calls = dict.fromkeys(self.ENTRIES, 0)
+        self.bytes = dict.fromkeys(self.ENTRIES, 0)
+        for name in self.ENTRIES:
+            orig = getattr(comm, name)
 
-        def timed(t, group, op=None):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig(t, group, op)
-            torch.cuda.synchronize()
-            self.ms += (time.perf_counter() - t0) * 1e3
-            self.calls += 1
-            self.bytes += t.numel() * 4
-            return out
+            def timed(*args, _orig=orig, _name=name, **kw):
+                if args[self.GROUP_ARG[_name]] is None:
+                    return _orig(*args, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*args, **kw)
+                torch.cuda.synchronize()
+                self.by_entry[_name] += (time.perf_counter() - t0) * 1e3
+                self.calls[_name] += 1
+                self.bytes[_name] += self._bytes(_name, args)
+                return out
 
-        tp._sum = timed
+            setattr(comm, name, timed)
 
-    def read(self):
-        return self.ms, self.calls, self.bytes
+    @staticmethod
+    def _bytes(name, args):
+        if name == "exchange":
+            return sum(t.numel() * t.element_size() for _, t in args[0])
+        t = args[1] if name == "reduce_scatter" else args[0]
+        return t.numel() * t.element_size()
+
+    @property
+    def ms(self) -> float:
+        """The time in every entry so far."""
+        return sum(self.by_entry.values())
 
 
 class KernelShapes:
@@ -2839,7 +2889,7 @@ def _tp_rank(rank: int, world: int, init_method: str, backend: str, out: str) ->
     device = init_world("cuda", rank=rank, world_size=world, init_method=init_method,
                         backend=backend)
     try:
-        clock = CollectiveClock(torch)
+        clock = CommClock(torch)
         mesh = make_mesh(model=TP, device=device)
         t0 = time.perf_counter()
         res = {"train": tp_train(torch, mesh, clock)}
@@ -2852,7 +2902,8 @@ def _tp_rank(rank: int, world: int, init_method: str, backend: str, out: str) ->
             t0 = time.perf_counter()
             res["data_par"] = tp_data_par(torch, make_mesh(model=1, device=device), clock, want)
             res["data_par_s"] = time.perf_counter() - t0
-        res["collectives"] = clock.read()
+        res["collectives"] = [clock.by_entry["all_reduce"], clock.calls["all_reduce"],
+                              clock.bytes["all_reduce"]]
         with open(f"{out}.{rank}", "w") as f:
             json.dump(res, f)
     finally:
@@ -2890,7 +2941,7 @@ def phase_tp(torch):
             log(f"{tag} rank {r}: training {t['cfg']} at 2 layers, {NODES} nodes on paper8, "
                 f"{t['params_per_node']} params a node ({t['leaves']} leaves split): 3 masked "
                 f"steps {', '.join(f'{x:.1f}' for x in t['step_ms'])} ms (median "
-                f"{t['median_ms']:.1f}; in the model axis's all-reduces "
+                f"{t['median_ms']:.1f}; in its collectives "
                 f"{', '.join(f'{x:.1f}' for x in t['coll_ms'])} ms); resident "
                 f"{gb(t['resident'])}, peak {gb(t['peak'])}; gossip_axpy launches a step "
                 f"{t['launches']} (world of one {t['ref_launches']}); against the world "
@@ -2969,6 +3020,451 @@ def phase_tp(torch):
     log(f"tp: phase {time.perf_counter() - t_phase:.1f} s")
     if failures:
         fail("tp: " + "; ".join(failures))
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: sequence parallel, kv-seq-sharded serving, the inventory
+# ---------------------------------------------------------------------------
+SP_PROMPT = 512                 # phase 13's served prompt (batch SERVE_BATCH)
+
+
+@contextlib.contextmanager
+def kv_seq_without_o_reduce():
+    """A planted fault, the kv-seq serving comparison's negative control:
+    flash-decoding's combine (``models.attention._sdpa_split``) skips its
+    third all-reduce, the unnormalized outputs, so each rank divides its
+    own slots' output by the sum over every rank's slots."""
+    from repro_torch.dist import comm
+    from repro_torch.models import attention
+
+    orig_split, orig_reduce = attention._sdpa_split, comm.all_reduce
+
+    def split(*args, **kw):
+        calls = []
+
+        def all_reduce(t, group, op="sum"):
+            calls.append(op)
+            return t if len(calls) == 3 else orig_reduce(t, group, op)
+
+        comm.all_reduce = all_reduce
+        try:
+            return orig_split(*args, **kw)
+        finally:
+            comm.all_reduce = orig_reduce
+
+    attention._sdpa_split = split
+    try:
+        yield
+    finally:
+        attention._sdpa_split = orig_split
+
+
+@contextlib.contextmanager
+def sp_without_reduce_scatter():
+    """A planted fault, the sequence-parallel comparison's negative
+    control: each block's row-parallel output skips its reduce-scatter,
+    so each rank keeps only its own partial sum of its sequence slice."""
+    from repro_torch.models import tp
+
+    orig = tp._SeqReduceScatter.forward
+
+    def forward(ctx, x, tp_):
+        ctx.tp = tp_
+        return tp._slice_seq(x, tp_)
+
+    tp._SeqReduceScatter.forward = staticmethod(forward)
+    try:
+        yield
+    finally:
+        tp._SeqReduceScatter.forward = orig
+
+
+def meta_view_records(cfg, mesh_rank, *, train: bool, batches=None, bits=None, plan=None,
+                      prompt: int = 0):
+    """The one-process meta inventory of this rank on the phase's mesh
+    (``virtual_mesh(model=TP)``): one sequence-parallel masked step, or a
+    kv-seq-sharded prefill and one decode step."""
+    from repro_torch.analysis.collectives import collect
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import serve as sv
+    from repro_torch.dist.sharding import serve_rules, use_rules
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+
+    vm = virtual_mesh(model=TP, rank=mesh_rank)
+    model = Model(cfg)
+    if train:
+        opt = sgd(0.05, momentum=0.9)
+        spec = dt.make_spec(vm, NODES, cfg=cfg, sequence_parallel=True)
+        with use_rules(spec.rules):
+            params = dt.init_stacked_params(model, NODES, seed=0, device="meta")
+            state = dt.init_stacked_opt_state(opt, model, NODES, device="meta")
+        step = dt.make_train_step(model, opt, plan, spec=spec)
+        batch = {k: v.to("meta") for k, v in batches[0].items()}
+        return collect(step, params, state, batch, bits[0].cpu().numpy())
+    rules = serve_rules(vm, cfg, kv_seq_sharded=True)
+    max_len = prompt + TP_GEN
+    with use_rules(rules):
+        params = model.init(0, device="meta")
+        caches = model.init_cache(SERVE_BATCH, max_len, device="meta")
+    prefill = sv.make_prefill_step(model, rules, max_len=max_len)
+    decode = sv.make_decode_step(model, rules, max_len=max_len)
+    toks = torch_empty_tokens(SERVE_BATCH, prompt)
+    one = torch_empty_tokens(SERVE_BATCH, 1)
+
+    def run():
+        prefill(params, toks, caches)
+        decode(params, one, caches, prompt)
+
+    return collect(run)
+
+
+def torch_empty_tokens(b: int, s: int):
+    import torch
+
+    return torch.empty((b, s), dtype=torch.int32, device="meta")
+
+
+def sp_train(torch, mesh, clock):
+    """Phase 13's training half on this rank: 3 sequence-parallel masked
+    steps against the world of one (phase 12's reference, whose slices
+    are the same: sequence parallel splits no parameter), the first
+    step's collectives against the meta view, then the steps again with a
+    planted fault."""
+    from repro_torch.analysis.collectives import collect, inventory
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import flatten
+
+    import torch.distributed as dist
+
+    dev = mesh.device
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=2)
+    model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+    plan = plan_matcha(named_graph("paper8", NODES, seed=3), 0.5, seed=0)
+    schedule = plan.schedule(TP_STEPS, seed=0)
+    data = DecentralizedBatches(cfg, NODES, BATCH, SEQ, seed=0, device=dev)
+    batches = [next(data) for _ in range(TP_STEPS)]
+    bits = [torch.as_tensor(schedule.activations[k].astype("float32"), device=dev)
+            for k in range(TP_STEPS)]
+    spec = dt.make_spec(mesh, NODES, cfg=cfg, sequence_parallel=True)
+    ref = None
+    for r in range(mesh.size):          # one rank at a time: the card holds one world of one
+        if mesh.rank == r:
+            t0 = time.perf_counter()
+            ref = tp_reference_train(torch, model, opt, plan, batches, bits, spec)
+            ref["s"] = time.perf_counter() - t0
+        dist.barrier()
+
+    def fresh():
+        with use_rules(spec.rules):
+            return (dt.init_stacked_params(model, NODES, seed=0, device=dev),
+                    dt.init_stacked_opt_state(opt, model, NODES, device=dev))
+
+    params, opt_state = fresh()
+    step = dt.make_train_step(model, opt, plan, spec=spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gossip_axpy.launches = 0
+    losses, step_ms, coll_ms = [], [], []
+    records = None
+    for k in range(TP_STEPS):
+        c0 = clock.ms
+        t0 = time.perf_counter()
+        if k == 0:
+            out = {}
+
+            def first():
+                out["r"] = step(params, opt_state, batches[k], bits[k])
+
+            # autograd's backward runs on its own thread on the card: the
+            # c10d dispatch count is taken by the CPU tests
+            records = collect(first)
+            params, opt_state, loss, _ = out.pop("r")
+        else:
+            params, opt_state, loss, _ = step(params, opt_state, batches[k], bits[k])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(clock.ms - c0)
+        losses.append(loss)
+    launches = gossip_axpy.launches // TP_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu()
+    with use_rules(spec.rules):
+        init = flatten(model.init(0, device=dev))
+    params_err, params_rel = tp_param_errors(torch, params, ref["params"], init)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    meta = meta_view_records(cfg, mesh.model_rank, train=True, batches=batches, bits=bits,
+                             plan=plan)
+    inv_real, inv_meta = inventory(records), inventory(meta)
+    params, opt_state = fresh()
+    fault_losses = []
+    with sp_without_reduce_scatter():
+        for k in range(TP_STEPS):
+            params, opt_state, loss, _ = step(params, opt_state, batches[k], bits[k])
+            fault_losses.append(loss)
+    fault_abs, fault_rel = tp_param_errors(torch, params, ref["params"], init)
+    fault_loss = float((torch.stack(fault_losses).cpu() - ref["losses"]).abs().max())
+    del params, opt_state, init, ref["params"]
+    torch.cuda.empty_cache()
+    worst = max(params_rel, key=params_rel.get)
+    fault_worst = max(fault_rel, key=fault_rel.get)
+    kinds = {}
+    for (kind, axes, dtype, nbytes), n in inv_real.items():
+        kinds[kind] = kinds.get(kind, 0) + n
+    return dict(cfg=cfg.name, launches=launches, ref_launches=ref["launches"], ref_s=ref["s"],
+                loss_err=float((losses - ref["losses"]).abs().max()),
+                loss=float(losses[-1].mean()), params_err=params_err,
+                params_rel=params_rel[worst], params_worst=worst, fault_loss=fault_loss,
+                fault_abs=fault_abs, fault_rel=fault_rel[fault_worst],
+                fault_worst=fault_worst, peak=peak, step_ms=step_ms, coll_ms=coll_ms,
+                inventory_equal=inv_real == inv_meta, inventory_ops=sum(inv_real.values()),
+                inventory_kinds=kinds,
+                inventory_diff=sorted(str(k) for k in set(inv_real.items())
+                                      ^ set(inv_meta.items()))[:6])
+
+
+def sp_serve(torch, mesh, clock):
+    """Phase 13's serving half on this rank: internlm2-1.8b with the KV
+    caches split over their positions at T 2, fed the world of one's
+    tokens (rank 0 serves that first), the same with a planted fault
+    (``kv_seq_without_o_reduce``) that must exceed the logits limit, its
+    flash launches against the dry run's, and a prefill and decode step's
+    collectives against the meta view."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis.collectives import collect, inventory
+    from repro_torch.dist import serve as sv
+    from repro_torch.dist.sharding import serve_rules, use_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import Model
+
+    configs = {cfg.name: cfg for cfg, _, _, _ in serving_configs()}
+    cfg = configs[TP_SERVED[0]]
+    ref = None
+    if mesh.rank == 0:
+        ref = tp_serve_run(torch, cfg, SP_PROMPT, None, clock)
+    dist.barrier()
+    want = _share(torch, ref, ("logits", "tokens", "margins", "routes"))
+    rules = serve_rules(mesh, cfg, kv_seq_sharded=True)
+    got = tp_serve_run(torch, cfg, SP_PROMPT, rules, clock, feed=want["tokens"].long())
+    agree = serve_agree(got, want, slice(None))
+    with kv_seq_without_o_reduce():
+        bad = tp_serve_run(torch, cfg, SP_PROMPT, rules, clock, feed=want["tokens"].long())
+    fault_logits = serve_agree(bad, want, slice(None))["logits_err"]
+    # the dry run of this rank on the same mesh: its kernel launches
+    vm = dryrun.production_mesh(multi_pod=False, rank=mesh.rank, dims=(1, TP))
+    pre = dryrun.trace(lambda: dryrun.mesh_serve_call(
+        cfg, mesh=vm, multi_pod=False, kv_seq_shard=True, kind="prefill",
+        batch=SERVE_BATCH, seq=SP_PROMPT)[:2])
+    dec = dryrun.trace(lambda: dryrun.mesh_serve_call(
+        cfg, mesh=vm, multi_pod=False, kv_seq_shard=True, kind="decode",
+        batch=SERVE_BATCH, seq=SP_PROMPT)[:2])
+    predicted = ({k: n for k, n in pre.launches.items() if n},
+                 {k: n * (TP_GEN - 1) for k, n in dec.launches.items() if n})
+    # one prefill and one decode step on the card, recorded
+    model = Model(cfg)
+    max_len = SP_PROMPT + TP_GEN
+    with use_rules(rules):
+        params = model.init(0, device=mesh.device)
+        caches = model.init_cache(SERVE_BATCH, max_len, device=mesh.device)
+    prefill = sv.make_prefill_step(model, rules, max_len=max_len)
+    decode = sv.make_decode_step(model, rules, max_len=max_len)
+    toks = torch.zeros((SERVE_BATCH, SP_PROMPT), dtype=torch.int32, device=mesh.device)
+
+    def run():
+        prefill(params, toks, caches)
+        decode(params, toks[:, :1], caches, SP_PROMPT)
+
+    real = collect(run)
+    del params, caches
+    torch.cuda.empty_cache()
+    meta = meta_view_records(cfg, mesh.model_rank, train=False, prompt=SP_PROMPT)
+    return dict(layers=cfg.num_layers, prefill_ms=got["prefill_ms"],
+                decode_ms=got["decode_ms"], prefill_coll=got["prefill_coll"],
+                decode_coll=got["decode_coll"], peak=got["peak"], shapes=got["shapes"],
+                ref_prefill_ms=ref["prefill_ms"] if ref else None,
+                ref_decode_ms=ref["decode_ms"] if ref else None,
+                launches=(got["prefill_launches"], got["decode_launches"]),
+                predicted=predicted, tokens=got["tokens"][0].tolist(),
+                ref_tokens=want["tokens"][0].long().tolist(),
+                inventory_equal=inventory(real) == inventory(meta),
+                inventory_ops=len(real), fault_logits=fault_logits, **agree)
+
+
+def _sp_rank(rank: int, world: int, init_method: str, backend: str, out: str) -> None:
+    """One rank of phase 13's world; writes its results to ``out.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import init_world, make_mesh
+
+    device = init_world("cuda", rank=rank, world_size=world, init_method=init_method,
+                        backend=backend)
+    try:
+        clock = CommClock(torch)
+        mesh = make_mesh(model=TP, device=device)
+        t0 = time.perf_counter()
+        res = {"train": sp_train(torch, mesh, clock)}
+        res["train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["serve"] = sp_serve(torch, mesh, clock)
+        res["serve_s"] = time.perf_counter() - t0
+        res["collectives"] = {"ms": clock.by_entry, "calls": clock.calls,
+                              "bytes": clock.bytes}
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _pod_rank(rank: int, world: int, init_method: str, out: str) -> None:
+    """One rank of the (pod 2, data 1) NCCL world: 3 masked steps of the
+    tiny fp32 model, 8 nodes on paper8, against the single-process step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, SRC)
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import flatten, tree_map
+
+    device = init_world("cuda", rank=rank, world_size=world, init_method=init_method)
+    try:
+        cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), compute_dtype="float32")
+        model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+        plan = plan_matcha(named_graph("paper8", NODES, seed=3), 0.5, seed=0)
+        sched = plan.schedule(3, seed=0)
+        it = DecentralizedBatches(cfg, NODES, 2, 32, seed=0, device=device)
+        batches = [next(it) for _ in range(3)]
+        spec = dt.make_spec(make_mesh(multi_pod=True, device=device), NODES, multi_pod=True)
+        res = {}
+        for name, sp in (("one", None), ("pod", spec)):
+            params = dt.init_stacked_params(model, NODES, device=device)
+            state = dt.init_stacked_opt_state(opt, model, NODES, device=device)
+            if sp is not None:
+                params, state = sp.local(params), sp.local(state)
+            step = dt.make_train_step(model, opt, plan, spec=sp)
+            for k in range(3):
+                params, state, _, _ = step(params, state, batches[k],
+                                           sched.activations[k].astype(np.float32))
+            res[name] = params
+        mine = tree_map(lambda a: a[spec.node_lo:spec.node_hi], res["one"])
+        err = max(float((flatten(res["pod"])[k] - v).abs().max())
+                  for k, v in flatten(mine).items())
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump({"params_err": err}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sp(torch):
+    """Phase 13 (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend, share = tp_world(cards)
+    log(f"sp: {cards} CUDA card(s): a world of {TP} ranks over {backend}"
+        + (" sharing the card (repro_torch.dist.comm moves gloo's all-gather, "
+           "reduce-scatter and send/recv of CUDA tensors through host copies)" if share else ""))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank")
+        spawn(_sp_rank, TP, "cuda", args=(backend, out), share=share)
+        ranks = [json.load(open(f"{out}.{r}")) for r in range(TP)]
+    failures = []
+    gb = lambda b: f"{b / 1e9:.2f} GB"
+    for r, res in enumerate(ranks):
+        t, s = res["train"], res["serve"]
+        log(f"sp: rank {r}: sequence-parallel training {t['cfg']} at 2 layers, {NODES} nodes "
+            f"on paper8, {BATCH} x {SEQ} tokens a node: 3 masked steps "
+            f"{', '.join(f'{x:.1f}' for x in t['step_ms'])} ms (in collectives "
+            f"{', '.join(f'{x:.1f}' for x in t['coll_ms'])} ms); peak {gb(t['peak'])}; "
+            f"gossip_axpy launches a step {t['launches']} (world of one "
+            f"{t['ref_launches']}); against the world of one: loss max diff "
+            f"{t['loss_err']:.3e}, params max diff {t['params_err']:.3e}, params difference "
+            f"over change {t['params_rel']:.3e} at {t['params_worst']} (limits "
+            f"{TP_TRAIN_TOL}); planted fault (the row-parallel outputs skip their "
+            f"reduce-scatter): loss {t['fault_loss']:.3e}, over change {t['fault_rel']:.3e} "
+            f"at {t['fault_worst']}; the first step's inventory ({t['inventory_ops']} ops, "
+            f"{t['inventory_kinds']}) equals the meta view's: {t['inventory_equal']}"
+            + (f" (differs: {t['inventory_diff']})" if not t["inventory_equal"] else ""))
+        log(f"sp: rank {r}: kv-seq-sharded serving internlm2-1.8b ({s['layers']} layers) "
+            f"batch {SERVE_BATCH} prompt {SP_PROMPT} gen {TP_GEN}: prefill "
+            f"{s['prefill_ms']:.1f} ms (collectives {s['prefill_coll']:.1f} ms), decode "
+            f"{s['decode_ms']:.2f} ms/token (collectives {s['decode_coll']:.2f} ms/token), "
+            f"peak {gb(s['peak'])}"
+            + (f"; world of one prefill {s['ref_prefill_ms']:.1f} ms, decode "
+               f"{s['ref_decode_ms']:.2f} ms/token" if s["ref_prefill_ms"] else "")
+            + f"; launches (prefill, decode) {s['launches']}, the dry run's {s['predicted']}; "
+            f"kernel inputs: {s['shapes']}; fed the world of one's tokens: last logits max "
+            f"diff {s['logits_err']:.3e} (limit {TP_LOGIT_TOL}; planted fault, the combine "
+            f"without its outputs' all-reduce: {s['fault_logits']:.3e}); {s['compared']} "
+            f"tokens past "
+            f"the margin agree {s['tokens_ok']}: {s['tokens']} (world of one "
+            f"{s['ref_tokens']}); a prefill and decode step's inventory ({s['inventory_ops']} "
+            f"ops) equals the meta view's: {s['inventory_equal']}")
+        c = res["collectives"]
+        log(f"sp: rank {r}: collectives by entry {c['calls']} in ms "
+            f"{ {k: round(v, 1) for k, v in c['ms'].items()} }, GB "
+            f"{ {k: round(v / 1e9, 3) for k, v in c['bytes'].items()} }; training {res['train_s']:.1f} s, "
+            f"serving {res['serve_s']:.1f} s")
+        if t["launches"] != t["ref_launches"]:
+            failures.append(f"rank {r}: {t['launches']} gossip_axpy launches a step, the world "
+                            f"of one {t['ref_launches']}")
+        if not (t["loss_err"] <= TP_TRAIN_TOL["loss"]
+                and t["params_rel"] <= TP_TRAIN_TOL["params"]):
+            failures.append(f"rank {r}: sequence-parallel training past {TP_TRAIN_TOL}: loss "
+                            f"{t['loss_err']:.3e}, params {t['params_rel']:.3e}")
+        if t["fault_rel"] <= TP_TRAIN_TOL["params"]:
+            failures.append(f"rank {r}: the planted fault passed the params limit "
+                            f"({t['fault_rel']:.3e})")
+        if not (t["inventory_equal"] and s["inventory_equal"]):
+            failures.append(f"rank {r}: a recorded inventory differs from its meta view")
+        if [dict(x) for x in s["launches"]] != [dict(x) for x in s["predicted"]]:
+            failures.append(f"rank {r}: serving launches {s['launches']}, the dry run "
+                            f"predicts {s['predicted']}")
+        if not s["ok"]:
+            failures.append(f"rank {r}: kv-seq serving logits {s['logits_err']:.3e}, tokens "
+                            f"agree {s['tokens_ok']}")
+        if s["fault_logits"] <= TP_LOGIT_TOL:
+            failures.append(f"rank {r}: the planted serving fault passed the logits limit "
+                            f"({s['fault_logits']:.3e})")
+    if cards >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "rank")
+            spawn(_pod_rank, 2, "cuda", args=(out,))
+            errs = [json.load(open(f"{out}.{r}"))["params_err"] for r in range(2)]
+        log(f"sp: (pod 2, data 1) over NCCL, 3 masked steps of the tiny fp32 model against "
+            f"one process: params max diff {max(errs):.3e}")
+        if max(errs) > 0:
+            failures.append(f"pod gossip over NCCL differs from one process ({max(errs):.3e})")
+    else:
+        log(f"sp: {cards} CUDA card: the (pod 2, data 1) gossip over NCCL was not run (it "
+            "needs 2 cards; the CPU tests hold the pod axis over gloo)")
+    log(f"sp: phase {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        fail("sp: " + "; ".join(failures))
 
 
 def check_overlap_apply(torch, bplan, alpha, params, gstate):
@@ -3554,6 +4050,37 @@ def phase_sweep(torch):
         torch.cuda.empty_cache()
     log(f"sweep: {len(cases)} registry cases pass kernel_lint and their tolerances in "
         f"{time.perf_counter() - t0:.1f} s; paths {paths}; max abs err by kernel {worst}")
+    phase_checker()
+
+
+CHECK_ARGV = ["--shard", "2", "--all-layouts", "--faults", "--strict"]
+
+
+def phase_checker():
+    """``python -m repro_torch.analysis.check --shard 2 --all-layouts
+    --faults --strict`` on the card's machine: the one-process steps, the
+    replicated and FSDP mesh lanes with their collective checks, the
+    schedule gates and the arch's kernel cases through ``kernel_lint`` on
+    the card."""
+    import contextlib as ctx
+    import io
+
+    from repro_torch.analysis import check
+
+    t0 = time.perf_counter()
+    report, err = io.StringIO(), io.StringIO()
+    with ctx.redirect_stdout(report), ctx.redirect_stderr(err):
+        rc = check.main(CHECK_ARGV)
+    rep = json.loads(report.getvalue())
+    lanes = [k for k in rep["steps"] if k.startswith(("replicated/", "fsdp/"))]
+    ops = sum(len(rep["steps"][k]["collectives"]) for k in lanes)
+    log(f"check: {' '.join(CHECK_ARGV)}: rc {rc}, {rep['num_violations']} violations, "
+        f"{len(rep['steps'])} steps ({len(lanes)} mesh lanes, {ops} collectives recorded), "
+        f"kernel cases on the card {rep['kernels']['card']}, artifact row "
+        f"{'held' if rep['artifact']['row'] else 'absent'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if rc != 0 or not rep["ok"]:
+        fail("check: " + err.getvalue()[-2000:])
 
 
 def phase_examples(torch):
@@ -3639,8 +4166,11 @@ def main() -> None:
     phase_fsdp(torch)
     torch.cuda.empty_cache()
     phase_tp(torch)
+    torch.cuda.empty_cache()
+    phase_sp(torch)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s "
-        "(436.9 s on an NVIDIA H100 80GB HBM3 at 700 W before phases 8-10)")
+        "(558.5 s on an NVIDIA H100 80GB HBM3 at 700 W before phase 13 and the checker's "
+        "FSDP lanes)")
 
     kernels = [
         dict(name="gossip_axpy", route="cuda",

@@ -25,13 +25,30 @@ executes, nothing is allocated) and checks:
   wrapper's shape, dtype and width checks), and on a machine with the
   card ``kernel_lint`` over each case's launch configuration.
 
+The mesh lanes (JAX's lane loop) run each step as the ranks of a mesh
+that holds one node per data rank (``launch.mesh.virtual_mesh``): every
+rank's view in turn, on meta tensors, in this process, so gossip
+exchanges run as send/recv and not as the one-process gathers. Each lane
+records its collectives (``repro_torch.analysis.collectives``), joins
+the views of the node axes, and holds them to:
+
+* the collective contract of the module that issued each
+  (``checks.check_collective_axes``) and the dtype lint (dist-layer fp32
+  upcasts only at declared ``FP32_UPCAST_SITES``);
+* replicated lanes (``replicated/{masked,static,overlap,none}``): every
+  exchange a matching of the plan, every matching exchanged, each
+  matching's bytes the replica's leaves (overlap: its fp32 buckets), no
+  exchange in the ``none`` step (``unexpected-collective``);
+* FSDP lanes (``fsdp/{layout}/{sequential,overlap,none}`` at
+  ``--shard``): the same matching checks, the bytes against
+  ``bytes_model.fsdp_bytes_row`` (the report's ``analytic_row``), which is
+  held to the committed ``--artifact`` row (``artifact``), the memory
+  ladder on the ``none`` step, and the resident bucket shards against the
+  row's per-device bytes.
+
 ``--skip-steps`` runs the schedule and kernel checks only. The report is
 JSON on stdout (progress on stderr); ``--strict`` exits 1 on any
-violation. ``--shard``, ``--layouts``, ``--all-layouts`` and
-``--artifact`` (the FSDP lanes) exit: the sharded runtime is ported
-(``repro_torch.dist.fsdp``) but its check lanes wait for the last
-item of the multi-GPU port, with the collective checks (ROADMAP queue
-1, item 15).
+violation.
 """
 from __future__ import annotations
 
@@ -40,10 +57,13 @@ import json
 import os
 import sys
 
-from repro_torch.dist.sharding import NEXT_ITEM as ITEM_15
+import numpy as np
 
 STEP_MODES = ("masked", "static", "overlap")
-_UNPORTED = ("shard", "layouts", "all_layouts", "artifact")
+REPLICATED_MODES = ("masked", "static", "overlap", "none")
+FSDP_MODES = ("sequential", "overlap", "none")
+LAYOUTS = ("monolithic", "streamed", "scan_streamed")
+ARTIFACT = os.path.join("benchmarks", "results", "BENCH_comm_time.json")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,8 +80,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--budget", type=float, default=0.5)
     ap.add_argument("--batch-per-node", type=int, default=4)
     ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--shard", type=int, default=1, help="the FSDP lanes' shard factor")
+    ap.add_argument("--layouts", default=",".join(LAYOUTS),
+                    help="comma list from " + ",".join(LAYOUTS))
+    ap.add_argument("--all-layouts", action="store_true",
+                    help="check every FSDP layout (same as the default --layouts)")
     ap.add_argument("--gossip-modes", default="all",
-                    help="'all' or a comma list of " + ",".join(STEP_MODES))
+                    help="'all' or a comma list (one process: " + ",".join(STEP_MODES)
+                    + "; replicated: " + ",".join(REPLICATED_MODES) + "; fsdp: "
+                    + ",".join(FSDP_MODES) + "; masked/sequential alias each other)")
+    ap.add_argument("--artifact", default=ARTIFACT,
+                    help="BENCH_comm_time.json to cross-check (skipped if missing)")
     ap.add_argument("--kernel-sweep", default="arch", choices=("arch", "registry", "none"),
                     help="kernel cases of the selected --arch, of every registry arch, "
                          "or none")
@@ -75,10 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="re-derive this spectral_norm_vs_budget.csv (skipped when empty)")
     ap.add_argument("--strict", action="store_true", help="exit 1 on any violation")
     ap.add_argument("--out", default="", help="also write the JSON report to this path")
-    ap.add_argument("--shard", type=int, default=1, help=f"not ported ({ITEM_15})")
-    ap.add_argument("--layouts", default="", help=f"not ported ({ITEM_15})")
-    ap.add_argument("--all-layouts", action="store_true", help=f"not ported ({ITEM_15})")
-    ap.add_argument("--artifact", default="", help=f"not ported ({ITEM_15})")
     return ap
 
 
@@ -209,13 +234,239 @@ def check_kernel_cases(cases, *, card: bool):
     return out, report
 
 
+# ---------------------------------------------------------------------------
+# Mesh lanes: every rank's view of a step on a virtual mesh
+# ---------------------------------------------------------------------------
+def run_views(make, ranks, *, where: str):
+    """Run ``make(rank)()`` for each rank on the meta device; returns
+    ``(records of each rank, dtype-lint violations, the first rank's
+    CostMode)``. ``make(rank)`` builds the rank's state and returns the
+    call. The first rank runs inside a ``CostMode`` and the dtype lint
+    (every rank runs the same ops on its own rows)."""
+    from repro_torch.analysis.checks import DtypeLint
+    from repro_torch.analysis.collectives import collect
+    from repro_torch.analysis.cost import CostMode
+
+    views, first, lint = {}, None, None
+    for r in ranks:
+        if first is None:
+            with CostMode() as first, DtypeLint(where) as lint:
+                run = make(r)
+                first.mark_resident()
+                views[r] = collect(run)
+        else:
+            views[r] = collect(make(r))
+    return views, list(lint.violations), first
+
+
+def _lane_args(cfg, plan, *, nodes: int, batch: int, seq: int, faulted: bool):
+    import numpy as np
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import input_specs
+
+    data = input_specs(cfg, InputShape("check", seq, nodes * batch, "train"),
+                       num_nodes=nodes)
+    M = plan.num_matchings
+    return data, np.ones((nodes, M) if faulted else (M,), np.float32)
+
+
+def replicated_lane(cfg, plan, *, nodes: int, batch: int, seq: int, mode: str,
+                    faulted: bool, where: str):
+    """One replicated step on a ``(data = nodes)`` mesh: every node's
+    view; returns ``(joined records, violations)``."""
+    from repro_torch.analysis import bytes_model, checks
+    from repro_torch.analysis.collectives import join, ppermute_totals
+    from repro_torch.dist import bucketing
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+
+    model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+    data, bits = _lane_args(cfg, plan, nodes=nodes, batch=batch, seq=seq, faulted=faulted)
+    kw = dict(gossip_mode=mode, faulted=faulted)
+    if mode == "static":
+        kw["active"] = tuple(range(plan.num_matchings))
+
+    def make(rank):
+        spec = dt.make_spec(virtual_mesh(data=nodes, rank=rank), nodes)
+        step = dt.make_train_step(model, opt, plan, spec=spec, **kw)
+        params = dt.init_stacked_params(model, spec.local_nodes, device="meta")
+        state = dt.init_stacked_opt_state(opt, model, spec.local_nodes, device="meta")
+        if mode == "overlap":
+            g = dt.init_gossip_state(plan, step.bplan, device="meta", spec=spec)
+            return lambda: step(params, state, g, data, bits)
+        return lambda: step(params, state, data, bits)
+
+    views, viols, _ = run_views(make, range(nodes), where=where)
+    records = join([views[r] for r in range(nodes)])
+    viols += checks.check_collective_axes(records, where=where)
+    if mode == "none":
+        viols += [checks.Violation("unexpected-collective",
+                                   "ppermute issued in the no-gossip step", where)
+                  for r in records if r.kind == "ppermute"]
+    else:
+        viols += checks.check_ppermutes(records, num_nodes=nodes, node_axes=("data",),
+                                        planned_pairs=plan.ppermute_pairs(),
+                                        expect_all_planned=True,
+                                        where=where)
+        # per-matching traffic: storage-dtype leaves in step (masked /
+        # static), fp32 buckets one step delayed (overlap)
+        if mode == "overlap":
+            want = 4 * bucketing.plan_buckets(model.param_shapes()).total_elements
+        else:
+            want = bytes_model.tree_storage_bytes(model.param_shapes())
+        for total in ppermute_totals(records).values():
+            viols += checks.check_within("replicated per_matching bytes", total, want,
+                                         where=where)
+    return records, viols
+
+
+def fsdp_layout(model, spec, name: str):
+    """The FSDP layout ``name`` (one of ``LAYOUTS``) of ``model``."""
+    from repro_torch.dist import fsdp
+
+    if name == "monolithic":
+        return fsdp.make_layout(model, spec)
+    return fsdp.make_stream_layout(model, spec, scan_aware=name == "scan_streamed")
+
+
+def analytic_row(cfg, *, nodes: int, shard: int, arch: str) -> dict:
+    """``bytes_model.fsdp_bytes_row`` of the three layouts at ``shard``."""
+    from repro_torch.analysis import bytes_model
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import tree_leaves
+
+    model = Model(cfg)
+    spec = dt.make_spec(virtual_mesh(data=nodes, shard=shard), nodes)
+    plans = {name: fsdp_layout(model, spec, name).plan for name in LAYOUTS}
+    raw = 4 * sum(int(np.prod(shape)) for shape, _ in tree_leaves(model.param_shapes()))
+    return bytes_model.fsdp_bytes_row(bplan=plans["monolithic"], gplan=plans["streamed"],
+                                      splan=plans["scan_streamed"], shard=shard,
+                                      arch=arch, raw_param_bytes=raw)
+
+
+def fsdp_lane(cfg, plan, *, nodes: int, shard: int, batch: int, seq: int, layout: str,
+              mode: str, faulted: bool, row: dict, where: str):
+    """One FSDP step on a ``(data = nodes, shard)`` mesh: the views of the
+    shard-0 ranks of every node, joined; returns ``(records,
+    violations, stats)``."""
+    from repro_torch.analysis import checks
+    from repro_torch.analysis.collectives import join
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import fsdp
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+
+    model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+    data, bits = _lane_args(cfg, plan, nodes=nodes, batch=batch, seq=seq, faulted=faulted)
+    shapes = {}
+
+    def make(rank):
+        spec = dt.make_spec(virtual_mesh(data=nodes, shard=shard, rank=rank), nodes)
+        lay = fsdp_layout(model, spec, layout)
+        step = fsdp.make_fsdp_train_step(model, opt, plan, spec, lay, gossip_mode=mode,
+                                         faulted=faulted)
+        shards = fsdp.init_fsdp_params(model, lay, spec, device="meta")
+        state = fsdp.init_fsdp_opt_state(opt, lay, spec, device="meta")
+        shapes[rank] = (lay, [tuple(b.shape) for b in shards])
+        if mode == "overlap":
+            g = fsdp.init_fsdp_gossip_state(lay, spec, device="meta")
+            return lambda: step(shards, state, g, data, bits)
+        return lambda: step(shards, state, data, bits)
+
+    ranks = [r * shard for r in range(nodes)]          # shard rank 0 of every node
+    views, viols, cm = run_views(make, ranks, where=where)
+    records = join([views[r] for r in ranks])
+    lay, bucket_shapes = shapes[0]
+    viols += checks.check_collective_axes(records, where=where)
+    viols += checks.check_bytes_fsdp(records, row, layout_kind=layout,
+                                     gossip=mode != "none", where=where)
+    if mode == "none":
+        viols += checks.check_memory_ladder(cm.max_fp_elements, lay, where=where)
+        viols += [checks.Violation("unexpected-collective",
+                                   "ppermute issued in the no-gossip step", where)
+                  for r in records if r.kind == "ppermute"]
+    else:
+        viols += checks.check_ppermutes(records, num_nodes=nodes, node_axes=("data",),
+                                        planned_pairs=plan.ppermute_pairs(),
+                                        expect_all_planned=True, where=where)
+    # the resident bucket shards: (local nodes, slice) fp32 each
+    got = 4 * sum(shape[-1] for shape in bucket_shapes)
+    viols += checks.check_within("per_device_param_bytes", got,
+                                 row["per_device_param_bytes"], where=where)
+    return records, viols, dict(max_fp_elements=cm.max_fp_elements)
+
+
+def mesh_lanes(cfg, plan, args, layouts, want, report: dict, violations: list) -> None:
+    """The replicated and FSDP lanes into ``report["steps"]`` (with the
+    ``analytic_row`` and the ``artifact`` cross-check)."""
+    from repro_torch.analysis import checks
+
+    def record(label, records, viols, **stats):
+        from repro_torch.analysis.collectives import inventory
+
+        report["steps"][label] = dict(
+            stats, collectives=[r.to_json() for r in records],
+            inventory={" ".join(map(str, k)): n for k, n in inventory(records).items()},
+            violations=[v.to_json() for v in viols])
+        violations.extend(viols)
+        _log(f"  {label}: {len(records)} collectives, {len(viols)} violations")
+
+    B, S, nodes = args.batch_per_node, args.seq, args.nodes
+    _log(f"replicated lanes: {nodes} nodes over {nodes} data ranks")
+    variants = [(m, False) for m in REPLICATED_MODES]
+    if args.faults:
+        variants += [(m, True) for m in REPLICATED_MODES if m != "none"]
+    for mode, faulted in variants:
+        if not want(mode):
+            continue
+        label = f"replicated/{mode}" + ("+faults" if faulted else "")
+        records, viols = replicated_lane(cfg, plan, nodes=nodes, batch=B, seq=S, mode=mode,
+                                         faulted=faulted, where=label)
+        record(label, records, viols)
+
+    _log(f"fsdp lanes: {nodes} nodes, shard {args.shard}")
+    row = analytic_row(cfg, nodes=nodes, shard=args.shard, arch=args.arch)
+    report["analytic_row"] = row
+    if args.preset == "tiny" and args.artifact and os.path.exists(args.artifact):
+        with open(args.artifact) as f:
+            rows = json.load(f).get("fsdp", [])
+        match = [r for r in rows if r["arch"] == args.arch and r["shard"] == args.shard]
+        if match:
+            report["artifact"]["row"] = match[0]
+            av = checks.cross_check_artifact(row, match[0], where="artifact")
+            report["artifact"]["violations"] = [v.to_json() for v in av]
+            violations.extend(av)
+            _log(f"  artifact row ({args.arch}, shard={args.shard}): {len(av)} violations")
+        else:
+            _log(f"  artifact has no ({args.arch}, shard={args.shard}) row: skipped")
+    for lname in layouts:
+        variants = [(m, False) for m in FSDP_MODES]
+        if args.faults:
+            variants += [(m, True) for m in FSDP_MODES if m != "none"]
+        for mode, faulted in variants:
+            if not want(mode):
+                continue
+            label = f"fsdp/{lname}/{mode}" + ("+faults" if faulted else "")
+            records, viols, stats = fsdp_lane(cfg, plan, nodes=nodes, shard=args.shard,
+                                              batch=B, seq=S, layout=lname, mode=mode,
+                                              faulted=faulted, row=row, where=label)
+            record(label, records, viols, **stats)
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest in _UNPORTED:
-        if getattr(args, dest) != ap.get_default(dest):
-            raise SystemExit(f"--{dest.replace('_', '-')} is not ported to repro_torch yet "
-                             f"({ITEM_15})")
+    layouts = LAYOUTS if args.all_layouts else tuple(
+        x for x in args.layouts.split(",") if x)
+    for lay in layouts:
+        if lay not in LAYOUTS:
+            ap.error(f"unknown layout {lay!r}; choose from {LAYOUTS}")
     import torch
 
     from repro_torch.analysis import kernel_cases
@@ -226,14 +477,20 @@ def main(argv=None) -> int:
     cfg = get_smoke_config(args.arch) if args.preset == "tiny" else get_config(args.arch)
     plan = plan_matcha(named_graph(args.graph, args.nodes, seed=3), args.budget,
                        budget_steps=200, seed=0)
-    modes = STEP_MODES if args.gossip_modes == "all" else tuple(
-        m for m in args.gossip_modes.split(",") if m)
-    for m in modes:
-        if m not in STEP_MODES:
-            ap.error(f"unknown gossip mode {m!r}; choose from {STEP_MODES}")
+    picked = None if args.gossip_modes == "all" else {
+        "masked" if m == "sequential" else m for m in args.gossip_modes.split(",") if m}
+    for m in picked or ():
+        if m not in REPLICATED_MODES:
+            ap.error(f"unknown gossip mode {m!r}; choose from {REPLICATED_MODES + FSDP_MODES}")
+
+    def want(mode: str) -> bool:
+        return picked is None or ("masked" if mode == "sequential" else mode) in picked
+
+    modes = tuple(m for m in STEP_MODES if want(m))
     report = {"arch": args.arch, "preset": args.preset, "graph": args.graph,
               "nodes": args.nodes, "budget": args.budget,
-              "num_matchings": plan.num_matchings, "steps": {},
+              "num_matchings": plan.num_matchings, "shard": args.shard, "steps": {},
+              "artifact": {"path": args.artifact, "row": None, "violations": []},
               "schedule": {"violations": []}, "kernels": {"cases": {}, "card": False}}
     violations = []
 
@@ -270,6 +527,7 @@ def main(argv=None) -> int:
             violations += v
             _log(f"  {where}: peak {stats['peak_bytes']} bytes (bound "
                  f"{stats['bound_bytes']}), {stats['gathers']} gathers, {len(v)} violations")
+        mesh_lanes(cfg, plan, args, layouts, want, report, violations)
         v, stats = check_serve_steps(cfg, batch=args.batch_per_node, seq=args.seq)
         for where, st in stats.items():
             report["steps"][where] = dict(st, violations=[x.to_json() for x in v

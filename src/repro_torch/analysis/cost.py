@@ -26,7 +26,8 @@ and the mode records:
 * **Kernel launches** by wrapper, and the ops the step checks read
   (``float64_ops``: ops with a float64 tensor on the device, not host
   constants made in float64; ``gathers``: each ``index_select``'s dim
-  and index length).
+  and index length; ``max_fp_elements``: the largest floating output
+  of an op, the memory-ladder check's intermediate).
 
 Only tensors on the traced device (``meta``) count toward memory. The
 mode itself costs nothing on the card: it runs where no card is.
@@ -145,6 +146,7 @@ class CostMode(TorchDispatchMode):
         self.peak = 0
         self.float64_ops: List[str] = []
         self.gathers: List[Tuple[int, int]] = []
+        self.max_fp_elements = 0       # the largest floating op output (elements)
         self._sizes: Dict[int, int] = {}
 
     # -- storages --------------------------------------------------------
@@ -196,6 +198,7 @@ class CostMode(TorchDispatchMode):
         self.matmul_flops = self.bytes_accessed = self.kernel_bytes = 0
         self.float64_ops.clear()
         self.gathers.clear()
+        self.max_fp_elements = 0
 
     # -- kernels ---------------------------------------------------------
     def _kernel(self, kernel: str, flops: int, nbytes: int, dtype: torch.dtype) -> None:
@@ -243,4 +246,6 @@ class CostMode(TorchDispatchMode):
         for t in outs:
             if self._own(t):
                 self._add(t)
+                if t.is_floating_point() and not func.is_view:
+                    self.max_fp_elements = max(self.max_fp_elements, t.numel())
         return out

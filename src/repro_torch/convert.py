@@ -170,7 +170,7 @@ def gather_caches(ranks: list, model, rules) -> list:
     # the whole caches' shapes, at the parts' batch and longest KV cache
     # (no rule splits either)
     leaves = [(k.rsplit(".", 1)[-1], a) for c in ranks[0] for k, a in tree_items(c)]
-    max_len = max([np.shape(a)[2] for k, a in leaves if k == "k"], default=1)
+    max_len = max([np.shape(a)[2] for k, a in leaves if k == "pos"], default=1)
     whole = abstract_caches(model, np.shape(leaves[0][1])[1], max_len)
 
     def join(key, parts, shape):

@@ -4,4 +4,7 @@
                then the fused gossip-axpy update
   decen_train  stacked per-node state + the decentralized SGD train step
   serve        prefill / decode step builders for one serving replica
+  fsdp         sharded replicas on the gossip bucket layout
+  sharding     the logical-axis rules and the node and shard counts
+  comm         every collective of the port, recorded, over a mesh group
 """

@@ -49,6 +49,14 @@ KeyPath = Tuple[str, ...]
 
 DEFAULT_TARGET_BYTES = 4 << 20   # 4 MiB of fp32 per bucket
 
+# Checker declarations (``repro_torch.analysis.checks``): bucketing issues
+# no collective; its ravels widen leaves into the fp32 buckets.
+COLLECTIVE_CONTRACT: dict = {}
+FP32_UPCAST_SITES = (
+    "ravel",
+    "ravel_stacked",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.dist import bucketing
+from repro_torch.dist import bucketing, comm
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.gossip import (
     NodeAxis,
@@ -75,6 +75,14 @@ from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 PyTree = Any
 
+# Checker declaration (``repro_torch.analysis.checks``): sums over the
+# node axes (consensus, logging) and the model axis (clip norms, the
+# checkpoint gather); the node rows all-gathered for checkpoints.
+COLLECTIVE_CONTRACT = {
+    "psum": {"axes_subset_of": ("pod", "data", "model")},
+    "all_gather": {"axes_subset_of": ("pod", "data")},
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class DistSpec:
@@ -88,19 +96,27 @@ class DistSpec:
     num_shards: int = 1
     rules: Any = None                 # tensor-parallel rules (model axis > 1)
     split: Any = None                 # {path: dim} of the leaves the rules split
+    multi_pod: bool = False
 
     @property
     def local_nodes(self) -> int:
         return self.node_hi - self.node_lo
 
     @property
+    def node_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the nodes lie on: ``("pod", "data")`` on a
+        multi-pod mesh, as in the JAX package."""
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+    @property
     def node_axis(self) -> Optional[NodeAxis]:
-        """The gossip's node axis: ``None`` when one data rank holds
-        every node (the single-process exchange)."""
-        if self.mesh.data == 1:
+        """The gossip's node axis: ``None`` when one rank of the node
+        axes holds every node (the single-process exchange)."""
+        if self.mesh.nodes == 1:
             return None
         return NodeAxis(self.num_nodes, self.node_lo, self.node_hi,
-                        tuple(self.mesh.global_rank(d) for d in range(self.mesh.data)))
+                        tuple(self.mesh.global_rank(d) for d in range(self.mesh.nodes)),
+                        self.mesh.nodes_group)
 
     def local(self, tree: PyTree) -> PyTree:
         """This rank's nodes' rows of a node-leading tree or batch."""
@@ -110,25 +126,22 @@ class DistSpec:
 
     def gather_nodes(self, tree: PyTree) -> PyTree:
         """This rank's ``(local nodes, ...)`` rows of every leaf,
-        all-gathered over the data ranks to ``(nodes, ...)``."""
-        if self.mesh.data == 1:
+        all-gathered over the node axes to ``(nodes, ...)``."""
+        if self.mesh.nodes == 1:
             return tree
-        gather = shd.collective("all_gather_single")
 
         def leaf(a):
-            # the ranks' rows concatenated along dim 0, in data-rank order
+            # the ranks' rows concatenated along dim 0, in node-rank order
             out = a.new_empty((self.num_nodes,) + tuple(a.shape[1:]))
-            gather(out, a.contiguous(), group=self.mesh.data_group)
+            comm.all_gather(out, a, self.mesh.nodes_group)
             return out
 
         return tree_map(leaf, tree)
 
     def node_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the data ranks, in place (identity for one)."""
-        if self.mesh.data > 1:
-            import torch.distributed as dist
-
-            dist.all_reduce(t, group=self.mesh.data_group)
+        """``t`` summed over the node axes, in place (identity for one)."""
+        if self.mesh.nodes > 1:
+            comm.all_reduce(t, self.mesh.nodes_group)
         return t
 
     def node_mean(self, per_node: torch.Tensor) -> float:
@@ -142,9 +155,7 @@ class DistSpec:
     def model_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the model ranks, in place (identity for one)."""
         if self.tp > 1:
-            import torch.distributed as dist
-
-            dist.all_reduce(t, group=self.mesh.model_group)
+            comm.all_reduce(t, self.mesh.model_group)
         return t
 
     def weight(self, path: str) -> float:
@@ -161,7 +172,6 @@ class DistSpec:
         is the bits, unchanged."""
         if self.tp == 1:
             return tree
-        import torch.distributed as dist
 
         def leaf(path, a):
             d = self.split.get(path)
@@ -173,7 +183,7 @@ class DistSpec:
             shape[d + 1] = k * self.tp
             buf = bits.new_zeros(shape)
             buf.narrow(d + 1, self.mesh.model_rank * k, k).copy_(bits)
-            dist.all_reduce(buf, group=self.mesh.model_group)
+            comm.all_reduce(buf, self.mesh.model_group)
             return buf.view(a.dtype)
 
         return _param_like(tree, leaf)
@@ -209,13 +219,19 @@ def _param_like(tree: PyTree, fn) -> PyTree:
     return out
 
 
-def make_spec(mesh, num_nodes: int, *, multi_pod: bool = False, cfg=None) -> DistSpec:
+def make_spec(mesh, num_nodes: int, *, multi_pod: bool = False, cfg=None,
+              sequence_parallel: bool = False) -> DistSpec:
     """Resolve ``mesh`` and the node count into a ``DistSpec``:
-    ``sharding.num_nodes`` (the one authority) checks the split. A mesh
-    with a ``model`` axis above 1 needs ``cfg``: the spec then carries
-    ``sharding.train_rules`` and the paths of the leaves they split."""
-    lo, hi = shd.node_range(mesh, shd.num_nodes(mesh, num_nodes, multi_pod=multi_pod))
+    ``sharding.num_nodes`` (the one authority) checks the split and the
+    ``pod`` axis against ``multi_pod``. A mesh with a ``model`` axis
+    above 1 needs ``cfg``: the spec then carries ``sharding.train_rules``
+    (``sequence_parallel``: the residual stream split over the sequence)
+    and the paths of the leaves they split."""
+    shd.num_nodes(mesh, num_nodes, multi_pod=multi_pod)
+    lo, hi = shd.node_range(mesh, num_nodes)
     rules, split = None, {}
+    if sequence_parallel and getattr(mesh, "model", 1) == 1:
+        raise ValueError("sequence_parallel needs a model axis above 1")
     if getattr(mesh, "model", 1) > 1:
         if cfg is None:
             raise ValueError(f"a model axis of {mesh.model} needs the model's config "
@@ -223,7 +239,8 @@ def make_spec(mesh, num_nodes: int, *, multi_pod: bool = False, cfg=None) -> Dis
         from repro_torch.models.module import split_of
         from repro_torch.models.transformer import Model
 
-        rules = shd.train_rules(mesh, cfg)
+        rules = shd.train_rules(mesh, cfg, multi_pod=multi_pod,
+                                sequence_parallel=sequence_parallel)
         model = Model(cfg)
         with shd.no_rules():
             shapes = dict(tree_items(model.param_shapes()))
@@ -231,7 +248,8 @@ def make_spec(mesh, num_nodes: int, *, multi_pod: bool = False, cfg=None) -> Dis
                  for path, axes in tree_items(model.logical_axes())}
         split = {path: d for path, d in split.items() if d is not None}
     return DistSpec(mesh=mesh, num_nodes=int(num_nodes), node_lo=lo, node_hi=hi,
-                    num_shards=shd.num_shards(mesh), rules=rules, split=split)
+                    num_shards=shd.num_shards(mesh), rules=rules, split=split,
+                    multi_pod=multi_pod)
 
 
 def _stack(tree: PyTree, num_nodes: int) -> PyTree:
@@ -268,7 +286,7 @@ def consensus_distance(stacked_params: PyTree, spec: Optional[DistSpec] = None) 
     the sum over nodes are all-reduced over the data ranks; under tensor
     parallel each rank's leaves are its slices, and the sum over the
     leaves is added over the model ranks, a replicated leaf counted once."""
-    spread = spec is not None and spec.mesh.data > 1
+    spread = spec is not None and spec.mesh.nodes > 1
     tp = spec is not None and spec.tp > 1
     acc = None
     for path, leaf in tree_items(stacked_params):

@@ -77,7 +77,20 @@ from repro_torch.dist.decen_train import (
     TrainStep,
 )
 from repro_torch.dist.gossip import mix_matchings_masked
-from repro_torch.dist.sharding import bound, checkpoint, collective, use_rules
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import bound, checkpoint, use_rules
+
+# Checker declarations (``repro_torch.analysis.checks``): the shard axis's
+# gathers and reduce-scatters, and sums over the shard and model axes;
+# the one fp32 widening is the consensus logging reduction.
+COLLECTIVE_CONTRACT = {
+    "all_gather": {"axes": ("shard",)},
+    "psum_scatter": {"axes": ("shard",)},
+    "psum": {"axes_subset_of": ("shard", "model")},
+}
+FP32_UPCAST_SITES = (
+    "consensus_distance_sharded",
+)
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.telemetry.timers import StepTimer
@@ -319,8 +332,7 @@ def gather_shard(shard: torch.Tensor, mesh, *, async_op: bool = False):
     if mesh.shard_group is None:
         return (shard, None) if async_op else shard
     out = shard.new_empty(mesh.shard * shard.numel())
-    work = collective("all_gather_single")(out, shard.contiguous(), group=mesh.shard_group,
-                                            async_op=async_op)
+    work = comm.all_gather(out, shard, mesh.shard_group, async_op=async_op)
     return (out, work) if async_op else out
 
 
@@ -330,16 +342,11 @@ def reduce_scatter_full(full: torch.Tensor, mesh) -> torch.Tensor:
     if mesh.shard_group is None:
         return full
     out = full.new_empty(full.numel() // mesh.shard)
-    collective("reduce_scatter_single")(out, full.contiguous(), group=mesh.shard_group)
-    return out
+    return comm.reduce_scatter(out, full, mesh.shard_group)
 
 
 def _shard_sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    if mesh.shard_group is not None:
-        import torch.distributed as dist
-
-        dist.all_reduce(t, group=mesh.shard_group)
-    return t
+    return comm.all_reduce(t, mesh.shard_group)
 
 
 class _AllGather(torch.autograd.Function):
@@ -364,7 +371,7 @@ def _gather_all(spec: DistSpec, shard: torch.Tensor) -> torch.Tensor:
         full = shard.unsqueeze(1)
     else:
         stacked = shard.new_empty((mesh.shard * shard.shape[0],) + tuple(shard.shape[1:]))
-        collective("all_gather_single")(stacked, shard.contiguous(), group=mesh.shard_group)
+        comm.all_gather(stacked, shard, mesh.shard_group)
         full = stacked.view((mesh.shard,) + tuple(shard.shape)).transpose(0, 1)
     return spec.gather_nodes(full.contiguous())
 

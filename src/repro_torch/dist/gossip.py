@@ -49,10 +49,25 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist import comm
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
 
 PyTree = Any
+
+# Checker declarations (``repro_torch.analysis.checks``): the exchange runs
+# over the run's node axes; the functions that may widen sub-fp32 values
+# to fp32 (the consensus accumulation dtype).
+COLLECTIVE_CONTRACT = {
+    "ppermute": {"axes": "nodes"},       # resolved to the run's node axes
+}
+FP32_UPCAST_SITES = (
+    "leaf",                # mix_dense: fp32-accumulated dense oracle
+    "target",              # mix_matchings / mix_matchings_masked deltas
+    "launch_matchings_masked",
+    "delayed_delta",
+    "delayed_delta_inplace",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +81,7 @@ class NodeAxis:
     lo: int
     hi: int
     peers: Tuple[int, ...]
+    group: Any = None         # the node axes' comm.Group (None: a mesh outside a world)
 
     @property
     def local(self) -> int:
@@ -107,6 +123,13 @@ class Partners:
         self.nodes = nodes
         self.idx = None
         self.plans = [self._plan(perm, device) for perm in perms]
+        # matching j's (src, dst) node pairs of this rank in its record: the
+        # pairs it sends on, and its unmatched nodes' fixed points (i, i),
+        # as the JAX package's ppermute lists them
+        self.pairs = [tuple((i, int(perm[i])) for i in range(nodes.lo, nodes.hi)
+                            if int(perm[i]) == i
+                            or self.nodes.owner(int(perm[i])) != self.nodes.owner(i))
+                      for perm in perms]
 
     def _plan(self, perm, device):
         lo, hi = self.nodes.lo, self.nodes.hi
@@ -119,8 +142,8 @@ class Partners:
             else:
                 remote.setdefault(self.nodes.owner(p), []).append((min(i, p), i - lo))
         as_idx = lambda v: torch.as_tensor(v, dtype=torch.int64, device=device)
-        peers = [(self.nodes.peers[d], as_idx([r for _, r in sorted(pairs)]))
-                 for d, pairs in sorted(remote.items())]
+        peers = [(self.nodes.peers[d], as_idx([r for _, r in sorted(rows)]))
+                 for d, rows in sorted(remote.items())]
         return as_idx(dst), as_idx(src), peers
 
     def __call__(self, x: torch.Tensor, j: int) -> torch.Tensor:
@@ -128,23 +151,19 @@ class Partners:
         fresh tensor."""
         if self.plans is None:
             return x.index_select(0, self.idx[j])
-        import torch.distributed as dist
-
         dst, src, peers = self.plans[j]
         out = torch.empty_like(x)
         if dst.numel():
             out.index_copy_(0, dst, x.index_select(0, src))
-        ops, recvs = [], []
-        for peer, rows in peers:
-            send = x.index_select(0, rows)
-            recv = torch.empty_like(send)
-            ops += [dist.P2POp(dist.isend, send, peer), dist.P2POp(dist.irecv, recv, peer)]
-            recvs.append((rows, recv))
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()         # the current stream waits (the side stream in overlap)
-            for rows, recv in recvs:
-                out.index_copy_(0, rows, recv)
+        # every rank of the node axes exchanges once a matching (no sends
+        # when none of its nodes has a partner elsewhere)
+        if self.nodes.group is None:
+            raise ValueError("an exchange across data ranks needs the node axes' group "
+                             "(a mesh made in a world of ranks)")
+        recvs = comm.exchange([(peer, x.index_select(0, rows)) for peer, rows in peers],
+                              self.nodes.group, self.pairs[j])
+        for (_, rows), recv in zip(peers, recvs):
+            out.index_copy_(0, rows, recv)
         return out
 
 

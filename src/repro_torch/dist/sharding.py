@@ -21,11 +21,15 @@ of 1, the model runs exactly as it does on one device.
 
 The node and shard counts (``num_nodes``, ``num_shards``,
 ``node_range``) are the one authority every layer asks. On the port's
-mesh (``repro_torch.launch.mesh.Mesh``) the nodes are stacked per data
-rank, so the node count is the run's, checked against the mesh: it must
-split evenly over the data ranks. The JAX package's ``pod`` axis and
-``sequence_parallel`` (the ``seq_res`` residual split) belong to the
-dry run's mesh, the last item of ROADMAP queue 1, and raise here.
+mesh (``repro_torch.launch.mesh.Mesh``) the nodes are stacked per rank
+of the node axes ``(pod, data)``, so the node count is the run's,
+checked against the mesh: it must split evenly over those ranks, and a
+``pod`` axis and ``multi_pod`` must come together, as in the JAX
+package. ``sequence_parallel`` maps ``seq_res`` (the residual stream's
+sequence dim) and ``kv_seq_sharded`` maps ``kv_seq`` (the KV cache's
+positions) to the ``model`` axis, as JAX's rules do; the model then runs
+its sequence-parallel and kv-seq-sharded forms
+(``repro_torch.models.tp``).
 """
 from __future__ import annotations
 
@@ -36,9 +40,6 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisVal, ...]
-
-NEXT_ITEM = "ROADMAP queue 1, item 15: the dry run's mesh and the collective checks"
-
 
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
@@ -181,52 +182,50 @@ def param_pspecs(axes_tree, rules: ShardingRules):
 # Node and shard counts
 # ---------------------------------------------------------------------------
 def num_nodes(mesh, nodes: int, *, multi_pod: bool = False) -> int:
-    """``nodes``, checked against ``mesh``: a multi-pod run and a node
-    count that does not split over the data ranks raise."""
-    if multi_pod:
-        raise ValueError(f"multi_pod=True but the port's mesh has no 'pod' axis ({NEXT_ITEM})")
-    if nodes < 1 or nodes % mesh.data:
+    """``nodes``, checked against ``mesh``: ``multi_pod`` without a
+    ``pod`` axis and a ``pod`` axis without ``multi_pod`` raise (the JAX
+    package's checks: a pod-axis mesh run as one pod would gossip within
+    each pod only), and so does a node count that does not split over
+    the ranks of the node axes ``(pod, data)``."""
+    has_pod = "pod" in tuple(mesh.axis_names)
+    if multi_pod and not has_pod:
+        raise ValueError(f"multi_pod=True but mesh axes {tuple(mesh.axis_names)} have no "
+                         "'pod' axis")
+    if has_pod and not multi_pod:
         raise ValueError(
-            f"{nodes} nodes do not split evenly over {mesh.data} data ranks")
+            f"mesh has a 'pod' axis ({tuple(mesh.axis_names)}) but multi_pod=False: this "
+            f"would silently gossip within each of its {_shape(mesh)['pod']} pods - pass "
+            "multi_pod=True or use a pod-less mesh")
+    ranks = _shape(mesh)["data"] * (_shape(mesh)["pod"] if multi_pod else 1)
+    if nodes < 1 or nodes % ranks:
+        raise ValueError(
+            f"{nodes} nodes do not split evenly over {ranks} "
+            + ("(pod, data) ranks" if multi_pod else "data ranks"))
     return int(nodes)
 
 
 def num_shards(mesh) -> int:
     """FSDP shard count of ``mesh``: the size of its ``shard`` axis."""
-    return int(mesh.shard)
+    return int(_shape(mesh).get("shard", 1))
 
 
 def node_range(mesh, nodes: int) -> Tuple[int, int]:
-    """``(lo, hi)``: the consecutive nodes this rank's data rank holds."""
-    per = num_nodes(mesh, nodes) // mesh.data
-    lo = mesh.data_rank * per
+    """``(lo, hi)``: the consecutive nodes this rank's ``(pod, data)``
+    index holds."""
+    per = num_nodes(mesh, nodes, multi_pod=mesh.pod > 1) // mesh.nodes
+    lo = mesh.node_rank * per
     return lo, lo + per
-
-
-def collective(name: str):
-    """``torch.distributed``'s ``all_gather_single`` /
-    ``reduce_scatter_single`` where torch has them (newer releases
-    deprecate the ``all_gather_into_tensor`` / ``reduce_scatter_tensor``
-    spellings), else the older names: the same collectives."""
-    import torch.distributed as dist
-
-    old = {"all_gather_single": "all_gather_into_tensor",
-           "reduce_scatter_single": "reduce_scatter_tensor"}[name]
-    return getattr(dist, name, None) or getattr(dist, old)
 
 
 # ---------------------------------------------------------------------------
 # Config-aware rule construction
 # ---------------------------------------------------------------------------
 def rules_for_config(mesh, cfg, *, batch_axes: AxisVal, nodes: AxisVal = None,
+                     kv_seq_sharded: bool = False,
                      sequence_parallel: bool = False) -> ShardingRules:
     """The logical -> mesh-axis mapping of one config on one mesh (the
     JAX package's, name for name). ``mesh`` needs only ``axis_names``
     and ``shape``."""
-    if sequence_parallel:
-        raise ValueError(f"sequence_parallel (the seq_res split) is not ported ({NEXT_ITEM})")
-    if "pod" in tuple(mesh.axis_names):
-        raise ValueError(f"the 'pod' axis is not ported ({NEXT_ITEM})")
     model_ax = "model" if "model" in tuple(mesh.axis_names) else None
     tp = _shape(mesh)[model_ax] if model_ax else 1
 
@@ -245,11 +244,11 @@ def rules_for_config(mesh, cfg, *, batch_axes: AxisVal, nodes: AxisVal = None,
         # activations
         "batch": batch_axes,
         "seq": None,
-        "seq_res": None,
+        "seq_res": model_ax if sequence_parallel else None,
         "embed": None,
         "heads": "model" if heads_ok else None,
         "kv_heads": "model" if kv_ok else None,
-        "kv_seq": None,
+        "kv_seq": model_ax if kv_seq_sharded else None,
         "vocab": "model" if div(cfg.padded_vocab) else None,
         "ffn": "model" if ffn_ok else None,
         "ssm_heads": "model" if cfg.ssm_state_dim and div(ssm_heads) else None,
@@ -267,13 +266,22 @@ def rules_for_config(mesh, cfg, *, batch_axes: AxisVal, nodes: AxisVal = None,
     return ShardingRules(mesh=mesh, mapping=mapping)
 
 
-def serve_rules(mesh, cfg) -> ShardingRules:
-    """Serving: batch over the data axis, weights tensor-parallel."""
-    return rules_for_config(mesh, cfg, batch_axes="data", nodes=None)
+def serve_rules(mesh, cfg, *, multi_pod: bool = False,
+                kv_seq_sharded: bool = False) -> ShardingRules:
+    """Serving: batch over the data (and pod) axes, weights
+    tensor-parallel; ``kv_seq_sharded``: the KV cache split over its
+    positions on the model axis."""
+    batch_axes: AxisVal = ("pod", "data") if multi_pod else "data"
+    return rules_for_config(mesh, cfg, batch_axes=batch_axes, nodes=None,
+                            kv_seq_sharded=kv_seq_sharded)
 
 
-def train_rules(mesh, cfg, *, sequence_parallel: bool = False) -> ShardingRules:
-    """Decentralized training: the stacked node dim over the data axis;
-    each node's local batch stays unsharded (per-node data)."""
-    return rules_for_config(mesh, cfg, batch_axes=None, nodes="data",
+def train_rules(mesh, cfg, *, multi_pod: bool = False,
+                sequence_parallel: bool = False) -> ShardingRules:
+    """Decentralized training: the stacked node dim over the node axes;
+    each node's local batch stays unsharded (per-node data);
+    ``sequence_parallel``: the residual stream split over its sequence
+    on the model axis."""
+    nodes: AxisVal = ("pod", "data") if multi_pod else "data"
+    return rules_for_config(mesh, cfg, batch_axes=None, nodes=nodes,
                             sequence_parallel=sequence_parallel)

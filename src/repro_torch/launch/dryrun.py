@@ -23,20 +23,39 @@ dry run's shallow-stack extrapolation is not needed. Positions a model
 has no room for (past a learned position table) give a ``refused``
 record; any other refusal, a kernel's among them, fails the run.
 
-The record has every key of the JAX ``analyze`` record (one chip, no
-collectives) plus ``peak_bytes``, ``fits`` (the peak within the card's
-80 GB), ``kernel_launches`` and ``mode: "meta"``. The roofline divides by
-the H100 SXM5 80GB's spec-sheet figures (NVIDIA's data sheet, dense, at
-its 700 W limit), not by measurements.
+The record has every key of the JAX ``analyze`` record plus
+``peak_bytes``, ``fits`` (the peak within the card's 80 GB),
+``kernel_launches`` and ``mode: "meta"``. The roofline divides by the
+H100 SXM5 80GB's spec-sheet figures (NVIDIA's data sheet, dense, at its
+700 W limit), not by measurements.
+
+The production mesh (``--production-mesh``; implied by ``--multi-pod``
+and ``--kv-seq-shard``) is JAX's: ``(data 16, model 16)``, with
+``--multi-pod`` ``(pod 2, data 16, model 16)``. The dry run then runs
+*one rank* of it (rank 0) on a virtual mesh
+(``repro_torch.launch.mesh.virtual_mesh``): its collectives are recorded
+(``repro_torch.analysis.collectives``) and answered in process, on meta
+tensors. Training follows the JAX dry run: one node per ``(pod, data)``
+rank (16 or 32), MATCHA at budget 0.5 on ``geometric-sparse`` (seed 3)
+with the first schedule row's matchings in static gossip, the weights
+tensor-parallel over ``model`` (``run_one(seq_par=True)``: the residual
+stream sequence-parallel too); serving splits the batch over ``(pod,
+data)`` where it divides and, with ``--kv-seq-shard``, the KV caches over
+their positions on ``model``. The record adds JAX's ``mesh`` ("16x16" /
+"2x16x16"), ``kv_seq_shard``, the collectives by kind (count, bytes,
+link bytes) and a ``collective`` roofline term: JAX's ``_link_multiplier``
+convention (an all-reduce moves ``2 (g - 1) / g`` of its bytes over a
+rank's links, an all-gather ``(g - 1) / g`` of its output, a
+reduce-scatter ``(g - 1) / g`` of its input, an exchange its bytes)
+divided by ``NVLINK_BYTES_PER_S``, the data sheet's NVLink figure, not a
+measurement.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2_1_8b \\
       --shape train_4k --layers 2 --batch 4 --seq 128 --gossip-mode overlap
-
-``--multi-pod`` and ``--kv-seq-shard`` exit: the dry run's mesh and
-sharded lowering wait for the last item of the multi-GPU port (ROADMAP
-queue 1, item 15).
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2_1_8b \\
+      --shape decode_32k --multi-pod --kv-seq-shard
 """
 from __future__ import annotations
 
@@ -51,14 +70,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import NEXT_ITEM as ITEM_15
-
 # NVIDIA's data sheet for the H100 SXM5 80GB, dense rates at a 700 W limit:
 # the spec sheet's figures, not measurements of this port.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 HBM_BYTES = 80e9
 CARD = "NVIDIA H100 SXM5 80GB (spec sheet, 700 W)"
+# NVLink 4 on the H100 SXM5: the data sheet's 900 GB/s counts both
+# directions of a GPU's 18 links; what a rank sends leaves at half of it
+NVLINK_BYTES_PER_S = 450e9
+PRODUCTION = (16, 16)      # JAX's production mesh: (data, model), 256 chips a pod
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +178,128 @@ def serve_call(cfg, *, kind: str, batch: int, seq: int, seed: int = 0, device="m
     return state, lambda: decode(params, inputs["tokens"], caches, seq - 1 + prefix)
 
 
+# ---------------------------------------------------------------------------
+# One rank of the production mesh
+# ---------------------------------------------------------------------------
+def production_mesh(*, multi_pod: bool, rank: int = 0, dims=PRODUCTION):
+    """Rank ``rank``'s view of JAX's production mesh, ``(data, model) =
+    dims``, behind two pods with ``multi_pod``."""
+    from repro_torch.launch.mesh import virtual_mesh
+
+    data, model = dims
+    return virtual_mesh(pod=2 if multi_pod else 1, data=data, model=model, rank=rank)
+
+
+def mesh_train_call(cfg, *, mesh, multi_pod: bool, batch: int, seq: int,
+                    seq_par: bool = False, seed: int = 0, device="meta"):
+    """``(state, run, extras)`` of one decentralized step as ``mesh``'s
+    rank: one node per ``(pod, data)`` rank, MATCHA at budget 0.5 on
+    ``geometric-sparse`` (seed 3) with the first schedule row's matchings
+    in static gossip (the JAX dry run's step), ``batch`` x ``seq`` tokens a
+    node, the weights split over ``model`` by ``train_rules``
+    (``seq_par``: the residual stream over the sequence too)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import input_specs
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+
+    model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+    m = mesh.nodes
+    spec = dt.make_spec(mesh, m, multi_pod=multi_pod, cfg=cfg, sequence_parallel=seq_par)
+    plan = plan_matcha(named_graph("geometric-sparse", m, seed=3), 0.5, budget_steps=800)
+    active = plan.schedule(1, seed=0).active_indices(0)
+    step = dt.make_train_step(model, opt, plan, gossip_mode="static", active=active,
+                              spec=spec)
+    with shd.use_rules(spec.rules):
+        params = dt.init_stacked_params(model, spec.local_nodes, seed, device=device)
+        opt_state = dt.init_stacked_opt_state(opt, model, spec.local_nodes, device=device)
+    # the step takes every node's rows and keeps its own: one node's rows,
+    # expanded (views: a rank holds only its node's batch)
+    one = input_specs(cfg, InputShape("dry", seq, batch, "train"), num_nodes=1,
+                      device=device)
+    data = {k: v.expand((m,) + tuple(v.shape[1:])) for k, v in one.items()}
+    bits = np.ones(plan.num_matchings, np.float32)
+    state = dict(params=params, opt_state=opt_state, data=one)
+    extras = {"num_nodes": m, "batch_per_node": batch, "seq": seq, "gossip": "matcha",
+              "graph": "geometric-sparse", "active_matchings": list(map(int, active)),
+              "total_matchings": plan.num_matchings, "alpha": float(plan.alpha),
+              "rho": float(plan.rho), "expected_comm_units": float(plan.expected_comm_units),
+              "sequence_parallel": seq_par,
+              "param_bytes_per_rank": _tree_bytes(params) // spec.local_nodes}
+    return state, lambda: step(params, opt_state, data, bits), extras
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return int(sum(a.numel() * a.element_size() for a in tree_leaves(tree)))
+
+
+def mesh_serve_call(cfg, *, mesh, multi_pod: bool, kv_seq_shard: bool, kind: str,
+                    batch: int, seq: int, seed: int = 0, device="meta"):
+    """``(state, run, extras)`` of one serving step (as ``serve_call``) as
+    ``mesh``'s rank: ``serve_rules`` (``kv_seq_shard``: the caches split
+    over their positions), the batch split over ``(pod, data)`` where it
+    divides (else every rank serves the whole batch, as the JAX dry run
+    replicates it)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import input_specs
+    from repro_torch.dist import serve as sv
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models.transformer import Model
+
+    model = Model(cfg)
+    rules = shd.serve_rules(mesh, cfg, multi_pod=multi_pod, kv_seq_sharded=kv_seq_shard)
+    shardable = batch % mesh.nodes == 0
+    if not shardable:
+        rules = shd.ShardingRules(mesh=rules.mesh, mapping={**rules.mapping, "batch": None})
+    local_b = batch // mesh.nodes if shardable else batch
+    prefix = cfg.encoder_seq if cfg.frontend == "vision" else 0
+    max_len = seq + prefix
+    with shd.use_rules(rules):
+        params = model.init(seed, device=device)
+        caches = model.init_cache(local_b, max_len, device=device)
+    inputs = input_specs(cfg, InputShape("dry", seq, local_b, kind), device=device)
+    state = dict(params=params, caches=caches, inputs=inputs)
+    extras = {"batch_per_rank": local_b, "batch_sharded": shardable, "max_len": max_len,
+              "param_bytes_per_rank": _tree_bytes(params)}
+    if kind == "prefill":
+        prefill = sv.make_prefill_step(model, rules, max_len=max_len)
+        frontend = {k: v for k, v in inputs.items() if k != "tokens"}
+        return state, lambda: prefill(params, inputs["tokens"], caches, **frontend), extras
+    decode = sv.make_decode_step(model, rules, max_len=max_len)
+    return state, lambda: decode(params, inputs["tokens"], caches, seq - 1 + prefix), extras
+
+
+def collective_summary(records, mesh) -> Dict[str, Any]:
+    """The records by kind (``count``, ``result_bytes``, ``link_bytes``)
+    and the rank's link bytes, by JAX's ``_link_multiplier`` convention
+    over each record's group (the size of its axes on ``mesh``)."""
+    shape = dict(mesh.shape)
+    by_kind: Dict[str, Dict[str, float]] = {}
+    total = 0.0
+    for r in records:
+        g = int(np.prod([shape[a] for a in r.axes]))
+        if r.kind == "psum":
+            result, link = r.bytes, r.bytes * 2.0 * (g - 1) / g
+        elif r.kind == "all_gather":
+            result, link = r.bytes, r.bytes * (g - 1) / g
+        elif r.kind == "psum_scatter":
+            result = r.bytes / g
+            link = result * (g - 1)         # the result is the scattered shard
+        else:
+            result = link = float(r.bytes)
+        k = by_kind.setdefault(r.kind, {"count": 0, "result_bytes": 0.0, "link_bytes": 0.0})
+        k["count"] += 1
+        k["result_bytes"] += result
+        k["link_bytes"] += link
+        total += link
+    return {"collectives": by_kind, "collective_link_bytes_per_chip": total}
+
+
 def replica_call(cfg, *, batch: int, seq: int, seed: int = 0, device="meta"):
     """``(state, run)`` of one replica's loss and gradients over one
     node's ``batch`` x ``seq`` tokens (every parameter a leaf that needs a
@@ -224,7 +367,9 @@ def trace(build, *, steps: int = 1, warmup: int = 0):
     state built, after ``warmup`` more runs (a steady training step
     starts from a step's state), counts as resident, and only the last
     ``steps`` runs' ops and launches count. Returns the mode."""
+    from repro_torch.analysis.collectives import _record
     from repro_torch.analysis.cost import CostMode
+    from repro_torch.dist import comm
 
     with CostMode() as cm:
         state, run = build()
@@ -233,27 +378,36 @@ def trace(build, *, steps: int = 1, warmup: int = 0):
         if warmup:
             cm.clear_counts()
         cm.mark_resident()
-        for _ in range(steps):
-            out = run()
+        with comm.recording() as calls:
+            for _ in range(steps):
+                out = run()
         cm.output_bytes = cm.live - cm.argument_bytes
         del out, state, run
+    cm.collectives = [_record(c) for c in calls]
     return cm
 
 
 def analyze(cm, cfg, shape_name: str, kind: str, tokens: int,
-            extras: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The JAX ``analyze`` record of one traced call, for one card."""
+            extras: Optional[Dict[str, Any]] = None, mesh=None) -> Dict[str, Any]:
+    """The JAX ``analyze`` record of one traced call: one card, or with
+    ``mesh`` one rank of it (its collectives and their roofline term;
+    ``useful_flops_ratio`` over every rank's FLOPs, as JAX's)."""
+    n_chips = 1 if mesh is None else mesh.size
     flops = float(sum(v for k, v in cm.flops.items() if k in PEAK_FLOPS))
     t_compute = sum(v / PEAK_FLOPS[k] for k, v in cm.flops.items() if k in PEAK_FLOPS)
     t_memory = cm.bytes_accessed / HBM_BYTES_PER_S
-    terms = {"compute": t_compute, "memory": t_memory, "collective": 0.0}
+    coll = {"collectives": {}, "collective_link_bytes_per_chip": 0.0}
+    if mesh is not None:
+        coll = collective_summary(getattr(cm, "collectives", []), mesh)
+    terms = {"compute": t_compute, "memory": t_memory,
+             "collective": coll["collective_link_bytes_per_chip"] / NVLINK_BYTES_PER_S}
     counts = cfg.param_counts()
     model_flops = (6 if kind == "train" else 2) * counts["active"] * tokens
     peak = int(cm.peak)
     return {
         "arch": cfg.name,
         "shape": shape_name,
-        "n_chips": 1,
+        "n_chips": n_chips,
         "memory": {
             "argument_bytes": int(cm.argument_bytes),
             "output_bytes": int(max(cm.output_bytes, 0)),
@@ -263,14 +417,13 @@ def analyze(cm, cfg, shape_name: str, kind: str, tokens: int,
         "flops_per_chip": flops,
         "flops_by_dtype": {k: float(v) for k, v in cm.flops.items()},
         "bytes_accessed_per_chip": float(cm.bytes_accessed),
-        "collectives": {},
-        "collective_link_bytes_per_chip": 0.0,
+        **coll,
         "roofline_seconds": terms,
         "dominant": max(terms, key=terms.get),
         "model_flops": float(model_flops),
         "params_total": counts["total"],
         "params_active": counts["active"],
-        "useful_flops_ratio": model_flops / max(flops, 1.0),
+        "useful_flops_ratio": model_flops / max(flops * n_chips, 1.0),
         "peak_bytes": peak,
         "fits": peak <= HBM_BYTES,
         "kernel_launches": dict(cm.launches),
@@ -313,20 +466,33 @@ def config_for(arch: str, *, preset: str = "full", layers: int = 0,
     return dataclasses.replace(cfg, **over) if over else cfg
 
 
+def mesh_name(mesh) -> str:
+    """JAX's record name of a mesh: ``16x16``, ``2x16x16``."""
+    dims = ([mesh.pod] if mesh.pod > 1 else []) + [mesh.data, mesh.model]
+    return "x".join(map(str, dims))
+
+
 def run_one(arch: str, shape_name: str, *, nodes: int = 8, layers: int = 0,
             batch: int = 0, seq: int = 0, gossip_mode: str = "masked",
             graph: str = "paper8", bf16_params: bool = False, preset: str = "full",
-            out_dir: str = "") -> Dict[str, Any]:
+            out_dir: str = "", multi_pod: bool = False, kv_seq_shard: bool = False,
+            seq_par: bool = False, production: bool = False) -> Dict[str, Any]:
     """The dry run of one (arch, shape): the record, also written to
     ``out_dir/<arch>_<shape>.json`` when ``out_dir`` is given. ``batch``
     and ``seq`` override the shape's (for training ``batch`` is a node's);
-    ``layers`` cuts the depth."""
+    ``layers`` cuts the depth. ``production`` (implied by ``multi_pod``,
+    ``kv_seq_shard`` and ``seq_par``): rank 0 of the production mesh, two
+    pods with ``multi_pod``; the file is
+    then ``<arch>_<shape>_<mp|sp>[_kvseq][_seqpar].json``."""
     from repro_torch.configs.base import INPUT_SHAPES, long_context_variant
     from repro_torch.models.transformer import PositionRangeError
 
     cfg = config_for(arch, preset=preset, layers=layers, bf16_params=bf16_params)
     shape = INPUT_SHAPES[shape_name]
     t0 = time.perf_counter()
+    if production or multi_pod or kv_seq_shard or seq_par:
+        return _run_mesh(arch, cfg, shape, multi_pod=multi_pod, kv_seq_shard=kv_seq_shard,
+                         seq_par=seq_par, batch=batch, seq=seq, out_dir=out_dir, t0=t0)
     if shape.kind == "train":
         if shape.global_batch % nodes and not batch:
             raise ValueError(f"global batch {shape.global_batch} does not split over "
@@ -365,6 +531,61 @@ def run_one(arch: str, shape_name: str, *, nodes: int = 8, layers: int = 0,
     return rec
 
 
+def _run_mesh(arch, cfg, shape, *, multi_pod, kv_seq_shard, seq_par, batch, seq, out_dir,
+              t0) -> Dict[str, Any]:
+    """``run_one`` on the production mesh (one rank of it)."""
+    from repro_torch.configs.base import long_context_variant
+    from repro_torch.models.transformer import PositionRangeError
+
+    mesh = production_mesh(multi_pod=multi_pod)
+    made: Dict[str, Any] = {}
+    if shape.kind == "train":
+        if shape.global_batch % mesh.nodes and not batch:
+            raise ValueError(f"global batch {shape.global_batch} does not split over "
+                             f"{mesh.nodes} nodes")
+        b = batch or shape.global_batch // mesh.nodes
+        s = seq or shape.seq_len
+        tokens = mesh.nodes * b * s
+
+        def build():
+            state, run, made["extras"] = mesh_train_call(cfg, mesh=mesh, multi_pod=multi_pod,
+                                                         batch=b, seq=s, seq_par=seq_par)
+            return state, run
+    else:
+        note = "native"
+        if shape.name == "long_500k":
+            cfg, note = long_context_variant(cfg)
+        b, s = batch or shape.global_batch, seq or shape.seq_len
+        tokens = b * (s if shape.kind == "prefill" else 1)
+        made["extras"] = {"long_context": note}
+
+        def build():
+            state, run, extras = mesh_serve_call(cfg, mesh=mesh, multi_pod=multi_pod,
+                                                 kv_seq_shard=kv_seq_shard, kind=shape.kind,
+                                                 batch=b, seq=s)
+            made["extras"].update(extras, batch=b, seq=s)
+            return state, run
+    try:
+        cm = trace(build)
+    except PositionRangeError as err:
+        rec = refused(cfg, shape.name, str(err), dict(made.get("extras", {}), seconds=round(
+            time.perf_counter() - t0, 2)))
+        rec["n_chips"] = mesh.size
+    else:
+        extras = dict(made["extras"], layers=cfg.num_layers, param_dtype=str(cfg.param_dtype),
+                      seconds=round(time.perf_counter() - t0, 2))
+        rec = analyze(cm, cfg, shape.name, shape.kind, tokens, extras, mesh=mesh)
+    rec.update(mesh=mesh_name(mesh), kv_seq_shard=kv_seq_shard, rank=mesh.rank)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        tag = f"{arch}_{shape.name}_{'mp' if multi_pod else 'sp'}"
+        tag += "_kvseq" if kv_seq_shard else ""
+        tag += "_seqpar" if seq_par and shape.kind == "train" else ""
+        with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import ARCH_IDS
@@ -383,8 +604,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=0, help="sequence length; 0: the shape's")
     ap.add_argument("--gossip-mode", default="masked", choices=("masked", "static", "overlap"))
     ap.add_argument("--bf16-params", action="store_true", help="bf16 parameters")
-    ap.add_argument("--multi-pod", action="store_true", help=f"not ported ({ITEM_15})")
-    ap.add_argument("--kv-seq-shard", action="store_true", help=f"not ported ({ITEM_15})")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="one rank of JAX's 16 x 16 (data, model) mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="one rank of JAX's 2 x 16 x 16 (pod, data, model) mesh")
+    ap.add_argument("--kv-seq-shard", action="store_true",
+                    help="serving with the KV caches split over their positions on the "
+                         "model axis (on the production mesh)")
     ap.add_argument("--out", default=os.path.join("build", "dryrun"),
                     help="directory for one JSON record per (arch, shape)")
     return ap
@@ -395,9 +621,6 @@ def main(argv=None) -> int:
     from repro_torch.configs.registry import ARCH_IDS
 
     args = build_parser().parse_args(argv)
-    for flag, on in (("--multi-pod", args.multi_pod), ("--kv-seq-shard", args.kv_seq_shard)):
-        if on:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet ({ITEM_15})")
     archs = list(ARCH_IDS) if args.arch == "all" else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
     failures = []
@@ -407,7 +630,9 @@ def main(argv=None) -> int:
                 rec = run_one(a, s, nodes=args.nodes, layers=args.layers, batch=args.batch,
                               seq=args.seq, gossip_mode=args.gossip_mode, graph=args.graph,
                               bf16_params=args.bf16_params, preset=args.preset,
-                              out_dir=args.out)
+                              out_dir=args.out, multi_pod=args.multi_pod,
+                              kv_seq_shard=args.kv_seq_shard,
+                              production=args.production_mesh)
             except Exception as e:  # noqa: BLE001 - report and go on
                 failures.append((a, s))
                 print(f"FAIL {a} {s}: {e!r}", file=sys.stderr)
@@ -419,8 +644,10 @@ def main(argv=None) -> int:
             print(f"OK {a} {s}: resident {m['argument_bytes'] / 1e9:.2f} GB, peak "
                   f"{rec['peak_bytes'] / 1e9:.2f} GB (fits 80 GB: {rec['fits']}), "
                   f"{rec['flops_per_chip']:.3e} flop, compute {r['compute']:.3e} s, "
-                  f"memory {r['memory']:.3e} s, dominant={rec['dominant']}, "
-                  f"launches {rec['kernel_launches']} ({rec['seconds']} s)", flush=True)
+                  f"memory {r['memory']:.3e} s, collective {r['collective']:.3e} s, "
+                  f"dominant={rec['dominant']}, launches {rec['kernel_launches']}"
+                  + (f", mesh {rec['mesh']}" if "mesh" in rec else "")
+                  + f" ({rec['seconds']} s)", flush=True)
     return 1 if failures else 0
 
 

@@ -44,12 +44,16 @@ from typing import Any, Optional
 import torch
 
 AXES = ("data", "shard", "model")
+POD_AXES = ("pod",) + AXES
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``(data, shard, model)`` grid of ranks;
-    ``rank = (d * shard + s) * model + t``."""
+    """A ``([pod,] data, shard, model)`` grid of ranks;
+    ``rank = ((p * data + d) * shard + s) * model + t``. The groups are
+    ``repro_torch.dist.comm.Group`` objects (``None`` in a world of one);
+    ``nodes_group`` spans ``(pod, data)``, the decentralized nodes' axes
+    (the ``data_group`` itself without a pod axis)."""
 
     data: int
     shard: int
@@ -59,27 +63,48 @@ class Mesh:
     shard_group: Any = None
     model: int = 1
     model_group: Any = None
-
-    axis_names = AXES
+    pod: int = 1
+    pod_group: Any = None
+    nodes_group: Any = None
 
     def __post_init__(self):
-        if self.data < 1 or self.shard < 1 or self.model < 1:
-            raise ValueError(f"mesh axes must be >= 1, got data {self.data} shard "
-                             f"{self.shard} model {self.model}")
+        if min(self.pod, self.data, self.shard, self.model) < 1:
+            raise ValueError(f"mesh axes must be >= 1, got pod {self.pod} data {self.data} "
+                             f"shard {self.shard} model {self.model}")
         if not 0 <= self.rank < self.size:
             raise ValueError(f"rank {self.rank} outside a mesh of {self.size} ranks")
 
     @property
+    def axis_names(self) -> tuple:
+        """The JAX mesh's axis names: a ``pod`` axis only on a multi-pod mesh."""
+        return POD_AXES if self.pod > 1 else AXES
+
+    @property
     def shape(self) -> dict:
-        return {"data": self.data, "shard": self.shard, "model": self.model}
+        out = {"data": self.data, "shard": self.shard, "model": self.model}
+        return {"pod": self.pod, **out} if self.pod > 1 else out
 
     @property
     def size(self) -> int:
-        return self.data * self.shard * self.model
+        return self.pod * self.data * self.shard * self.model
+
+    @property
+    def nodes(self) -> int:
+        """The ranks over the node axes ``(pod, data)``."""
+        return self.pod * self.data
+
+    @property
+    def node_rank(self) -> int:
+        """This rank's flattened ``(pod, data)`` index, ``p * data + d``."""
+        return self.rank // (self.shard * self.model)
+
+    @property
+    def pod_rank(self) -> int:
+        return self.node_rank // self.data
 
     @property
     def data_rank(self) -> int:
-        return self.rank // (self.shard * self.model)
+        return self.node_rank % self.data
 
     @property
     def shard_rank(self) -> int:
@@ -89,13 +114,75 @@ class Mesh:
     def model_rank(self) -> int:
         return self.rank % self.model
 
-    def global_rank(self, data_rank: int, shard_rank: Optional[int] = None,
+    def global_rank(self, node_rank: int, shard_rank: Optional[int] = None,
                     model_rank: Optional[int] = None) -> int:
-        """The rank at ``(data_rank, shard_rank, model_rank)`` (this
-        rank's shard and model indices by default)."""
+        """The rank at flattened node index ``node_rank`` (``p * data +
+        d``; the data rank on a mesh without pods) and ``(shard_rank,
+        model_rank)`` (this rank's by default)."""
         s = self.shard_rank if shard_rank is None else shard_rank
         t = self.model_rank if model_rank is None else model_rank
-        return (data_rank * self.shard + s) * self.model + t
+        return (node_rank * self.shard + s) * self.model + t
+
+
+def _axis_groups(pod: int, data: int, shard: int, model: int, rank: int, make):
+    """This rank's group of every axis, ``make(axes, ranks)`` building one
+    group a call; every axis instance is made, in the same order on every
+    rank (``new_group`` is collective)."""
+    at = lambda p, d, s, t: ((p * data + d) * shard + s) * model + t  # noqa: E731
+    me = {}
+    coords = [(p, d, s, t) for p in range(pod) for d in range(data)
+              for s in range(shard) for t in range(model)]
+    mine = coords[rank]
+    axes = {"model": 3, "shard": 2, "data": 1}
+    if pod > 1:
+        axes["pod"] = 0
+    for name, dim in axes.items():
+        seen = set()
+        for c in coords:
+            key = c[:dim] + c[dim + 1:]
+            if key in seen:
+                continue
+            seen.add(key)
+            ranks = tuple(at(*(c[:dim] + (i,) + c[dim + 1:]))
+                          for i in range((pod, data, shard, model)[dim]))
+            g = make((name,), ranks)
+            if mine[:dim] + mine[dim + 1:] == key:
+                me[name] = g
+    if pod > 1:
+        seen = set()
+        for c in coords:
+            key = c[2:]
+            if key in seen:
+                continue
+            seen.add(key)
+            ranks = tuple(at(p, d, *key) for p in range(pod) for d in range(data))
+            g = make(("pod", "data"), ranks)
+            if mine[2:] == key:
+                me["nodes"] = g
+    else:
+        me["nodes"] = me["data"]
+    return me
+
+
+def _mesh_of(pod, data, shard, model, rank, device, make) -> "Mesh":
+    g = _axis_groups(pod, data, shard, model, rank, make)
+    return Mesh(data, shard, rank, torch.device(device), data_group=g["data"],
+                shard_group=g["shard"], model=model, model_group=g["model"], pod=pod,
+                pod_group=g.get("pod"), nodes_group=g["nodes"])
+
+
+def virtual_mesh(*, pod: int = 1, data: int = 1, shard: int = 1, model: int = 1,
+                 rank: int = 0, device="meta") -> Mesh:
+    """Rank ``rank``'s view of a mesh in one process, with no world:
+    every group is virtual (``comm.Group.pg`` None), so its collectives
+    are recorded and answered in process, on meta tensors. The checker's
+    lanes and the dry run run each rank's view of a mesh this way."""
+    from repro_torch.dist.comm import Group
+
+    def make(axes, ranks):
+        return Group(axes, ranks, ranks.index(rank) if rank in ranks else -1)
+
+    return _mesh_of(pod, data, shard, model, rank, device, make)
 
 
 def backend_for(device) -> str:
@@ -152,57 +239,59 @@ def init_world(device, *, rank: Optional[int] = None, world_size: Optional[int] 
     return dev
 
 
-def make_mesh(*, shard: int = 1, model: int = 1, device="cpu") -> Mesh:
+def make_mesh(*, shard: int = 1, model: int = 1, multi_pod: bool = False,
+              device="cuda") -> Mesh:
     """The ``(W / (shard * model), shard, model)`` mesh of the
-    initialized world (a world of one when none is initialized). Every
-    rank must call it, in the same order as every other ``new_group``."""
+    initialized world (a world of one when none is initialized);
+    ``multi_pod``: the JAX production mesh's two pods,
+    ``(2, W / (2 * shard * model), shard, model)``. Every rank must call
+    it, in the same order as every other ``new_group``."""
     import torch.distributed as dist
 
     if shard < 1 or model < 1:
         raise ValueError(f"shard and model factors must be >= 1, got {shard} and {model}")
+    pod = 2 if multi_pod else 1
     if not (dist.is_available() and dist.is_initialized()):
-        if shard * model != 1:
+        if shard * model * pod != 1:
             raise ValueError(
-                f"a shard x model grid of {shard} x {model} needs a world of ranks; no "
-                "process group is initialized (launch under torchrun or init_world)")
+                f"a pod x shard x model grid of {pod} x {shard} x {model} needs a world of "
+                "ranks; no process group is initialized (launch under torchrun or "
+                "init_world)")
         return Mesh(1, 1, 0, torch.device(device))
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % (shard * model):
+    if world % (shard * model * pod):
         raise ValueError(
-            f"a world of {world} ranks does not split into shard groups of {shard} "
-            f"x model groups of {model}")
-    data = world // (shard * model)
+            f"a world of {world} ranks does not split into {pod} pod(s) of shard groups "
+            f"of {shard} x model groups of {model}")
+    data = world // (shard * model * pod)
+    from repro_torch.dist.comm import Group
 
-    def at(d, s, t):
-        return (d * shard + s) * model + t
+    def make(axes, ranks):
+        return Group(axes, ranks, ranks.index(rank) if rank in ranks else -1,
+                     dist.new_group(list(ranks)))
 
-    model_groups = {(d, s): dist.new_group([at(d, s, t) for t in range(model)])
-                    for d in range(data) for s in range(shard)}
-    shard_groups = {(d, t): dist.new_group([at(d, s, t) for s in range(shard)])
-                    for d in range(data) for t in range(model)}
-    data_groups = {(s, t): dist.new_group([at(d, s, t) for d in range(data)])
-                   for s in range(shard) for t in range(model)}
-    me = Mesh(data, shard, rank, torch.device(device), model=model)
-    d, s, t = me.data_rank, me.shard_rank, me.model_rank
-    return dataclasses.replace(me, data_group=data_groups[(s, t)],
-                               shard_group=shard_groups[(d, t)],
-                               model_group=model_groups[(d, s)])
+    return _mesh_of(pod, data, shard, model, rank, device, make)
 
 
-def make_test_mesh(data: int = 1, shard: int = 1, model: int = 1, *, device="cpu") -> Mesh:
+def make_test_mesh(data: int = 1, shard: int = 1, model: int = 1, *, pod: int = 1,
+                   device="cpu") -> Mesh:
     """A mesh for the tests: a world of one in process (no process
-    group), or the mesh of an initialized world of ``data * shard *
-    model`` ranks (the mismatch raises)."""
+    group), or the mesh of an initialized world of ``pod * data * shard
+    * model`` ranks (the mismatch raises); ``pod`` 2 is the JAX test
+    mesh's ``multi_pod=True`` shape."""
     import torch.distributed as dist
 
-    if data * shard * model == 1 and not dist.is_initialized():
+    n = pod * data * shard * model
+    if n == 1 and not dist.is_initialized():
         return Mesh(1, 1, 0, torch.device(device))
+    if pod not in (1, 2):
+        raise ValueError(f"a test mesh has 1 or 2 pods, not {pod}")
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != data * shard * model:
+    if world != n:
         raise ValueError(
-            f"a ({data}, {shard}, {model}) test mesh needs {data * shard * model} ranks, "
+            f"a ({pod}, {data}, {shard}, {model}) test mesh needs {n} ranks, "
             f"the world has {world}")
-    return make_mesh(shard=shard, model=model, device=device)
+    return make_mesh(shard=shard, model=model, multi_pod=pod == 2, device=device)
 
 
 def spawn(fn, nprocs: int, device, args=(), *, share: bool = False) -> None:

@@ -31,6 +31,19 @@ GQA group from them (``q_in`` likewise for the query heads, whose block
 then runs replicated). ``wo`` is row-parallel. A cache holds the rank's
 kv heads; whisper's cross-attention is sharded the same way.
 
+Under ``serve_rules(kv_seq_sharded=True)`` the rules map ``kv_seq``
+first, so a cache splits over its positions and keeps every kv head
+(``kv_seq_split``): each rank holds its contiguous slots of every kv
+head, and the whole ``pos`` row. A step gathers the new keys' kv heads
+(when the projections split them) and each rank writes the slots it
+holds; a prefill from position 0 attends over the new keys as before
+(the flash kernel at the rank's heads); any other step attends every
+query head over each rank's slots and combines the ranks' partial
+softmax as flash-decoding does (``_sdpa_split``): per layer and step a
+rank moves its query heads' gather and three all-reduces of ``(B, Sq,
+H)`` statistics and ``(B, Sq, H, hd)`` fp32 outputs, not its cache
+slice.
+
 Decode uses an explicit-position KV cache: positions are stored next to
 k/v, so full caches and ring-buffer (sliding-window) caches share one
 code path. The port writes caches in place: ``cache_write`` updates the
@@ -41,7 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -52,6 +65,13 @@ from repro_torch.models.layers import apply_dense, apply_rope, declare_dense
 from repro_torch.models.module import ParamBuilder, ones_init, torch_dtype
 
 NEG_INF = -2.0**30  # large-but-finite: keeps masked softmax NaN-free
+
+# Checker declaration (``repro_torch.analysis.checks``): the kv-seq-sharded
+# decode gathers heads and combines its partial softmax over the model axis.
+COLLECTIVE_CONTRACT = {
+    "all_gather": {"axes": ("model",)},
+    "psum": {"axes": ("model",)},
+}
 
 # Sequence length at and above which the query-chunked path is used, as in
 # the JAX model: below it the full (Sq, Sk) score tensor is small enough.
@@ -162,12 +182,16 @@ def _dispatch_sdpa(q, k, v, **kw):
 class CacheSpec:
     length: int        # slots (full seq or sliding window)
     ring: bool         # round-robin writes (window caches)
+    start: Optional[int] = None   # the step's first position (kv-seq-sharded writes)
 
 
 def init_kv_cache(
-    batch: int, spec: CacheSpec, kv_heads: int, head_dim: int, dtype, device
+    batch: int, spec: CacheSpec, kv_heads: int, head_dim: int, dtype, device,
+    slots: Optional[int] = None,
 ) -> dict:
-    shape = (batch, spec.length, kv_heads, head_dim)
+    """Zeroed k / v of ``slots`` slots (``spec.length`` unless split over
+    the model ranks, ``kv_seq_split``) and the whole ``pos`` row."""
+    shape = (batch, spec.length if slots is None else slots, kv_heads, head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -260,6 +284,8 @@ def attention_block(
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # encoder K/V
     prefill_from_zero: bool = False,
     use_rope: bool = True,
+    xm: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self-attention, or cross-attention over ``cross_kv``. Without a
     cache (training) over the block's own keys; with one, the new keys
@@ -271,14 +297,20 @@ def attention_block(
     kernel on the card, when the config has no softcap: a multi-token
     cache step over the keys just written, cross-attention over
     ``cross_kv``, and a cache-less call (the encoder's pass) over its
-    own keys.
+    own keys. ``xm`` is ``x`` as it enters the sharded heads
+    (``to_model(x)`` when not given) and ``reduce`` the row-parallel
+    output's reduction (``reduce_from_model`` when not given): a
+    sequence-parallel sublayer passes its own (``tp.SeqIn``).
 
     Returns ``(y, new_cache)``."""
     dtype = torch_dtype(cfg.compute_dtype)
     hd_ = _heads(cfg)
     hd = cfg.head_dim
     kernel = not cfg.logit_softcap
-    xm = tpl.to_model(x) if hd_.tp is not None else x
+    if hd_.tp is None:
+        xm = x
+    elif xm is None:
+        xm = tpl.to_model(x)
 
     q = _split_heads(_project(p["wq"], x, xm, hd_.q, dtype), hd_.hq, hd)
     if cfg.qk_norm:
@@ -303,7 +335,7 @@ def attention_block(
                                  k_positions=k_pos[None, :].expand(x.shape[0], Sk),
                                  causal=False, window=0,
                                  logit_softcap=cfg.logit_softcap)
-        return _out(p, out, x, hd_, dtype), None
+        return _out(p, out, x, hd_, dtype, reduce), None
 
     k = _split_heads(_project(p["wk"], x, xm, hd_.kv, dtype), hd_.hkv, hd)
     v = _split_heads(_project(p["wv"], x, xm, hd_.kv, dtype), hd_.hkv, hd)
@@ -321,6 +353,20 @@ def attention_block(
             out = _dispatch_sdpa(q, mine(k), mine(v), q_positions=positions,
                                  k_positions=positions, **sdpa_kw)
         new_cache = None
+    elif kv_seq_split(cache_spec.length) is not None:
+        # kv-seq-sharded cache: every kv head of the rank's slots
+        ks = kv_seq_split(cache_spec.length)
+        k_all, v_all = (k, v) if hd_.kv != "heads" else (_gather_heads(k, ks),
+                                                          _gather_heads(v, ks))
+        new_cache = _write_split(cache, k_all, v_all, positions, cache_spec, ks)
+        multi = q.shape[1] > 1
+        if multi and prefill_from_zero and kernel:
+            out = ops.attention(q, mine(k), mine(v), causal=causal, window=window)
+        elif cache_spec.ring and multi:
+            out = _dispatch_sdpa(q, mine(k), mine(v), q_positions=positions,
+                                 k_positions=positions, **sdpa_kw)
+        else:
+            out = _attend_split(q, new_cache, positions, hd_, ks, cfg, sdpa_kw)
     else:
         assert cache_spec is not None
         new_cache = cache_write(cache, k, v, positions, cache_spec)
@@ -338,14 +384,119 @@ def attention_block(
             out = _dispatch_sdpa(q, mine(new_cache["k"]), mine(new_cache["v"]),
                                  q_positions=positions,
                                  k_positions=new_cache["pos"], **sdpa_kw)
-    return _out(p, out, x, hd_, dtype), new_cache
+    return _out(p, out, x, hd_, dtype, reduce), new_cache
 
 
-def _out(p, out: torch.Tensor, x: torch.Tensor, hd_: _Heads, dtype) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# kv-seq-sharded caches (serving under ``serve_rules(kv_seq_sharded=True)``)
+# ---------------------------------------------------------------------------
+def kv_seq_split(length: int) -> Optional[tpl.TP]:
+    """The model axis when the rules map ``kv_seq`` and a cache of
+    ``length`` slots splits over it (the JAX rules drop a mapping that
+    does not divide), else None. Each rank then holds slots ``part(length)``
+    of every kv head; the ``pos`` row stays whole on every rank."""
+    tp = tpl.context()
+    if tp is None or not tp.sharded("kv_seq") or length % tp.size:
+        return None
+    return tp
+
+
+def _gather_heads(t: torch.Tensor, tp: tpl.TP) -> torch.Tensor:
+    """``(B, S, h, hd)`` head slices of every rank joined along dim 2."""
+    from repro_torch.dist import comm
+
+    B, S, h, hd = t.shape
+    buf = t.new_empty((tp.size * B, S, h, hd))
+    comm.all_gather(buf, t.contiguous(), tp.group)
+    return buf.view(tp.size, B, S, h, hd).permute(1, 2, 0, 3, 4).reshape(B, S, tp.size * h, hd)
+
+
+def _write_split(cache: dict, k_new, v_new, positions, spec: CacheSpec, tp: tpl.TP) -> dict:
+    """``cache_write`` on a kv-seq-split cache: every rank writes the
+    ``pos`` row; k / v land only in the slots this rank holds. The slots
+    are planned on the host from ``spec.start`` (the serving step's
+    positions are ``start ..`` in every row)."""
+    B, Sq = positions.shape
+    keep = range(Sq)
+    if spec.ring and Sq > spec.length:
+        keep = range(Sq - spec.length, Sq)
+    lo, hi = tp.part(spec.length)
+    rows, slots = [], []
+    for i in keep:
+        slot = (spec.start + i) % spec.length if spec.ring else spec.start + i
+        if lo <= slot < hi:
+            rows.append(i)
+            slots.append(slot - lo)
+    whole = torch.arange(keep.start, keep.stop, device=positions.device)
+    pslots = ((positions[:, whole] % spec.length) if spec.ring else positions[:, whole]).long()
+    bidx = torch.arange(B, device=positions.device)[:, None]
+    cache["pos"][bidx, pslots] = positions[:, whole].to(torch.int32)
+    if rows:
+        r = torch.as_tensor(rows, device=positions.device)
+        c = torch.as_tensor(slots, device=positions.device)
+        cache["k"][:, c] = k_new[:, r].to(cache["k"].dtype)
+        cache["v"][:, c] = v_new[:, r].to(cache["v"].dtype)
+    return cache
+
+
+def _sdpa_split(q, k, v, *, q_positions, k_positions, causal: bool, window: int,
+                logit_softcap: float, tp: tpl.TP) -> torch.Tensor:
+    """Attention of every query head over keys split across the model
+    ranks (flash-decoding's combine): each rank attends its slots, giving
+    its rows' max m, sum l and unnormalized output o in fp32; the ranks
+    all-reduce the max M, then ``sum_r o_r e^(m_r - M)`` and ``sum_r l_r
+    e^(m_r - M)``, whose quotient is the softmax over every slot."""
+    from repro_torch.dist import comm
+
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    qg = (q.float() / math.sqrt(hd)).reshape(B, Sq, Hkv, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    if logit_softcap:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    kp = k_positions[:, None, None, None, :]
+    qp = q_positions[:, None, None, :, None]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qp)
+    if window:
+        mask = mask & (qp - kp < window)
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    top = comm.all_reduce(m.clone(), tp.group, "max")
+    e = torch.exp(scores - top) * mask
+    l = comm.all_reduce(e.sum(dim=-1), tp.group)
+    o = comm.all_reduce(torch.einsum("bkgqs,bskd->bqkgd", e, v.float()).contiguous(), tp.group)
+    den = l.permute(0, 3, 1, 2)[..., None]                      # (B, Sq, Hkv, g, 1)
+    return (o / den).reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def _attend_split(q, new_cache, positions, hd_: _Heads, tp: tpl.TP, cfg: ModelConfig,
+                  sdpa_kw: dict) -> torch.Tensor:
+    """This rank's query heads attended over a kv-seq-split cache: the
+    query heads gathered (when split), every head attended over the
+    ranks' slots, this rank's heads kept."""
+    if hd_.sharded:
+        q = _gather_heads(q, tp)
+    lo, hi = tp.part(new_cache["pos"].shape[1])
+    out = _sdpa_split(q, new_cache["k"], new_cache["v"], q_positions=positions,
+                      k_positions=new_cache["pos"][:, lo:hi], tp=tp, **sdpa_kw)
+    if hd_.sharded:
+        a, b = tp.part(cfg.num_heads)
+        out = out[:, :, a:b]
+    return out
+
+
+def _out(p, out: torch.Tensor, x: torch.Tensor, hd_: _Heads, dtype,
+         reduce=None) -> torch.Tensor:
     """``wo``: row-parallel over the rank's heads (the partial products
-    reduced), or replicated."""
+    reduced by ``reduce``, ``reduce_from_model`` by default), or
+    replicated."""
     y = apply_dense(p["wo"], out.reshape(*x.shape[:-1], -1), dtype)
-    return tpl.reduce_from_model(y) if hd_.sharded else y
+    if not hd_.sharded:
+        return y
+    return (reduce or tpl.reduce_from_model)(y)
 
 
 def encoder_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):

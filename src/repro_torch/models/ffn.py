@@ -45,7 +45,7 @@ dense block.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,18 +67,25 @@ def declare_ffn(
     declare_dense(b, f"{path}.w2", d_ff, d_model, ("ffn", None))
 
 
-def ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              xm: Optional[torch.Tensor] = None,
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+              ) -> torch.Tensor:
+    """The dense FFN. Split over ``ffn``, ``xm`` is ``x`` as it enters the
+    sharded columns (``to_model(x)`` when not given) and ``reduce`` the
+    row-parallel output's reduction (``reduce_from_model`` when not
+    given): a sequence-parallel sublayer passes its own (``tp.SeqIn``)."""
     dtype = torch_dtype(cfg.compute_dtype)
     act = activation_fn(cfg.ffn_activation)
     tp = tpl.context()
     split = tp is not None and tp.sharded("ffn")
     if split:
-        x = tpl.to_model(x)
+        x = tpl.to_model(x) if xm is None else xm
     h = act(apply_dense(p["w1"], x, dtype))
     if "w3" in p:
         h = h * apply_dense(p["w3"], x, dtype)
     y = apply_dense(p["w2"], h, dtype)
-    return tpl.reduce_from_model(y) if split else y
+    return (reduce or tpl.reduce_from_model)(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +221,8 @@ def _moe_ragged(p, x2d, gates, idx, cfg: ModelConfig, experts=None) -> torch.Ten
 
 
 def moe_block(
-    p: dict, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "ragged"
+    p: dict, x: torch.Tensor, cfg: ModelConfig, *, impl: str = "ragged",
+    xm: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (y, aux losses).
 
@@ -223,7 +231,11 @@ def moe_block(
     over the whole batch at once (see the module docstring).
     ``cfg.moe_token_chunks > 1`` (when it divides S) splits every
     example's tokens into that many chunks and dispatches chunk j of all
-    examples together: a peak-memory knob, at identical numbers."""
+    examples together: a peak-memory knob, at identical numbers.
+    ``xm`` is ``x`` as it enters the sharded experts (``to_model(x)``
+    when not given; ``tp.SeqIn.xm`` under sequence parallel). The combine
+    is reduced per token chunk over the whole sequence, so the output is
+    whole."""
     B, S, D = x.shape
     dtype = torch_dtype(cfg.compute_dtype)
     tp = tpl.context()
@@ -236,7 +248,7 @@ def moe_block(
         """The fp32 combine, summed over the ranks, in the compute dtype."""
         return tpl.reduce_from_model(y).to(dtype) if split else y.to(dtype)
 
-    xe = tpl.to_model(x) if split else x
+    xe = (tpl.to_model(x) if xm is None else xm) if split else x
     if impl == "einsum":
         x2d = x.reshape(B * S, D)
         gates, idx, aux = _router(p, x2d, cfg)
@@ -264,5 +276,5 @@ def moe_block(
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
     if cfg.moe_shared_expert:
-        y = y + ffn_block(p["shared"], x, cfg)
+        y = y + ffn_block(p["shared"], x, cfg, xm=xm)
     return y, aux

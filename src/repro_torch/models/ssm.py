@@ -36,7 +36,7 @@ a rank's Mamba cache holds its heads and its conv columns.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -243,12 +243,18 @@ def mamba_block(
     state: Optional[dict] = None,       # {"ssm": (B,H,N,P), "conv": (B,W-1,Cd)}
     return_state: bool = False,
     from_zero_state: bool = False,
+    xm: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One Mamba2 mixer. ``from_zero_state`` says that ``state`` is the
     zero state of ``init_mamba_state`` (a serving prefill from position
     0): a multi-token step then runs ``ops.ssd``, the chunk-scan kernel
     on the card. Otherwise a multi-token step runs ``ssd_chunked`` and a
-    single token ``ssd_sequential``, as in the JAX block."""
+    single token ``ssd_sequential``, as in the JAX block. Split over its
+    heads, ``xm`` is ``x`` as it enters the sharded projections
+    (``to_model(x)`` when not given) and ``reduce`` the row-parallel
+    output's reduction (``reduce_from_model`` when not given): a
+    sequence-parallel sublayer passes its own (``tp.SeqIn``)."""
     dtype = torch_dtype(cfg.compute_dtype)
     tp = tpl.context()
     split = _split(tp)
@@ -257,7 +263,10 @@ def mamba_block(
     di = dims["d_inner"]
     Bsz, S, _ = x.shape
 
-    xm = tpl.to_model(x) if split else x
+    if not split:
+        xm = x
+    elif xm is None:
+        xm = tpl.to_model(x)
     z = apply_dense(p["in_z"], xm, dtype)                    # (B,S,di)
     xs = apply_dense(p["in_x"], xm, dtype)
     bs = apply_dense(p["in_b"], x, dtype)                    # (B,S,N)
@@ -318,7 +327,7 @@ def mamba_block(
     y = y * stat.to(dtype) * p["norm_scale"].to(dtype)
     out = apply_dense(p["out"], y, dtype)
     if split:
-        out = tpl.reduce_from_model(out)
+        out = (reduce or tpl.reduce_from_model)(out)
     if return_state:
         return out, {"ssm": h_final, "conv": new_conv_state}
     return out, None

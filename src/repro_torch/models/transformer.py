@@ -85,6 +85,7 @@ from repro_torch.models.attention import (
     declare_attention,
     encoder_kv,
     init_kv_cache,
+    kv_seq_split,
 )
 from repro_torch.models import tp as tpl
 from repro_torch.models.ffn import declare_ffn, declare_moe, ffn_block, moe_block
@@ -421,35 +422,52 @@ class Model:
         encoder-decoder model). ``prefill_from_zero``: a multi-token cache
         step from position 0 (the kernels' path)."""
         cfg = self.cfg
-        h = apply_norm(p["norm1"], x, cfg.norm)
+        # sequence parallel (training): x is this rank's slice of the
+        # sequence, and each block runs on its gathered input, given as
+        # the block's input to sharded work (xm) with the reduce-scatter
+        # of its row-parallel output (reduce); an output the block did
+        # not reduce is whole, and sliced here
+        tp = tpl.seq_parallel() if cache is None else None
+
+        def sublayer(norm, block):
+            h = apply_norm(norm if tp is None else tpl.sum_grad(norm), x, cfg.norm)
+            if tp is None:
+                return block(h)
+            seq = tpl.SeqIn(h, tp)
+            out = block(seq.x, xm=seq.xm, reduce=seq.reduce)
+            y = out[0] if isinstance(out, tuple) else out
+            y = y if seq.done else tpl.seq_slice(y)
+            return (y,) + tuple(out[1:]) if isinstance(out, tuple) else y
+
         if seg.kind == "mamba":
-            y, new_cache = mamba_block(
+            y, new_cache = sublayer(p["norm1"], lambda h, **seq: mamba_block(
                 p["mixer"], h, cfg, state=cache, return_state=cache is not None,
-                from_zero_state=prefill_from_zero,
-            )
+                from_zero_state=prefill_from_zero, **seq,
+            ))
         else:
             window = cfg.sliding_window if seg.kind == "local" else 0
-            y, new_cache = attention_block(
+            y, new_cache = sublayer(p["norm1"], lambda h, **seq: attention_block(
                 p["mixer"], h, cfg, positions=positions, causal=True, window=window,
                 cache=cache, cache_spec=cache_spec,
-                prefill_from_zero=prefill_from_zero,
-            )
+                prefill_from_zero=prefill_from_zero, **seq,
+            ))
         x = x + y
         if cross_kv is not None:
-            h = apply_norm(p["norm_cross"], x, cfg.norm)
-            y, _ = attention_block(p["cross"], h, cfg, positions=positions,
-                                   cross_kv=cross_kv, prefill_from_zero=prefill_from_zero)
+            y, _ = sublayer(p["norm_cross"], lambda h, **seq: attention_block(
+                p["cross"], h, cfg, positions=positions, cross_kv=cross_kv,
+                prefill_from_zero=prefill_from_zero, **seq))
             x = x + y
         aux = None
         if _has_ffn(cfg, seg):
-            h = apply_norm(p["norm2"], x, cfg.norm)
             if seg.is_moe:
-                y, aux = moe_block(
+                # the MoE combine is reduced per token chunk: its output is
+                # sliced, not reduce-scattered
+                y, aux = sublayer(p["norm2"], lambda h, xm=None, reduce=None: moe_block(
                     p["ffn"], h, cfg,
-                    impl="einsum" if cfg.moe_num_experts <= 8 else "ragged",
-                )
+                    impl="einsum" if cfg.moe_num_experts <= 8 else "ragged", xm=xm,
+                ))
             else:
-                y = ffn_block(p["ffn"], h, cfg)
+                y = sublayer(p["norm2"], lambda h, **seq: ffn_block(p["ffn"], h, cfg, **seq))
             x = x + y
         return x, new_cache, aux
 
@@ -558,6 +576,7 @@ class Model:
         B, S = x.shape[0], x.shape[1]
         positions = self._positions(B, S, x.device, start_position)
         x = self._add_positions(params, x, positions, start_position, start_position + S)
+        x = self._seq_split(x)
         enc_out = None
         if encoder_frames is not None:
             enc_out = self._encode(params, encoder_frames)
@@ -570,10 +589,33 @@ class Model:
                 params[f"blocks_{s}"], x, seg, positions=positions, cross_kvs=cross_kvs,
             )
             aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
+        x = tpl.seq_gather(x)
         x = apply_norm(params["final_norm"], x, cfg.norm)
         if prefix_len:
             x = x[:, prefix_len:, :]
         return self._unembed(params, x), aux_total
+
+    @staticmethod
+    def _seq_split(x: torch.Tensor) -> torch.Tensor:
+        """The residual stream's slice of this rank under sequence
+        parallel (``tp.seq_parallel``), which needs the sequence to split
+        over the model ranks; ``x`` itself otherwise."""
+        tp = tpl.seq_parallel()
+        if tp is None:
+            return x
+        if x.shape[1] % tp.size:
+            raise ValueError(f"sequence parallel splits the sequence over {tp.size} model "
+                             f"ranks; a sequence of {x.shape[1]} does not split")
+        return tpl.seq_slice(x)
+
+    @staticmethod
+    def _stream_positions(x: torch.Tensor) -> torch.Tensor:
+        """Positions ``0..`` of the whole sequence of a residual stream
+        ``x`` (this rank's slice under sequence parallel)."""
+        tp = tpl.seq_parallel()
+        length = x.shape[1] * (tp.size if tp is not None else 1)
+        pos = torch.arange(length, dtype=torch.int32, device=x.device)
+        return pos[None, :].expand(x.shape[0], length)
 
     def _unembed(self, params, x):
         cfg = self.cfg
@@ -654,7 +696,7 @@ class Model:
         if isinstance(seg, PeriodicSegment):
             def apply_period(x, view):
                 p_slice = view[key]
-                positions = self._positions(x.shape[0], x.shape[1], x.device)
+                positions = self._stream_positions(x)
                 aux_total = _zero_aux(x.device)
                 for j, sub in enumerate(seg.pattern):
                     x, _, aux = self._layer_apply(p_slice[f"pos_{j}"], x, sub,
@@ -665,7 +707,7 @@ class Model:
             return ScanStreamBody(repeats=seg.reps, apply_layer=apply_period)
 
         def apply_layer(x, view):
-            positions = self._positions(x.shape[0], x.shape[1], x.device)
+            positions = self._stream_positions(x)
             x, _, aux = self._layer_apply(view[key], x, seg, positions=positions)
             return x, _add_aux(_zero_aux(x.device), aux)
 
@@ -688,7 +730,7 @@ class Model:
             b = carry["batch"]
             x, prefix_len = self._embed(top, b["tokens"], b.get("prefix_embeddings"))
             positions = self._positions(x.shape[0], x.shape[1], x.device)
-            x = self._add_positions(top, x, positions, 0, x.shape[1])
+            x = self._seq_split(self._add_positions(top, x, positions, 0, x.shape[1]))
             return {**carry, "x": x, "positions": positions, "prefix_len": prefix_len,
                     "aux": _zero_aux(x.device)}
 
@@ -739,7 +781,7 @@ class Model:
             view: Dict[str, Any] = {}
             for sub in groups:
                 view.update(sub)
-            x = apply_norm(view["final_norm"], carry["x"], cfg.norm)
+            x = apply_norm(view["final_norm"], tpl.seq_gather(carry["x"]), cfg.norm)
             if carry["prefix_len"]:
                 x = x[:, carry["prefix_len"]:, :]
             total, metrics = self._combine_loss(self._unembed(view, x), carry["batch"],
@@ -770,10 +812,14 @@ class Model:
             one = init_mamba_state(batch, self.cfg, dtype, device)
         else:
             tp = tpl.context()
-            kv = self.cfg.num_kv_heads
-            if tp is not None and tp.sharded("kv_proj"):
+            kv, slots = self.cfg.num_kv_heads, None
+            if kv_seq_split(spec.length) is not None:
+                # kv_seq wins the model axis over kv_heads: the rank's
+                # slots of every kv head
+                slots = spec.length // tp.size
+            elif tp is not None and tp.sharded("kv_proj"):
                 kv //= tp.size
-            one = init_kv_cache(batch, spec, kv, self.cfg.head_dim, dtype, device)
+            one = init_kv_cache(batch, spec, kv, self.cfg.head_dim, dtype, device, slots)
         return {key: a[None].repeat((count,) + (1,) * a.dim()) for key, a in one.items()}
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda") -> List[dict]:
@@ -821,7 +867,8 @@ class Model:
             )
         positions = self._positions(B, S, x.device, start)
         x = self._add_positions(params, x, positions, start, cfg.max_position or max_len)
-        specs = self.cache_specs(max_len)
+        specs = [None if c is None else dataclasses.replace(c, start=start)
+                 for c in self.cache_specs(max_len)]
         li = 0
         for s, seg in enumerate(self.segments):
             if isinstance(seg, PeriodicSegment):

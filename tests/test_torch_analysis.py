@@ -14,11 +14,13 @@ on hand-made inputs.
   in a fenced block and in the README's indented block of the port's
   own commands;
 * ``check --strict --kernel-sweep none`` passes on the tiny config, and
-  the FSDP flags exit naming ROADMAP item 15;
+  the FSDP lanes' flags (``--shard``, ``--layouts``, ``--all-layouts``,
+  ``--artifact``) select what they name;
 * ``launch_counts`` gives the launches ``chip_smoke.py`` holds the card
   to for each served model.
 """
 import dataclasses
+import json
 import shutil
 from pathlib import Path
 
@@ -176,11 +178,23 @@ def test_check_strict_passes_on_the_tiny_config(capsys):
     assert '"ok": true' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--shard", "2"], ["--all-layouts"],
-                                  ["--layouts", "monolithic"], ["--artifact", "x.json"]])
-def test_check_fsdp_flags_exit_naming_item_15(argv):
-    with pytest.raises(SystemExit, match="item 15"):
-        check.main(argv)
+@pytest.mark.parametrize("argv,lanes,shard,artifact", [
+    (["--shard", "2"], ("monolithic", "streamed", "scan_streamed"), 2, True),
+    (["--all-layouts"], ("monolithic", "streamed", "scan_streamed"), 1, True),
+    (["--layouts", "monolithic"], ("monolithic",), 1, True),
+    (["--artifact", "x.json"], ("monolithic", "streamed", "scan_streamed"), 1, False),
+])
+def test_check_fsdp_flags_select_the_lanes(argv, lanes, shard, artifact, tmp_path):
+    """The FSDP lanes' flags: the shard factor, the layouts and the
+    committed artifact (a missing file skips the cross-check)."""
+    out = tmp_path / "r.json"
+    assert check.main(argv + ["--strict", "--kernel-sweep", "none", "--gossip-modes",
+                              "masked", "--out", str(out)]) == 0
+    rep = json.loads(out.read_text())
+    assert {k.split("/")[1] for k in rep["steps"] if k.startswith("fsdp/")} == set(lanes)
+    assert rep["shard"] == shard and rep["analytic_row"]["shard"] == shard
+    assert (rep["artifact"]["row"] is not None) == artifact
+    assert "replicated/masked" in rep["steps"] and rep["ok"]
 
 
 @pytest.mark.parametrize("arch,layers,prefill,decode", [

@@ -296,3 +296,60 @@ def test_tp_phase_is_listed_wired_and_decides_its_world(smoke):
     assert res["logits_err"] == 0.0 and res["compared"] == 6
     assert not agree(same, moved=[(0, 1), (1, 2), (1, 3)])["ok"]
     assert set(smoke.TP_SERVED) <= {cfg.name for cfg, *_ in smoke.serving_configs()}
+
+
+def test_sp_phase_is_listed_wired_and_its_meta_views_record(smoke):
+    """Phase 13 (sequence parallel, kv-seq serving, the inventory): listed,
+    run after phase 12; phase 9 runs the checker with the FSDP lanes; the
+    planted fault changes a sequence-parallel loss; the one-process meta
+    inventory of a kv-seq-sharded prefill and decode at tiny size."""
+    import ast
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import tp
+
+    assert "13. sp" in smoke.__doc__ and "--all-layouts" in smoke.__doc__
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    calls = lambda fn: [c.func.id for c in ast.walk(fns[fn])  # noqa: E731
+                        if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)]
+    assert calls("main").index("phase_sp") > calls("main").index("phase_tp")
+    assert "phase_checker" in calls("phase_sweep")
+    assert smoke.CHECK_ARGV == ["--shard", "2", "--all-layouts", "--faults", "--strict"]
+    cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), num_layers=1)
+    recs = smoke.meta_view_records(cfg, 1, train=False, prompt=8)
+    assert {r.kind for r in recs} == {"all_gather", "psum"}
+    assert all(r.axes == ("model",) for r in recs)
+    # the fault (one rank's partial sums left unreduced shows only in a
+    # world of ranks) patches the reduce-scatter's forward and restores it
+    orig = tp._SeqReduceScatter.forward
+    with smoke.sp_without_reduce_scatter():
+        assert tp._SeqReduceScatter.forward is not orig
+    assert tp._SeqReduceScatter.forward is orig
+    # the serving fault: flash-decoding's combine issues its max and sum
+    # all-reduces but not the outputs' (the third), and is restored after
+    import types
+
+    import torch
+
+    from repro_torch.dist import comm
+    from repro_torch.models import attention
+
+    seen = []
+    orig_split, orig_reduce = attention._sdpa_split, comm.all_reduce
+    q, k, v = (torch.ones(1, 2, 2, 4), torch.ones(1, 3, 1, 4), torch.ones(1, 3, 1, 4))
+    pos = torch.arange(3)[None]
+    split = lambda: attention._sdpa_split(  # noqa: E731
+        q, k, v, q_positions=pos[:, 1:], k_positions=pos, causal=True, window=0,
+        logit_softcap=0.0, tp=types.SimpleNamespace(group=None))
+    comm.all_reduce = lambda t, group, op="sum": seen.append(op) or t
+    try:
+        split()
+        with smoke.kv_seq_without_o_reduce():
+            assert attention._sdpa_split is not orig_split
+            split()
+    finally:
+        comm.all_reduce = orig_reduce
+    assert attention._sdpa_split is orig_split
+    assert seen == ["max", "sum", "sum", "max", "sum"]

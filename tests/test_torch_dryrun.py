@@ -15,9 +15,12 @@ bytes, kernel launches, FLOPs and the record's keys.
   analytic number of matmul flops, and the total stays within
   ``XLA_FLOP_TOL`` of XLA's ``cost_analysis()`` of the same JAX
   ``value_and_grad`` (XLA counts reductions the mode leaves out);
-* the record has every key of the JAX ``analyze`` record, a kernel's
-  refusal fails the run, and the flags of the multi-GPU port exit naming
-  ROADMAP item 15.
+* the record has every key of the JAX ``analyze`` record, and a kernel's
+  refusal fails the run;
+* ``--multi-pod``, ``--kv-seq-shard`` and ``--production-mesh`` run one
+  rank of JAX's production mesh: the record adds ``mesh``,
+  ``kv_seq_shard``, the rank's collectives and their roofline term, and
+  the rank's parameter bytes are JAX's rules' shard sizes.
 """
 import ast
 import dataclasses
@@ -265,7 +268,65 @@ def test_cli_full_width_train_fits_as_the_card_measured(tmp_path):
     assert rec["fits"]
 
 
-@pytest.mark.parametrize("flag", ["--multi-pod", "--kv-seq-shard"])
-def test_multi_gpu_flags_exit_naming_item_15(flag):
-    with pytest.raises(SystemExit, match="item 15"):
-        dryrun.main(["--arch", "internlm2_1_8b", "--shape", "train_4k", flag])
+def _jax_rank_param_bytes(arch: str, layers: int, rules_of) -> int:
+    """One rank's parameter bytes by JAX's rules: each leaf's size over
+    the mesh axes its spec names (``rules_of(mesh, cfg)``, the duck-typed
+    production mesh)."""
+    import types
+
+    from repro.dist import sharding as jshd
+
+    cfg = dataclasses.replace(jax_config(arch), num_layers=layers)
+    mesh = types.SimpleNamespace(axis_names=("pod", "data", "model"),
+                                 shape={"pod": 2, "data": 16, "model": 16})
+    jm = JaxModel(cfg)
+    specs = jax.tree.leaves(jshd.param_pspecs(jm.logical_axes(), rules_of(mesh, cfg)),
+                            is_leaf=lambda v: isinstance(v, jax.sharding.PartitionSpec))
+    shapes = jax.tree.leaves(jax.eval_shape(jm.init, jax.random.key(0)))
+    total = 0
+    for spec, a in zip(specs, shapes):
+        n = int(np.prod(a.shape)) * a.dtype.itemsize
+        for ax in spec:
+            for name in (ax if isinstance(ax, tuple) else (ax,)):
+                n //= mesh.shape.get(name, 1) if name else 1
+        total += n
+    return total
+
+
+@pytest.mark.parametrize("flags,shape,mesh", [
+    (["--multi-pod"], "train_4k", "2x16x16"),
+    (["--kv-seq-shard"], "decode_32k", "16x16"),
+    (["--multi-pod", "--kv-seq-shard"], "decode_32k", "2x16x16"),
+    (["--production-mesh"], "prefill_32k", "16x16"),
+])
+def test_mesh_flags_run_one_rank_of_the_production_mesh(flags, shape, mesh, tmp_path):
+    """One rank of JAX's production mesh: the record carries every key of
+    JAX's ``analyze`` record, ``mesh`` and ``kv_seq_shard``; its
+    collectives and their roofline term are the rank's; its parameter
+    bytes are JAX's rules' shard sizes."""
+    from repro.dist import sharding as jshd
+
+    extra = ["--seq", "2048"] if shape != "train_4k" else ["--seq", "256", "--batch", "2"]
+    assert dryrun.main(["--arch", "internlm2_1_8b", "--shape", shape, "--layers", "2",
+                        "--out", str(tmp_path)] + flags + extra) == 0
+    (path,) = list(tmp_path.glob("*.json"))
+    rec = json.loads(path.read_text())
+    top, mem = _jax_analyze_keys()
+    assert top <= set(rec) and mem - {"code_bytes"} <= set(rec["memory"])
+    kv = "--kv-seq-shard" in flags
+    pods = 2 if "--multi-pod" in flags else 1
+    assert rec["mesh"] == mesh and rec["kv_seq_shard"] == kv and rec["n_chips"] == pods * 256
+    assert path.name == f"internlm2_1_8b_{shape}_{'mp' if pods == 2 else 'sp'}" + (
+        "_kvseq" if kv else "") + ".json"
+    kinds = rec["collectives"]
+    assert kinds and all(v["count"] > 0 and v["link_bytes"] > 0 for v in kinds.values())
+    assert rec["roofline_seconds"]["collective"] == pytest.approx(
+        rec["collective_link_bytes_per_chip"] / dryrun.NVLINK_BYTES_PER_S)
+    if shape == "train_4k":
+        assert "ppermute" in kinds and rec["num_nodes"] == 32
+        rules_of = lambda m, c: jshd.train_rules(m, c, multi_pod=True)  # noqa: E731
+    else:
+        assert "ppermute" not in kinds
+        rules_of = lambda m, c: jshd.serve_rules(m, c, multi_pod=pods == 2,  # noqa: E731
+                                                 kv_seq_sharded=kv)
+    assert rec["param_bytes_per_rank"] == _jax_rank_param_bytes("internlm2_1_8b", 2, rules_of)

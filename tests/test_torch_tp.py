@@ -133,14 +133,16 @@ def test_split_dims_and_cache_specs_follow_the_jax_rules(arch):
             assert got[path] == spec + (None,) * (len(got[path]) - len(spec)), (T, path)
 
 
-def test_sequence_parallel_and_the_pod_axis_name_the_next_item():
-    cfg = get_config("internlm2_1_8b")
-    with pytest.raises(ValueError, match="item 15"):
-        shd.train_rules(_duck_mesh(2), cfg, sequence_parallel=True)
+def test_sequence_parallel_and_the_pod_axis_map_as_jax():
+    cfg, jcfg = get_config("internlm2_1_8b"), jax_config("internlm2_1_8b")
+    got = shd.train_rules(_duck_mesh(2), cfg, sequence_parallel=True).mapping
+    assert got == jshd.train_rules(_duck_mesh(2), jcfg, sequence_parallel=True).mapping
+    assert got["seq_res"] == "model" and got["kv_seq"] is None
     pod = types.SimpleNamespace(axis_names=("pod", "data", "model"),
                                 shape={"pod": 2, "data": 1, "model": 2})
-    with pytest.raises(ValueError, match="'pod' axis"):
-        shd.serve_rules(pod, cfg)
+    got = shd.serve_rules(pod, cfg, multi_pod=True, kv_seq_sharded=True).mapping
+    assert got == jshd.serve_rules(pod, jcfg, multi_pod=True, kv_seq_sharded=True).mapping
+    assert got["batch"] == ("pod", "data") and got["kv_seq"] == "model"
 
 
 @pytest.mark.parametrize("routed", ["spread", "elsewhere"])

@@ -40,6 +40,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NODES, BATCH, SEQ, STEPS = 4, 4, 32, 3
@@ -459,10 +460,244 @@ def case_s2m2(spec, setup, data):
             "consensus": abs(cons - ref_c), "buckets": layout.plan.num_buckets}
 
 
+# ---------------------------------------------------------------------------
+# The pod axis, sequence parallel, kv-seq-sharded serving, the inventory
+# ---------------------------------------------------------------------------
+POD_NODES = 8
+SP_CASES = ("internlm2", "dbrx4", "mamba2", "jamba4")
+KV_CASES = ("internlm2", "gemma3_4", "jamba4")
+KV_DECODES = 3
+
+
+def _inventory_matches(real, meta) -> dict:
+    """One rank's real records against its meta view's, op for op (kind,
+    axes, dtype, bytes, count) and exchange for exchange (the pairs)."""
+    from repro_torch.analysis.collectives import inventory
+
+    pairs = lambda rs: [r.perm for r in rs if r.kind == "ppermute"]  # noqa: E731
+    return {"equal": inventory(real) == inventory(meta) and pairs(real) == pairs(meta),
+            "count": len(real), "kinds": sorted({r.kind for r in real})}
+
+
+def _step_views(model, opt, plan, spec_of, batches, bits, mode, rank, real_spec,
+                active=()):
+    """One replicated step of ``mode`` as this rank: its records on the
+    real world and on its meta view of the same mesh (``spec_of(mesh)``)."""
+    from repro_torch.analysis.collectives import collect
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.launch.mesh import virtual_mesh
+
+    out = {}
+    for where, spec, dev in (("real", real_spec, "cpu"),
+                             ("meta", spec_of(virtual_mesh(
+                                 pod=real_spec.mesh.pod, data=real_spec.mesh.data,
+                                 shard=real_spec.mesh.shard, model=real_spec.mesh.model,
+                                 rank=rank)), "meta")):
+        params = dt.init_stacked_params(model, spec.local_nodes, device=dev)
+        state = dt.init_stacked_opt_state(opt, model, spec.local_nodes, device=dev)
+        step = dt.make_train_step(model, opt, plan, gossip_mode=mode, active=active,
+                                  spec=spec)
+        b = {k: v.to(dev) for k, v in batches[0].items()}
+        args = (params, state, b, bits[0])
+        if mode == "overlap":
+            args = (params, state, dt.init_gossip_state(plan, step.bplan, device=dev,
+                                                        spec=spec), b, bits[0])
+        out[where] = collect(step, *args, c10d=where == "real")
+    return out["real"], out["meta"]
+
+
+def case_pod4(spec, setup, data):
+    """(pod 2, data 2): 8 nodes, 2 a rank, masked / static / overlap for 3
+    steps against the single-process step, and each step's collectives
+    against the rank's meta view; then (data 2, shard 2): the FSDP step in
+    its three layouts, the collectives against the meta view."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.collectives import collect
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import named_graph, plan_matcha
+    from repro_torch.data.pipeline import DecentralizedBatches
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import fsdp
+    from repro_torch.launch.mesh import make_mesh, virtual_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), compute_dtype="float32")
+    model, opt = Model(cfg), sgd(0.05, momentum=0.9)
+    plan = plan_matcha(named_graph("paper8", POD_NODES, seed=3), 0.5, seed=0)
+    sched = plan.schedule(STEPS, seed=0)
+    it = DecentralizedBatches(cfg, POD_NODES, 2, 16, seed=0, device="cpu")
+    batches = [next(it) for _ in range(STEPS)]
+    bits = [sched.activations[k].astype(np.float32) for k in range(STEPS)]
+    mesh = spec.mesh
+    pspec = dt.make_spec(mesh, POD_NODES, multi_pod=True)
+    rank = mesh.rank
+    out = {"node_axes": list(pspec.node_axes), "nodes": [pspec.node_lo, pspec.node_hi],
+           "pod_rank": mesh.pod_rank, "data_rank": mesh.data_rank}
+    for mode in ("masked", "static", "overlap"):
+        active = tuple(sched.active_indices(0)) if mode == "static" else ()
+
+        def run(spec_):
+            params = dt.init_stacked_params(model, POD_NODES, device="cpu")
+            state = dt.init_stacked_opt_state(opt, model, POD_NODES, device="cpu")
+            if spec_ is not None:
+                params, state = spec_.local(params), spec_.local(state)
+            step = dt.make_train_step(model, opt, plan, gossip_mode=mode, active=active,
+                                      spec=spec_)
+            g = dt.init_gossip_state(plan, step.bplan, device="cpu", spec=spec_) \
+                if mode == "overlap" else None
+            params, state, g, losses = _run(step, params, state, batches, bits, g)
+            if g is not None:
+                params = dt.make_gossip_flush(plan, step.bplan)(params, g)
+            return params, torch.stack(losses)
+
+        ref_p, ref_l = run(None)
+        p, losses = run(pspec)
+        mine = tree_map(lambda a: a[pspec.node_lo:pspec.node_hi], ref_p)
+        real, meta = _step_views(model, opt, plan,
+                                 lambda m: dt.make_spec(m, POD_NODES, multi_pod=True),
+                                 batches, bits, mode, rank, pspec, active)
+        out[mode] = {"params": _max_err(p, mine),
+                     "loss": float((losses - ref_l[:, pspec.node_lo:pspec.node_hi])
+                                   .abs().max()),
+                     "inventory": _inventory_matches(real, meta),
+                     "axes": sorted({tuple(r.axes) for r in real if r.kind == "ppermute"})}
+    # FSDP on (data 2, shard 2): 4 nodes, 2 a data rank
+    fmesh = make_mesh(shard=2, device="cpu")
+    fspec = dt.make_spec(fmesh, NODES)
+    plan4 = _plan()
+    it4 = DecentralizedBatches(cfg, NODES, BATCH, SEQ, seed=0, device="cpu")
+    b4 = next(it4)
+    row = plan4.schedule(1, seed=0).activations[0].astype(np.float32)
+    for lname, make in (("monolithic", lambda sp: fsdp.make_layout(model, sp)),
+                        ("streamed", lambda sp: fsdp.make_stream_layout(model, sp,
+                                                                        scan_aware=False)),
+                        ("scan_streamed", lambda sp: fsdp.make_stream_layout(model, sp))):
+        recs = {}
+        for where, sp, dev in (("real", fspec, "cpu"),
+                               ("meta", dt.make_spec(virtual_mesh(data=2, shard=2, rank=rank),
+                                                     NODES), "meta")):
+            lay = make(sp)
+            shards = fsdp.init_fsdp_params(model, lay, sp, device=dev)
+            st = fsdp.init_fsdp_opt_state(opt, lay, sp, device=dev)
+            step = fsdp.make_fsdp_train_step(model, opt, plan4, sp, lay,
+                                             gossip_mode="sequential")
+            recs[where] = collect(step, shards, st, {k: v.to(dev) for k, v in b4.items()},
+                                  row, c10d=where == "real")
+        out[f"fsdp_{lname}"] = _inventory_matches(recs["real"], recs["meta"])
+    return out
+
+
+def _sp_serve(model, rules, rank, params_np, toks, prompt):
+    """A prefill of ``prompt`` tokens and ``KV_DECODES`` decode steps on
+    this rank's slices under ``rules``: the logits and this rank's caches
+    after each."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.dist import serve as sv
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.tree import tree_map
+
+    p = params_from_numpy(shard_params(params_np, model, rules, rank), "cpu")
+    with use_rules(rules):
+        caches = model.init_cache(toks.shape[0], TP_MAX_LEN, device="cpu")
+    prefill = sv.make_prefill_step(model, rules, max_len=TP_MAX_LEN)
+    decode = sv.make_decode_step(model, rules, max_len=TP_MAX_LEN)
+    logits, snaps = [], []
+    lp, caches = prefill(p, toks[:, :prompt], caches)
+    logits.append(lp)
+    snaps.append(tree_map(lambda a: a.clone(), {str(i): c for i, c in enumerate(caches)}))
+    for i in range(KV_DECODES):
+        ld, caches = decode(p, toks[:, prompt + i:prompt + i + 1], caches, prompt + i)
+        logits.append(ld)
+    snaps.append(tree_map(lambda a: a.clone(), {str(i): c for i, c in enumerate(caches)}))
+    return torch.cat(logits, 1), [[s[str(i)] for i in range(len(caches))] for s in snaps]
+
+
+def case_sp2(spec, setup, data):
+    """T 2: per SP case the sequence-parallel loss and gradient slices
+    (written) and 3 masked steps against one process; per KV case a
+    kv-seq-sharded prefill and decode steps (written); the collectives of
+    an SP loss and gradient and of a kv-seq decode step against the rank's
+    meta view."""
+    import torch
+
+    from repro_torch.analysis.collectives import collect
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.dist import decen_train as dt
+    from repro_torch.dist import serve as sv
+    from repro_torch.dist.sharding import serve_rules, train_rules, use_rules
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.tree import flatten, tree_map
+
+    mesh, rank = spec.mesh, spec.mesh.model_rank
+    out = {"steps": {}}
+    for case in SP_CASES:
+        cfg = tp_config(case)
+        model = Model(cfg)
+        params_np, batch, _, _ = _tp_inputs(data, case)
+        rules = train_rules(mesh, cfg, sequence_parallel=True)
+        loss, grads = _tp_loss_grads(model, rules, rank, params_np, batch, {})
+        _save(os.path.join(data, f"sp.{case}.r{rank}.npz"), loss={"loss": loss}, grads=grads)
+        cspec = dt.make_spec(mesh, NODES, cfg=cfg, sequence_parallel=True)
+        out["steps"][case] = _steps_against_one_process(cfg, cspec, batch=2, seq=16)["masked"]
+    for case in KV_CASES:
+        cfg = tp_config(case)
+        model = Model(cfg)
+        params_np, _, toks, _ = _tp_inputs(data, f"kv.{case}")
+        rules = serve_rules(mesh, cfg, kv_seq_sharded=True)
+        logits, (c_pre, c_dec) = _sp_serve(model, rules, rank, params_np, toks, TP_SERVE)
+        _save(os.path.join(data, f"kv.{case}.r{rank}.npz"), logits={"all": logits},
+              prefill=c_pre, decode=c_dec)
+    # the inventories: an SP loss + gradients and a kv-seq decode step
+    cfg = tp_config("internlm2")
+    model = Model(cfg)
+    params_np, batch, toks, _ = _tp_inputs(data, "internlm2")
+    inv = {}
+    for name in ("tp", "sp", "kvseq"):
+        recs = {}
+        for where, m, dev in (("real", mesh, "cpu"),
+                              ("meta", virtual_mesh(model=2, rank=rank), "meta")):
+            if name == "kvseq":
+                rules = serve_rules(m, cfg, kv_seq_sharded=True)
+            else:
+                rules = train_rules(m, cfg, sequence_parallel=name == "sp")
+            p = tree_map(lambda a: a.to(dev),
+                         params_from_numpy(shard_params(params_np, model, rules, rank), "cpu"))
+            if name == "kvseq":
+                with use_rules(rules):
+                    caches = model.init_cache(toks.shape[0], TP_MAX_LEN, device=dev)
+                dec = sv.make_decode_step(model, rules, max_len=TP_MAX_LEN)
+                t1 = toks[:, :1].to(dev)
+                recs[where] = collect(lambda: dec(p, t1, caches, 5), c10d=where == "real")
+            else:
+                leaves = list(flatten(p).values())
+                for leaf in leaves:
+                    leaf.requires_grad_()
+                b = {k: v.to(dev) for k, v in batch.items()}
+
+                def run():
+                    with use_rules(rules):
+                        loss, _ = model.loss(p, b)
+                        torch.autograd.grad(loss, leaves)
+
+                recs[where] = collect(run, c10d=where == "real")
+        inv[name] = _inventory_matches(recs["real"], recs["meta"])
+    out["inventory"] = inv
+    return out
+
+
 # case -> (function, shard factor, model factor)
 CASES = {"s2": (case_s2, 2, 1), "r2": (case_r2, 1, 1), "w22": (case_w22, 2, 1),
          "m2": (case_m2, 1, 2), "m4": (case_m4, 1, 4), "d2m2": (case_d2m2, 1, 2),
-         "s2m2": (case_s2m2, 2, 2)}
+         "s2m2": (case_s2m2, 2, 2), "pod4": (case_pod4, 1, 1), "sp2": (case_sp2, 1, 2)}
 
 
 def main(argv) -> None:
@@ -478,8 +713,10 @@ def main(argv) -> None:
     fn, shard, model = CASES[case]
     init_world("cpu", rank=rank, world_size=world, init_method=f"file://{store}")
     try:
-        mesh = make_mesh(shard=shard, model=model, device="cpu")
-        if model == 1:
+        mesh = make_mesh(shard=shard, model=model, multi_pod=case == "pod4", device="cpu")
+        if case == "pod4":
+            result = fn(types.SimpleNamespace(mesh=mesh), None, data)
+        elif model == 1:
             result = fn(dt.make_spec(mesh, NODES), _setup())
         else:
             setup = _setup()
