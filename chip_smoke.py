@@ -146,9 +146,25 @@ non-zero exit:
            256 and a ragged 197 positions and windowed, SSD at two chunks,
            the grouped matmul and its dx and dw at 512 and a ragged 549
            rows, the two gossip cases; tiny and full widths of all ten
-           models): the path taken, ``analysis.kernel_lint`` over the launch
-           configuration the library reports, and the kernel against its
-           plain version at the phase-2 tolerances (gossip bit for bit);
+           models), each operand a prefix of a longer buffer: the path
+           taken, ``analysis.kernel_lint`` over the launch configuration
+           the library reports and the wrapper's ``KERNEL_CONTRACT``, the
+           tiles of the library's probe (the kernel's own block -> tile
+           functions on the launch's grid) in bounds but along masked
+           axes, disjoint and covering the output, three guarded launches
+           (clean, inputs' tails and the rows past the groups poisoned
+           with the dtype's largest value, then with NaN) that leave the
+           canaries around the output and no sentinel in it, give the
+           clean bits under finite poison and no NaN the plain version
+           has not, the case through ``kernels.ops`` with
+           ``impl="auto"`` launching its kernel once by the wrapper's
+           counter, and the kernel against its plain version at the
+           phase-2 tolerances (gossip bit for bit); then three planted
+           faults each check must flag (a probe box shifted by one tile:
+           an overlap and an uncovered tile; a flash launch on k / v
+           views shifted into the poisoned tail; ``ops.attention``
+           patched to its plain path: ``kernel-launch-missing``), and the
+           seconds the contract, tile and poison checks added;
            then ``python -m repro_torch.analysis.check --shard 2
            --all-layouts --faults --strict``: the one-process steps, the
            replicated and FSDP mesh lanes (every rank's view on meta, the
@@ -4013,23 +4029,110 @@ def sweep_close(torch, case, got, want):
                for i in range(0, got.shape[0], step))
 
 
+LEAK_SHIFT = 7                  # keys the planted flash fault's k / v views move on
+
+
+def shifted_kv(k, v, shift: int = LEAK_SHIFT):
+    """k and v moved ``shift`` key positions on in their storage: the same
+    shapes, whose last batch row's last keys lie past the operands, in
+    the poisoned tail (a caller that slices its cache one position late)."""
+    off = shift * k.stride(1)
+    return (k.as_strided(k.shape, k.stride(), k.storage_offset() + off),
+            v.as_strided(v.shape, v.stride(), v.storage_offset() + off))
+
+
+def leaky_flash(attend):
+    """A guarded launch for ``kernel_lint.poison_case`` that runs
+    ``attend(q, k, v, out)`` on ``shifted_kv`` views: the planted fault
+    the poison check must flag."""
+    def launch(q, k, v, out):
+        ks, vs = shifted_kv(k, v)
+        return attend(q, ks, vs, out)
+    return launch
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """``kernels.ops.attention`` patched to its plain path whatever the
+    device: the planted fault ``kernel-launch-missing`` must flag."""
+    from repro_torch.kernels import ops, ref
+
+    orig = ops.attention
+    ops.attention = lambda q, k, v, *, causal=True, window=0, impl="auto": \
+        ref.attention_ref(q, k, v, causal=causal, window=window)
+    try:
+        yield
+    finally:
+        ops.attention = orig
+
+
+def planted_names(viols) -> set:
+    return {v.name for v in viols}
+
+
+def sweep_faults(torch, cases):
+    """The planted faults each check of the sweep must flag, on one full
+    internlm2-1.8b flash case each."""
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import flash_attention as fa
+
+    aligned = next(c for c in cases if c.label == "internlm2_1_8b/full/flash_attention/aligned")
+    t = aligned.make("cuda", pad=kernel_lint.POISON_PAD)
+    boxes = kernel_lint.case_tiles(aligned, t)
+    contract = kernel_lint.contract_for(aligned.kernel)
+    got, _ = kernel_lint.lint_tiles(kernel_lint.shift_box(boxes),
+                                    kernel_lint.output_extent(aligned, t), contract)
+    if not {"output-overlap-undeclared", "output-not-covered"} <= planted_names(got):
+        fail(f"sweep fault: a shifted probe box gave {sorted(planted_names(got))}")
+    log(f"sweep fault: one of {len(boxes)} probe boxes shifted by one tile: "
+        f"{sorted(planted_names(got))}")
+    ragged = next(c for c in cases if c.label == "internlm2_1_8b/full/flash_attention/ragged")
+    t = ragged.make("cuda", pad=kernel_lint.POISON_PAD)
+    leak = leaky_flash(lambda q, k, v, out: fa.flash_attention(q, k, v, causal=True,
+                                                               out=out[0]))
+    got, _ = kernel_lint.poison_case(ragged, t, launch=leak)
+    if not planted_names(got) & {"masked-tail-read", "masked-tail-guard-missing"}:
+        fail(f"sweep fault: flash on k / v views {LEAK_SHIFT} keys into the poisoned tail "
+             f"gave {sorted(planted_names(got))}")
+    log(f"sweep fault: flash on k / v views {LEAK_SHIFT} keys into the poisoned tail: "
+        f"{sorted(planted_names(got))}")
+    with plain_attention():
+        _, n = kernel_lint.run_counted(aligned, t)
+    got = kernel_lint.launch_violations(aligned, n)
+    if planted_names(got) != {"kernel-launch-missing"}:
+        fail(f"sweep fault: ops.attention on its plain path gave {sorted(planted_names(got))}")
+    log(f"sweep fault: ops.attention patched to its plain path: {n} flash launches, "
+        f"{sorted(planted_names(got))}")
+    del t
+    torch.cuda.empty_cache()
+
+
 def phase_sweep(torch):
     """Every registry kernel case (``analysis.kernel_cases.sweep_cases``,
     tiny and full, ragged tails included) on the card: the path it takes,
-    ``kernel_lint`` over its launch configuration, the kernel against its
-    plain version; a grouped product's rows past the groups must be 0."""
+    ``kernel_lint`` over its launch configuration, contract and probe
+    tiles, its poisoned and guarded launches, its launches through
+    ``impl="auto"``, the kernel against its plain version; a grouped
+    product's rows past the groups must be 0. Then the planted faults and
+    the checker."""
     from repro_torch.analysis import kernel_cases, kernel_lint
 
     cases = kernel_cases.sweep_cases()
     t0 = time.perf_counter()
     paths = {}
     worst = {}
+    added = {"tiles": 0.0, "poison": 0.0}
     for case in cases:
-        t = case.make("cuda")
+        t = case.make("cuda", pad=kernel_lint.POISON_PAD)
         viols, stats = kernel_lint.lint_case(case, t)
+        added["tiles"] += stats["tiles"]["seconds"]
+        ta = time.perf_counter()
+        pv, pstats = kernel_lint.poison_case(case, t)
+        added["poison"] += time.perf_counter() - ta
+        got, n = kernel_lint.run_counted(case, t)
+        viols += pv + kernel_lint.launch_violations(case, n)
         if viols:
             fail(f"sweep {case.label}: " + "; ".join(f"[{v.name}] {v.detail}" for v in viols))
-        got = case.run_kernel(*t)
         torch.cuda.synchronize()
         want = case.run_plain(*t)
         err = sweep_close(torch, case, got, want)
@@ -4045,12 +4148,25 @@ def phase_sweep(torch):
         log(f"sweep: {case.label} {[tuple(x.shape) for x in t]} {case.args[0][1]}: path "
             f"{stats['kernel_path']}, grid {stats['grid']} x {stats['threads']} threads, "
             f"{stats['smem_bytes']} B shared, covers {stats['cover']} of {stats['extent']}; "
-            f"max abs err {err:.3g}")
+            f"{stats['tiles']['boxes']} tiles disjoint and covering; {pstats['poisoned_inputs']} "
+            f"tails and {pstats['poisoned_rows']} rows poisoned, canaries and tails held; "
+            f"{n} launch; max abs err {err:.3g}")
         del t, got, want
         torch.cuda.empty_cache()
-    log(f"sweep: {len(cases)} registry cases pass kernel_lint and their tolerances in "
-        f"{time.perf_counter() - t0:.1f} s; paths {paths}; max abs err by kernel {worst}")
+    log(sweep_summary(len(cases), time.perf_counter() - t0, added, paths, worst))
+    tf = time.perf_counter()
+    sweep_faults(torch, cases)
+    log(f"sweep: planted faults flagged in {time.perf_counter() - tf:.2f} s")
     phase_checker()
+
+
+def sweep_summary(n: int, secs: float, added: dict, paths: dict, worst: dict) -> str:
+    """Phase 9's closing line: the cases, the phase's seconds and what the
+    tile probes and poisoned launches added to them."""
+    return (f"sweep: {n} registry cases pass kernel_lint (launch rules, contract, tiles), "
+            f"the poison and launch checks and their tolerances in {secs:.1f} s, of which "
+            f"the tile probes took {added['tiles']:.1f} s and the poisoned launches "
+            f"{added['poison']:.1f} s; paths {paths}; max abs err by kernel {worst}")
 
 
 CHECK_ARGV = ["--shard", "2", "--all-layouts", "--faults", "--strict"]

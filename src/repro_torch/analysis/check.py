@@ -21,9 +21,14 @@ executes, nothing is allocated) and checks:
   sampler), with ``--faults`` the degraded-mode gates at ``--p-drop``,
   and with ``--spectral-csv`` the committed spectral CSV re-derived;
 * below it: every kernel case of ``--arch`` (``--kernel-sweep arch``) or
-  of the registry (``registry``) through its wrapper's meta branch (the
-  wrapper's shape, dtype and width checks), and on a machine with the
-  card ``kernel_lint`` over each case's launch configuration.
+  of the registry (``registry``) through ``kernels.ops`` with
+  ``impl="auto"`` into its wrapper's meta branch (the wrapper's shape,
+  dtype and width checks; one launch a call, else
+  ``kernel-launch-missing``), and on a machine with the card
+  ``kernel_lint`` over each case's launch configuration, contract, tiles
+  and poisoned tails, and its launches counted by the wrapper; and the
+  ``hardcoded-impl`` source lint over ``src/repro_torch``
+  (``kernels.source_lint`` in the report).
 
 The mesh lanes (JAX's lane loop) run each step as the ranks of a mesh
 that holds one node per data rank (``launch.mesh.virtual_mesh``): every
@@ -204,8 +209,10 @@ def check_serve_steps(cfg, *, batch: int, seq: int):
 
 
 def check_kernel_cases(cases, *, card: bool):
-    """Each case through its wrapper's meta branch, and on the card
-    ``kernel_lint`` over its launch configuration."""
+    """Each case through ``kernels.ops`` with ``impl="auto"`` on meta
+    tensors (its wrapper's meta branch, one launch), and on the card
+    ``kernel_lint`` over its launch configuration, contract and tiles,
+    its poisoned launches and the launches its wrapper counts."""
     import torch
 
     from repro_torch.analysis import kernel_lint
@@ -220,13 +227,16 @@ def check_kernel_cases(cases, *, card: bool):
                 case.run_kernel(*case.make("meta"))
             stats.update(launches=dict(cm.launches), flops=dict(cm.flops),
                          bytes=cm.kernel_bytes)
+            viols += kernel_lint.launch_violations(case, cm.launches.get(case.kernel, 0))
         except (ValueError, RuntimeError) as e:
             viols.append(Violation("kernel-refuses-case", str(e), case.label))
         if card and not viols:
-            t = case.make("cuda")
+            t = case.make("cuda", pad=kernel_lint.POISON_PAD)
             lv, lstats = kernel_lint.lint_case(case, t)
-            viols += lv
-            stats.update(lstats)
+            pv, pstats = kernel_lint.poison_case(case, t)
+            _, n = kernel_lint.run_counted(case, t)
+            viols += lv + pv + kernel_lint.launch_violations(case, n)
+            stats.update(lstats, poison=pstats, card_launches=n)
             del t
             torch.cuda.empty_cache()
         report[case.label] = dict(stats=stats, violations=[v.to_json() for v in viols])
@@ -491,7 +501,8 @@ def main(argv=None) -> int:
               "nodes": args.nodes, "budget": args.budget,
               "num_matchings": plan.num_matchings, "shard": args.shard, "steps": {},
               "artifact": {"path": args.artifact, "row": None, "violations": []},
-              "schedule": {"violations": []}, "kernels": {"cases": {}, "card": False}}
+              "schedule": {"violations": []},
+              "kernels": {"cases": {}, "card": False, "source_lint": []}}
     violations = []
 
     _log("schedule verifier: exact rho / connectivity / sampler")
@@ -506,6 +517,13 @@ def main(argv=None) -> int:
                                                     where="schedule/degraded-mixing")
     report["schedule"]["violations"] = [v.to_json() for v in sv]
     violations += sv
+
+    from repro_torch.analysis import kernel_lint
+
+    sl = kernel_lint.check_impl_literals()
+    report["kernels"]["source_lint"] = [v.to_json() for v in sl]
+    violations += sl
+    _log(f"source lint: {len(sl)} hardcoded impl= literals outside kernels/ops.py")
 
     if args.kernel_sweep != "none":
         cases = kernel_cases.sweep_cases(args.arch if args.kernel_sweep == "arch" else None)

@@ -11,11 +11,17 @@ bf16). The port adds its grouped matmul's backward, dx and dw, at the
 same two row counts.
 
 A case holds its operands' shapes and dtypes (``args``, the JAX case's
-for the cases both packages have) and builds torch tensors on a
-requested device from a seed (:meth:`KernelCase.make`). ``run_kernel``
-and ``run_plain`` call the wrapper and its plain PyTorch version on
-them; the card's sweep (``chip_smoke.py``) holds one to the other and
-``kernel_lint`` checks the launch configuration the wrapper reports.
+for the cases both packages have), the masked axes it exercises
+(``guards``, the JAX case's names: ``kv`` at the ragged length, ``rows``
+past the groups) and builds torch tensors on a requested device from a
+seed (:meth:`KernelCase.make`, optionally each a prefix of a longer
+buffer whose tail the kernel lint poisons). ``run_kernel`` goes through
+``kernels.ops`` with ``impl="auto"``, the dispatch a model's call takes
+(the kernel on a CUDA tensor, its meta branch on a meta one);
+``launch`` calls the wrapper itself into given output buffers;
+``run_plain`` is the plain PyTorch version. The card's sweep
+(``chip_smoke.py``) holds the kernel to the plain version and
+``kernel_lint`` checks the launch, its tiles and its tails.
 """
 from __future__ import annotations
 
@@ -44,18 +50,21 @@ class KernelCase:
     kernel: str                                  # the wrapper's name
     args: Tuple[Tuple[Tuple[int, ...], str], ...]   # (shape, dtype name) per operand
     options: Tuple[Tuple[str, object], ...] = ()  # keyword options of the call
+    guards: Tuple[Tuple[str, object], ...] = ()   # masked axis -> its bound here
 
     @property
     def opts(self) -> dict:
         return dict(self.options)
 
-    def make(self, device, seed: int = 0) -> Tuple[torch.Tensor, ...]:
+    def make(self, device, seed: int = 0, pad: int = 0) -> Tuple[torch.Tensor, ...]:
         """The operands on ``device``, drawn from ``seed`` there (a
         ``torch.Generator`` on the device: the full-width expert weights
         are GBs); on the meta device their shapes alone. Group sizes come
         from numpy, the same on every device: ``ROWS_PAST_GROUPS`` rows
         short of the row count, cut at random points, so some groups are
-        empty."""
+        empty. With ``pad`` each floating operand is the first elements
+        of a buffer ``pad`` elements longer (zeros past it), the same
+        values and alignment."""
         device = torch.device(device)
         rng = np.random.default_rng(seed)
         gen = None if device.type == "meta" else torch.Generator(device).manual_seed(seed)
@@ -80,23 +89,50 @@ class KernelCase:
                 a = 0.5 * a
             elif self.kernel.startswith("grouped_matmul") and len(shape) == 3:
                 a = a / math.sqrt(shape[1])
-            out.append(a.to(dt))
+            out.append(padded(a, pad, dt) if pad else a.to(dt))
         return tuple(out)
 
     def run_kernel(self, *t):
-        """The wrapper on ``t`` (the hand-written kernel on the card, its
-        meta branch on meta tensors)."""
+        """``t`` through ``kernels.ops`` with ``impl="auto"``: the
+        hand-written kernel on the card, its meta branch on meta tensors
+        (and the plain version on the CPU)."""
         from repro_torch.kernels import ops
-        from repro_torch.kernels import grouped_matmul as gm
 
         o = self.opts
         if self.kernel == "flash_attention":
-            return ops.attention(*t, causal=True, window=o["window"], impl="cuda")
+            return ops.attention(*t, causal=True, window=o["window"], impl="auto")
         if self.kernel == "ssm_scan":
-            return ops.ssd(*t, chunk=o["chunk"], impl="cuda")
+            return ops.ssd(*t, chunk=o["chunk"], impl="auto")
         if self.kernel == "gossip_axpy":
-            return ops.gossip_update({"x": t[0]}, {"x": t[1]}, o["alpha"], impl="cuda")["x"]
-        return getattr(gm, self.kernel)(*t)
+            return ops.gossip_update({"x": t[0]}, {"x": t[1]}, o["alpha"], impl="auto")["x"]
+        return getattr(ops, self.kernel)(*t, impl="auto")
+
+    def kernel_operands(self, t) -> Tuple[torch.Tensor, ...]:
+        """``t`` as the wrapper takes them: the scan's dt and A in fp32
+        (``ops.ssd`` casts them), the rest as they are."""
+        if self.kernel == "ssm_scan":
+            x, dt, A, Bm, Cm = t
+            return x, dt.float(), A.float(), Bm, Cm
+        return tuple(t)
+
+    def launch(self, *t, out):
+        """The wrapper itself on the wrapper's operands ``t``
+        (:meth:`kernel_operands`), writing into the buffers ``out`` (one
+        for each output, in the wrapper's order): the kernel lint's
+        guarded launches."""
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import gossip_axpy as ga
+        from repro_torch.kernels import grouped_matmul as gm
+        from repro_torch.kernels import ssm_scan as ss
+
+        o = self.opts
+        if self.kernel == "flash_attention":
+            return fa.flash_attention(*t, causal=True, window=o["window"], out=out[0])
+        if self.kernel == "ssm_scan":
+            return ss.ssm_scan(*t, chunk=o["chunk"], out=tuple(out))
+        if self.kernel == "gossip_axpy":
+            return ga.gossip_axpy(t[0], t[1], o["alpha"], out=out[0])
+        return getattr(gm, self.kernel)(*t, out=out[0])
 
     def run_plain(self, *t):
         """The kernel's plain PyTorch version on ``t``."""
@@ -113,6 +149,16 @@ class KernelCase:
         return getattr(ref, self.kernel + "_ref")(*t)
 
 
+def padded(a: torch.Tensor, pad: int, dtype: torch.dtype = None) -> torch.Tensor:
+    """``a``'s values (cast to ``dtype``) as the first elements of a zeroed
+    buffer ``pad`` elements longer: a contiguous view, aligned as a fresh
+    tensor is."""
+    buf = torch.zeros(a.numel() + pad, dtype=dtype or a.dtype, device=a.device)
+    view = buf[:a.numel()].view(a.shape)
+    view.copy_(a)
+    return view
+
+
 def _dtype(cfg) -> str:
     return str(cfg.compute_dtype)
 
@@ -120,16 +166,19 @@ def _dtype(cfg) -> str:
 def _attention_cases(arch, preset, cfg):
     hd, dt = cfg.head_dim, _dtype(cfg)
 
-    def case(tag, seq, window):
+    def case(tag, seq, window, guards=()):
         return KernelCase(
             label=f"{arch}/{preset}/flash_attention/{tag}", kernel="flash_attention",
             args=(((BATCH, seq, cfg.num_heads, hd), dt),
                   ((BATCH, seq, cfg.num_kv_heads, hd), dt),
                   ((BATCH, seq, cfg.num_kv_heads, hd), dt)),
-            options=(("window", window),),
+            options=(("window", window),), guards=guards,
         )
 
-    out = [case("aligned", SEQ_ALIGNED, 0), case("ragged", SEQ_RAGGED, 0)]
+    # ragged: the last k tile runs 59 keys past the keys, the last q tile
+    # 59 rows past the queries
+    out = [case("aligned", SEQ_ALIGNED, 0),
+           case("ragged", SEQ_RAGGED, 0, (("kv", SEQ_RAGGED), ("q", SEQ_RAGGED)))]
     if cfg.sliding_window:
         out.append(case("windowed", SEQ_ALIGNED, cfg.sliding_window))
     return out
@@ -152,15 +201,17 @@ def _ssd_cases(arch, preset, cfg):
 def _gmm_cases(arch, preset, cfg):
     G, K, N, dt = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, _dtype(cfg)
     out = []
+    # the group offsets mask the rows past sum(group_sizes) in every case
+    rows = (("rows", "group_sizes"),)
     for tag, M in (("aligned", ROWS_ALIGNED), ("ragged", ROWS_RAGGED)):
         sizes = ((G,), "int32")
         out += [
             KernelCase(f"{arch}/{preset}/grouped_matmul/{tag}", "grouped_matmul",
-                       (((M, K), dt), ((G, K, N), dt), sizes)),
+                       (((M, K), dt), ((G, K, N), dt), sizes), guards=rows),
             KernelCase(f"{arch}/{preset}/grouped_matmul_dx/{tag}", "grouped_matmul_dx",
-                       (((M, N), dt), ((G, K, N), dt), sizes)),
+                       (((M, N), dt), ((G, K, N), dt), sizes), guards=rows),
             KernelCase(f"{arch}/{preset}/grouped_matmul_dw/{tag}", "grouped_matmul_dw",
-                       (((M, K), dt), ((M, N), dt), sizes)),
+                       (((M, K), dt), ((M, N), dt), sizes), guards=rows),
         ]
     return out
 
@@ -185,7 +236,7 @@ def shared_cases() -> list:
                    (("alpha", 0.375),)),
         KernelCase("shared/gossip_axpy/ragged_bf16", "gossip_axpy",
                    (((33, 129), "bfloat16"), ((33, 129), "bfloat16")),
-                   (("alpha", 0.375),)),
+                   (("alpha", 0.375),), (("tail", 33 * 129),)),
     ]
 
 

@@ -143,6 +143,22 @@ struct Params {
   float sm_scale;
 };
 
+// The block -> output tile mapping both kernels use: one block per (q tile,
+// query head, batch row), q tiles in reverse launch order (the costliest,
+// along the causal diagonal's far end, first). The tile probe calls it too.
+struct FlashTile {
+  int qt, h, b;
+};
+
+__device__ __forceinline__ FlashTile flash_tile() {
+  const int num_qt = gridDim.x;
+  FlashTile t;
+  t.qt = num_qt - 1 - blockIdx.x;   // costliest tiles first
+  t.h = blockIdx.y;
+  t.b = blockIdx.z;
+  return t;
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_scalar_kernel(Params prm) {
@@ -161,10 +177,10 @@ flash_scalar_kernel(Params prm) {
   T* out = static_cast<T*>(prm.out);
 
   const int tid = threadIdx.x;
-  const int num_qt = gridDim.x;
-  const int qt = num_qt - 1 - blockIdx.x;   // costliest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const FlashTile tile = flash_tile();
+  const int qt = tile.qt;
+  const int h = tile.h;
+  const int b = tile.b;
   const int group = prm.Hq / prm.Hkv;
   const int hk = h / group;
   const int q0 = qt * kBQ;
@@ -476,9 +492,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* kv_full = q_full + 1;
 
   const int tid = threadIdx.x;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // costliest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const FlashTile tile = flash_tile();
+  const int qt = tile.qt;
+  const int h = tile.h;
+  const int b = tile.b;
   const int hk = h / (prm.Hq / prm.Hkv);
   const int q0 = qt * L::kRows;
   // this warpgroup's rows start at qw; n_q warpgroups hold rows (with one
@@ -741,6 +758,17 @@ bool config_for(int dtype, int hd, int Sk, int B, int Sq, int Hq, LaunchConfig* 
   }
 }
 
+// One thread a block, on the launch's grid: the block's output box, rows
+// [q0, q0 + rows) of its q tile (past Sq the kernels' stores are guarded),
+// its query head and its batch row.
+__global__ void flash_tile_probe_kernel(long long rows, TileBox* boxes, int capacity,
+                                        unsigned int* count) {
+  const FlashTile t = flash_tile();
+  const long long q0 = t.qt * rows;
+  emit_box(boxes, capacity, count, t.qt, t.h, t.b, q0, t.h, t.b, q0 + rows, t.h + 1,
+           t.b + 1);
+}
+
 }  // namespace
 
 // dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Tensors
@@ -776,4 +804,22 @@ extern "C" int flash_attention_launch_config(int dtype, int B, int Sq, int Sk, i
                                              int hd, LaunchConfig* out) {
   return config_for(dtype, hd, Sk, B, Sq, Hq, out) ? 0
                                                   : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The output boxes of flash_attention_launch's blocks for these shapes,
+// from flash_tile on the launch's own grid (config_for): one TileBox a
+// block into boxes (device memory, room for capacity), the number found in
+// *count (device memory, zeroed by the caller). Returns a cudaError_t.
+extern "C" int flash_attention_tile_probe(int dtype, int B, int Sq, int Sk, int Hq, int hd,
+                                          void* boxes, int capacity, void* count,
+                                          void* stream) {
+  if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
+  LaunchConfig c;
+  if (!config_for(dtype, hd, Sk, B, Sq, Hq, &c)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(c.grid[0]), static_cast<unsigned>(c.grid[1]),
+                  static_cast<unsigned>(c.grid[2]));
+  flash_tile_probe_kernel<<<grid, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      c.cover[0] / c.grid[0], static_cast<TileBox*>(boxes), capacity,
+      static_cast<unsigned int*>(count));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -111,6 +111,43 @@ struct VecWidth {
   static constexpr int value = (sizeof(TX) == 2 || sizeof(TY) == 2) ? 8 : 4;
 };
 
+// How the kernel splits the n elements, and which a block takes; the tile
+// probe calls the same functions. The scalar head: elements up to x's first
+// 16-byte boundary.
+template <typename TX>
+__device__ __forceinline__ int64_t scalar_head(const TX* x, int64_t n) {
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  int64_t head = static_cast<int64_t>(((16 - (xa & 15)) & 15) / sizeof(TX));
+  if (head > n) head = n;
+  return head;
+}
+
+// Whether y and out are 16-byte aligned where x is after its head: if not,
+// the whole of n runs through the scalar loop.
+template <typename TX, typename TY>
+__device__ __forceinline__ bool vectors_aligned(const TY* y, const TX* out, int64_t head) {
+  return (reinterpret_cast<uintptr_t>(y + head) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(out + head) & 15) == 0;
+}
+
+// The whole vectors after the head; a scalar tail follows them.
+template <int kVec>
+__device__ __forceinline__ int64_t whole_vectors(int64_t n, int64_t head) {
+  return (n - head) / kVec;
+}
+
+// Tiles of kThreads x kUnroll vectors: the block's first tile and the step
+// to its next (one tile a block, unless the grid is capped).
+constexpr int64_t kTileVecs = static_cast<int64_t>(kThreads) * kUnroll;
+
+__device__ __forceinline__ int64_t first_tile_vec() {
+  return static_cast<int64_t>(blockIdx.x) * kTileVecs;
+}
+
+__device__ __forceinline__ int64_t tile_step_vecs() {
+  return static_cast<int64_t>(gridDim.x) * kTileVecs;
+}
+
 template <typename TX, typename TY>
 __global__ void __launch_bounds__(kThreads)
 gossip_axpy_kernel(const TX* x, const TY* y, TX* out, int64_t n, float alpha) {
@@ -118,12 +155,8 @@ gossip_axpy_kernel(const TX* x, const TY* y, TX* out, int64_t n, float alpha) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
 
-  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  int64_t head = static_cast<int64_t>(((16 - (xa & 15)) & 15) / sizeof(TX));
-  if (head > n) head = n;
-  const bool aligned =
-      (reinterpret_cast<uintptr_t>(y + head) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(out + head) & 15) == 0;
+  const int64_t head = scalar_head(x, n);
+  const bool aligned = vectors_aligned(y, out, head);
   if (!aligned) {
     for (int64_t i = tid; i < n; i += stride) {
       out[i] = Elem<TX>::store(
@@ -135,13 +168,11 @@ gossip_axpy_kernel(const TX* x, const TY* y, TX* out, int64_t n, float alpha) {
     out[i] = Elem<TX>::store(
         axpy(Elem<TX>::load(x[i]), Elem<TY>::load(y[i]), alpha));
   }
-  const int64_t nvec = (n - head) / kVec;
+  const int64_t nvec = whole_vectors<kVec>(n, head);
   const TX* xv = x + head;
   const TY* yv = y + head;
   TX* ov = out + head;
-  const int64_t tile = static_cast<int64_t>(kThreads) * kUnroll;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * tile + threadIdx.x; base < nvec;
-       base += static_cast<int64_t>(gridDim.x) * tile) {
+  for (int64_t base = first_tile_vec() + threadIdx.x; base < nvec; base += tile_step_vecs()) {
     float xs[kUnroll][kVec];
     float ys[kUnroll][kVec];
 #pragma unroll
@@ -168,13 +199,48 @@ gossip_axpy_kernel(const TX* x, const TY* y, TX* out, int64_t n, float alpha) {
   }
 }
 
+// One thread a block, on the launch's grid: the boxes of elements the
+// block's threads store, through the kernel's own split. Its scalar loops
+// give element lo + i to thread i % stride, so a block's runs of threads
+// [t0, t0 + threads) repeat every stride; its vector tiles end where the
+// whole vectors do (the kernel's v < nvec), and the scalar tail follows.
+__device__ void emit_runs(int64_t lo, int64_t hi, int64_t t0, int64_t stride, int threads,
+                          TileBox* boxes, int capacity, unsigned int* count) {
+  for (int64_t i = lo + t0; i < hi; i += stride) {
+    const int64_t end = i + threads < hi ? i + threads : hi;
+    emit_box(boxes, capacity, count, blockIdx.x, 0, 0, i, 0, 0, end, 1, 1);
+  }
+}
+
+template <typename TX, typename TY>
+__global__ void gossip_tile_probe_kernel(const TX* x, const TY* y, const TX* out, int64_t n,
+                                         int threads, TileBox* boxes, int capacity,
+                                         unsigned int* count) {
+  constexpr int kVec = VecWidth<TX, TY>::value;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * threads;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * threads;
+  const int64_t head = scalar_head(x, n);
+  if (!vectors_aligned(y, out, head)) {
+    emit_runs(0, n, t0, stride, threads, boxes, capacity, count);
+    return;
+  }
+  emit_runs(0, head, t0, stride, threads, boxes, capacity, count);
+  const int64_t nvec = whole_vectors<kVec>(n, head);
+  for (int64_t v0 = first_tile_vec(); v0 < nvec; v0 += tile_step_vecs()) {
+    const int64_t v1 = v0 + kTileVecs < nvec ? v0 + kTileVecs : nvec;
+    emit_box(boxes, capacity, count, blockIdx.x, 0, 0, head + v0 * kVec, 0, 0,
+             head + v1 * kVec, 1, 1);
+  }
+  emit_runs(head + nvec * kVec, n, t0, stride, threads, boxes, capacity, count);
+}
+
 // One tile of kThreads x kUnroll vectors per block; the kernel loops over
 // tiles, which only matters past 2^31 - 1 blocks (the grid then covers all
 // n through the loop).
 template <typename TX, typename TY>
 LaunchConfig config(int64_t n) {
   constexpr int kVec = VecWidth<TX, TY>::value;
-  const int64_t tile = static_cast<int64_t>(kThreads) * kUnroll;
+  const int64_t tile = kTileVecs;
   int64_t blocks = ((n + kVec - 1) / kVec + tile - 1) / tile;
   int64_t cover = blocks * tile * kVec;
   if (blocks > 0x7fffffff) {
@@ -193,6 +259,16 @@ cudaError_t launch(const void* x, const void* y, void* out, int64_t n,
       <<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes, stream>>>(
           static_cast<const TX*>(x), static_cast<const TY*>(y),
           static_cast<TX*>(out), n, alpha);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TY>
+cudaError_t probe(const void* x, const void* y, const void* out, int64_t n, TileBox* boxes,
+                  int capacity, unsigned int* count, cudaStream_t stream) {
+  const LaunchConfig c = config<TX, TY>(n);
+  gossip_tile_probe_kernel<TX, TY><<<static_cast<unsigned>(c.grid[0]), 1, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TY*>(y), static_cast<const TX*>(out), n,
+      c.threads, boxes, capacity, count);
   return cudaGetLastError();
 }
 
@@ -233,4 +309,29 @@ extern "C" int gossip_axpy_launch_config(int x_dtype, int y_dtype, int64_t n,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+// The boxes of elements gossip_axpy_launch's blocks store for these
+// operands (their addresses decide the split): TileBoxes into boxes
+// (device memory, room for capacity), the number found in *count (device
+// memory, zeroed by the caller). Returns a cudaError_t.
+extern "C" int gossip_axpy_tile_probe(int x_dtype, int y_dtype, const void* x, const void* y,
+                                      const void* out, int64_t n, void* boxes, int capacity,
+                                      void* count, void* stream) {
+  if (n <= 0) return 0;
+  TileBox* b = static_cast<TileBox*>(boxes);
+  unsigned int* c = static_cast<unsigned int*>(count);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_dtype == 0 && y_dtype == 0)
+    err = probe<float, float>(x, y, out, n, b, capacity, c, s);
+  else if (x_dtype == 1 && y_dtype == 1)
+    err = probe<__nv_bfloat16, __nv_bfloat16>(x, y, out, n, b, capacity, c, s);
+  else if (x_dtype == 1 && y_dtype == 0)
+    err = probe<__nv_bfloat16, float>(x, y, out, n, b, capacity, c, s);
+  else if (x_dtype == 0 && y_dtype == 1)
+    err = probe<float, __nv_bfloat16>(x, y, out, n, b, capacity, c, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }

@@ -182,6 +182,15 @@ __device__ __forceinline__ void tile_coords(int bid, int n_row_tiles, int n_col_
   *ct = local / rows;
 }
 
+// dw tile t -> (group, k tile, n tile): the group's tiles are consecutive,
+// banded within it as the row-tile kernels band theirs.
+__device__ __forceinline__ void dw_tile(int t, int n_k_tiles, int n_n_tiles, int* g, int* kt,
+                                        int* nt) {
+  const int per_group = n_k_tiles * n_n_tiles;
+  *g = t / per_group;
+  tile_coords(t - *g * per_group, n_k_tiles, n_n_tiles, kt, nt);
+}
+
 template <typename T>
 struct Elem;
 
@@ -305,10 +314,8 @@ gmm_dw_scalar_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   __shared__ float As[kSBK][kSBM + 4];  // 16 rows x 64 k of x
   __shared__ float Bs[kSBK][kSBN + 4];  // 16 rows x 64 n of dy
   __shared__ int rows[2];
-  const int per_group = n_k_tiles * n_n_tiles;
-  const int g = static_cast<int>(blockIdx.x) / per_group;
-  int kt, nt;
-  tile_coords(static_cast<int>(blockIdx.x) - g * per_group, n_k_tiles, n_n_tiles, &kt, &nt);
+  int g, kt, nt;
+  dw_tile(static_cast<int>(blockIdx.x), n_k_tiles, n_n_tiles, &g, &kt, &nt);
   if (threadIdx.x < 32) group_rows(sizes, g, M, rows, threadIdx.x);
   __syncthreads();
   const int row0 = rows[0], row1 = rows[1];
@@ -577,9 +584,8 @@ gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int n_tiles = G * per_group;
   // tile t -> group g, first k row k0, first n column n0
   auto locate = [&](int t, int* g, int* k0, int* n0) {
-    *g = t / per_group;
     int kt, nt;
-    tile_coords(t - *g * per_group, n_k_tiles, n_n_tiles, &kt, &nt);
+    dw_tile(t, n_k_tiles, n_n_tiles, g, &kt, &nt);
     *k0 = kt * kBM;
     *n0 = nt * kBN;
   };
@@ -698,9 +704,18 @@ bool aligned16(const void* p) {
 // Forward and dx: n_row x n_col blocks of bm x bn output tiles, n_row =
 // ceil(M / bm) + G (a group boundary can split a row tile); the output's
 // dims are (M, C, 1).
+struct RowTiles {
+  int n_row, n_col;
+};
+
+RowTiles row_tiles(int M, int C, int G, int bm, int bn) {
+  return RowTiles{(M + bm - 1) / bm + G, (C + bn - 1) / bn};
+}
+
 LaunchConfig row_tile_config(int M, int C, int G, int bm, int bn, int threads, int smem,
                              int path) {
-  const long long n_row = (M + bm - 1) / bm + G, n_col = (C + bn - 1) / bn;
+  const RowTiles rt = row_tiles(M, C, G, bm, bn);
+  const long long n_row = rt.n_row, n_col = rt.n_col;
   LaunchConfig c{{n_row * n_col, 1, 1}, {(n_row - G) * bm, n_col * bn, 1}, threads, smem,
                  path, 4};
   return c;
@@ -711,8 +726,8 @@ cudaError_t launch_scalar(bool dx, const void* a, const void* w, const int* size
                           void* out, int M, int K, int N, int G, cudaStream_t stream) {
   const int C = dx ? K : N;
   const LaunchConfig c = row_tile_config(M, C, G, kSBM, kSBN, kThreads, 0, 0);
-  const int n_row = (M + kSBM - 1) / kSBM + G;
-  const int n_col = (C + kSBN - 1) / kSBN;
+  const RowTiles rt = row_tiles(M, C, G, kSBM, kSBN);
+  const int n_row = rt.n_row, n_col = rt.n_col;
   const T* at = static_cast<const T*>(a);
   const T* wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(out);
@@ -761,8 +776,8 @@ cudaError_t launch_wgmma(bool dx, const void* a, const void* w, const int* sizes
   const cudaError_t err = opt_in_smem(dx ? gmm_dx_wgmma_kernel : gmm_wgmma_kernel);
   if (err != cudaSuccess) return err;
   const LaunchConfig c = row_tile_config(M, C, G, kBM, kBN, kWgThreads, kWgSmemBytes, 1);
-  const int n_row = (M + kBM - 1) / kBM + G;
-  const int n_col = (C + kBN - 1) / kBN;
+  const RowTiles rt = row_tiles(M, C, G, kBM, kBN);
+  const int n_row = rt.n_row, n_col = rt.n_col;
   auto* o = static_cast<__nv_bfloat16*>(out);
   const unsigned blocks = static_cast<unsigned>(c.grid[0]);
   if (dx)
@@ -774,10 +789,20 @@ cudaError_t launch_wgmma(bool dx, const void* a, const void* w, const int* sizes
   return cudaGetLastError();
 }
 
+// dw: G x n_k x n_n tiles of bm rows of K by bn columns of N.
+struct DwTiles {
+  int n_k, n_n;
+};
+
+DwTiles dw_tiles(int K, int N, int bm, int bn) {
+  return DwTiles{(K + bm - 1) / bm, (N + bn - 1) / bn};
+}
+
 // dw scalar: one block per (group, bm rows of K, bn columns of N); the
 // output's dims are (K, N, G).
 LaunchConfig dw_scalar_config(int K, int N, int G) {
-  const long long n_k = (K + kSBM - 1) / kSBM, n_n = (N + kSBN - 1) / kSBN;
+  const DwTiles dt = dw_tiles(K, N, kSBM, kSBN);
+  const long long n_k = dt.n_k, n_n = dt.n_n;
   LaunchConfig c{{G * n_k * n_n, 1, 1}, {n_k * kSBM, n_n * kSBN, G}, kThreads, 0, 0, 4};
   return c;
 }
@@ -786,7 +811,8 @@ LaunchConfig dw_scalar_config(int K, int N, int G) {
 // walking the (group, k tile, n tile) list with a stride of the grid, so
 // the grid covers every tile; `sms` is the card's SM count.
 LaunchConfig dw_wgmma_config(int K, int N, int G, int sms) {
-  const long long n_k = (K + kBM - 1) / kBM, n_n = (N + kBN - 1) / kBN;
+  const DwTiles dt = dw_tiles(K, N, kBM, kBN);
+  const long long n_k = dt.n_k, n_n = dt.n_n;
   const long long n_tiles = G * n_k * n_n;
   LaunchConfig c{{n_tiles < sms ? n_tiles : sms, 1, 1}, {n_k * kBM, n_n * kBN, G},
                  kWgThreads, kDwSmemBytes + 4 * (G + 1), 1, 4};
@@ -796,7 +822,8 @@ LaunchConfig dw_wgmma_config(int K, int N, int G, int sms) {
 template <typename T>
 cudaError_t launch_dw_scalar(const void* x, const void* dy, const int* sizes, void* dw,
                              int M, int K, int N, int G, cudaStream_t stream) {
-  const int n_k = (K + kSBM - 1) / kSBM, n_n = (N + kSBN - 1) / kSBN;
+  const DwTiles dt = dw_tiles(K, N, kSBM, kSBN);
+  const int n_k = dt.n_k, n_n = dt.n_n;
   const LaunchConfig c = dw_scalar_config(K, N, G);
   gmm_dw_scalar_kernel<T><<<static_cast<unsigned>(c.grid[0]), c.threads, c.smem_bytes,
                             stream>>>(
@@ -815,7 +842,8 @@ cudaError_t launch_dw_wgmma(const void* x, const void* dy, const int* sizes, voi
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int n_k = (K + kBM - 1) / kBM, n_n = (N + kBN - 1) / kBN;
+  const DwTiles dt = dw_tiles(K, N, kBM, kBN);
+  const int n_k = dt.n_k, n_n = dt.n_n;
   const int64_t n_tiles = static_cast<int64_t>(G) * n_k * n_n;
   if (n_tiles > INT32_MAX) return cudaErrorInvalidValue;
   // the ring, the staged output tile, then the G + 1 row offsets
@@ -836,6 +864,42 @@ bool tensor_core_path(int dtype, const void* a, const void* b, const void* out, 
                       int C) {
   return dtype == 1 && R > 0 && R % 8 == 0 && C % 8 == 0 && aligned16(a) &&
          aligned16(b) && aligned16(out);
+}
+
+// One warp a block, on the forward / dx launch's grid: tile_coords and
+// locate_tile as the kernels call them, then the block's box, rows [row0,
+// row1) of its group (or past the groups) and columns [n0, n0 + bn) (past C
+// the kernels' stores are guarded). A surplus tile writes nothing.
+template <int BM>
+__global__ void gmm_tile_probe_kernel(const int* __restrict__ sizes, int G, int M,
+                                      int n_row_tiles, int n_col_tiles, int bn,
+                                      TileBox* boxes, int capacity, unsigned int* count) {
+  __shared__ TileInfo info;
+  int rt, ct;
+  tile_coords(static_cast<int>(blockIdx.x), n_row_tiles, n_col_tiles, &rt, &ct);
+  locate_tile<BM>(sizes, G, M, rt, &info, threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x == 0 && info.kind != 0) {
+    const long long n0 = static_cast<long long>(ct) * bn;
+    emit_box(boxes, capacity, count, blockIdx.x, 0, 0, info.row0, n0, 0, info.row1, n0 + bn,
+             1);
+  }
+}
+
+// One thread a block, on the dw launch's grid: the tiles t = blockIdx.x,
+// + gridDim.x, ... that the persistent kernel walks (the scalar kernel's
+// grid has a block per tile, so there t is blockIdx.x alone), each through
+// dw_tile: a bm x bn box of its group's (K, N) matrix (past K and N the
+// stores are guarded).
+__global__ void gmm_dw_tile_probe_kernel(int n_tiles, int n_k_tiles, int n_n_tiles, int bm,
+                                         int bn, TileBox* boxes, int capacity,
+                                         unsigned int* count) {
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int g, kt, nt;
+    dw_tile(t, n_k_tiles, n_n_tiles, &g, &kt, &nt);
+    const long long k0 = static_cast<long long>(kt) * bm, n0 = static_cast<long long>(nt) * bn;
+    emit_box(boxes, capacity, count, t, 0, 0, k0, n0, g, k0 + bm, n0 + bn, g + 1);
+  }
 }
 
 }  // namespace
@@ -940,4 +1004,43 @@ extern "C" int grouped_matmul_launch_config(int which, int dtype, const void* a,
   else
     *cfg = row_tile_config(M, C, G, kSBM, kSBN, kThreads, 0, 0);
   return 0;
+}
+
+// The output boxes of a launch's blocks for these operands (`which` and the
+// operands as in grouped_matmul_launch_config; out may be null for a fresh
+// allocation), from the kernels' own tile functions on the launch's grid:
+// TileBoxes into boxes (device memory, room for capacity), the number found
+// in *count (device memory, zeroed by the caller). Forward and dx read the
+// group sizes, as their kernels do. Returns a cudaError_t.
+extern "C" int grouped_matmul_tile_probe(int which, int dtype, const void* a, const void* b,
+                                         const void* sizes, const void* out, int M, int K,
+                                         int N, int G, void* boxes, int capacity,
+                                         void* count, void* stream) {
+  LaunchConfig c;
+  const int err = grouped_matmul_launch_config(which, dtype, a, b, out, M, K, N, G, &c);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TileBox* bx = static_cast<TileBox*>(boxes);
+  unsigned int* n = static_cast<unsigned int*>(count);
+  if (which == 2) {
+    if (K <= 0 || N <= 0) return 0;
+    const int bm = c.path ? kBM : kSBM, bn = c.path ? kBN : kSBN;
+    const DwTiles dt = dw_tiles(K, N, bm, bn);
+    gmm_dw_tile_probe_kernel<<<static_cast<unsigned>(c.grid[0]), 1, 0, s>>>(
+        G * dt.n_k * dt.n_n, dt.n_k, dt.n_n, bm, bn, bx, capacity, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int C = which == 1 ? K : N;
+  if (M <= 0 || C <= 0) return 0;
+  const int* sz = static_cast<const int*>(sizes);
+  if (c.path) {
+    const RowTiles rt = row_tiles(M, C, G, kBM, kBN);
+    gmm_tile_probe_kernel<kBM><<<static_cast<unsigned>(c.grid[0]), 32, 0, s>>>(
+        sz, G, M, rt.n_row, rt.n_col, kBN, bx, capacity, n);
+  } else {
+    const RowTiles rt = row_tiles(M, C, G, kSBM, kSBN);
+    gmm_tile_probe_kernel<kSBM><<<static_cast<unsigned>(c.grid[0]), 32, 0, s>>>(
+        sz, G, M, rt.n_row, rt.n_col, kSBN, bx, capacity, n);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

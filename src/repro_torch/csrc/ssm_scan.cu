@@ -161,6 +161,19 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[TM][TN], int mt, int nt,
   }
 }
 
+// The scalar kernel's block -> work item: one (batch row, head) a block,
+// walking all S positions of it. The tile probe calls it too.
+struct ScanItem {
+  int b, h;
+};
+
+__device__ __forceinline__ ScanItem scalar_item(int H) {
+  ScanItem it;
+  it.b = blockIdx.x / H;
+  it.h = blockIdx.x % H;
+  return it;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
@@ -181,8 +194,9 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* wt = dts + Q;               // [Q]  exp(La_Q - La_j) dt_j
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  const ScanItem item = scalar_item(H);
+  const int b = item.b;
+  const int h = item.h;
   const float a_h = A[h];
 
   for (int o = tid; o < N * P; o += kThreads) hs[o] = 0.f;
@@ -481,6 +495,23 @@ __host__ __device__ inline size_t smem_bytes(int P, int N, int Q) {
          + 16;                          // ticket, last-block flag
 }
 
+// Ticket t -> its work: chunk c, batch row b and heads h0 .. h0 + nh - 1,
+// chunk-major, so that chunk c - 1 of a (b, h) always holds a smaller
+// ticket. The tile probe calls it too.
+struct Ticket {
+  int c, b, h0, nh;
+};
+
+__device__ __forceinline__ Ticket decode_ticket(int t, int Bsz, int H, int HG) {
+  const int groups = (H + HG - 1) / HG;
+  Ticket k;
+  k.c = t / (Bsz * groups);
+  k.b = (t % (Bsz * groups)) / groups;
+  k.h0 = (t % groups) * HG;
+  k.nh = min(HG, H - k.h0);
+  return k;
+}
+
 // Work split: warp w takes the 16-row strip w % 8 of the chunk (and of the
 // state) and the column groups w / 8, w / 8 + kColWarps, ... of P, PW
 // columns each.
@@ -523,13 +554,12 @@ __global__ void __launch_bounds__(kTcThreads, 1) ssd_tc_kernel(Args g) {
 
   if (tid == 0) shared_int[0] = static_cast<int>(atomicAdd(ticket, 1u));
   __syncthreads();
-  const int groups = (H + HG - 1) / HG;
   const int nc = S / Q;
-  const int t = shared_int[0];
-  const int c = t / (g.Bsz * groups);
-  const int b = (t % (g.Bsz * groups)) / groups;
-  const int h0 = (t % groups) * HG;
-  const int nh = min(HG, H - h0);
+  const Ticket work = decode_ticket(shared_int[0], g.Bsz, H, HG);
+  const int c = work.c;
+  const int b = work.b;
+  const int h0 = work.h0;
+  const int nh = work.nh;
   const int64_t s0 = static_cast<int64_t>(b) * S + static_cast<int64_t>(c) * Q;
 
   // ---- loads: B and C rows and dt (group 0), each head's x rows (group 1)
@@ -871,6 +901,23 @@ cudaError_t launch_width(const Args& a, cudaStream_t stream) {
 
 }  // namespace tc
 
+// One thread a block, on the launch's grid. The tensor-core kernel's block
+// i takes ticket i in some order, so probe block i decodes ticket i: the
+// check is that decode_ticket maps the tickets one to one onto disjoint
+// tiles, rows [c Q, c Q + Q) of heads h0 .. h0 + nh - 1 of batch row b. The
+// scalar kernel's block owns all S rows of its (b, h).
+__global__ void ssd_tile_probe_kernel(int tensor_cores, int Bsz, int S, int H, int Q, int HG,
+                                      TileBox* boxes, int capacity, unsigned int* count) {
+  const long long i = blockIdx.x;
+  if (tensor_cores) {
+    const tc::Ticket k = tc::decode_ticket(static_cast<int>(i), Bsz, H, HG);
+    const long long s0 = static_cast<long long>(k.c) * Q;
+    emit_box(boxes, capacity, count, i, 0, 0, s0, k.h0, k.b, s0 + Q, k.h0 + k.nh, k.b + 1);
+  } else {
+    const ScanItem it = scalar_item(H);
+    emit_box(boxes, capacity, count, i, 0, 0, 0, it.h, it.b, S, it.h + 1, it.b + 1);
+  }
+}
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
@@ -951,4 +998,22 @@ extern "C" int ssm_scan_launch_config(int dtype, int Bsz, int S, int H, int P, i
     *out = scalar_config(d);
   }
   return 0;
+}
+
+// The output boxes (of y) of ssm_scan_launch's blocks for these shapes and
+// operands, on the launch's own grid (the configuration
+// ssm_scan_launch_config reports): TileBoxes into boxes (device memory,
+// room for capacity), the number found in *count (device memory, zeroed by
+// the caller). Returns a cudaError_t.
+extern "C" int ssm_scan_tile_probe(int dtype, int Bsz, int S, int H, int P, int N, int chunk,
+                                   const void* x, const void* Bm, const void* Cm,
+                                   void* boxes, int capacity, void* count, void* stream) {
+  LaunchConfig c;
+  const int err = ssm_scan_launch_config(dtype, Bsz, S, H, P, N, chunk, x, Bm, Cm, &c);
+  if (err) return err;
+  ssd_tile_probe_kernel<<<static_cast<unsigned>(c.grid[0]), 1, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      c.path, Bsz, S, H, chunk, tc::heads_per_block(P), static_cast<TileBox*>(boxes),
+      capacity, static_cast<unsigned int*>(count));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -134,6 +134,44 @@ def launch_config(fn, *args) -> dict:
     return cfg.as_dict()
 
 
+BOX_FIELDS = 9          # a csrc TileBox: writer[3], lo[3], hi[3], as int64
+
+
+def tile_boxes(probe, device, capacity: int = 4096):
+    """Run a library's ``<name>_tile_probe``: ``probe(boxes, capacity,
+    count, stream)`` launches the probe on ``device`` and returns a
+    cudaError_t. Returns the boxes it wrote as an ``(n, 9)`` int64 numpy
+    array (``writer[3], lo[3], hi[3]`` a row), asking again with room for
+    all of them when the first buffer was too small."""
+    import torch
+
+    while True:
+        boxes = torch.empty((capacity, BOX_FIELDS), dtype=torch.int64, device=device)
+        count = torch.zeros(1, dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = probe(boxes.data_ptr(), capacity, count.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"tile probe failed: cudaError {err}")
+        n = int(count.item())
+        if n <= capacity:
+            return boxes[:n].cpu().numpy()
+        capacity = n
+
+
+def check_out(kernel: str, out, shape, dtype, device) -> None:
+    """Raise unless ``out`` can take a kernel's output of ``shape`` and
+    ``dtype`` on ``device``: contiguous, the same shape, dtype and device
+    (an ``out=`` buffer, which the kernel lint's guarded launches pass)."""
+    if tuple(out.shape) != tuple(shape) or out.dtype != dtype or out.device != device:
+        raise ValueError(
+            f"{kernel}: out is {tuple(out.shape)} {out.dtype} on {out.device}, the kernel "
+            f"writes {tuple(shape)} {dtype} on {device}"
+        )
+    if not out.is_contiguous():
+        raise ValueError(f"{kernel}: out must be contiguous")
+
+
 def require_hopper(device, kernel: str) -> None:
     """Raise unless ``device`` is an sm_90 card: the kernels are built
     for sm_90a only."""

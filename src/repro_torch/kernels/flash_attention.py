@@ -25,6 +25,15 @@ it checks them as it checks CUDA ones, allocates the kernel's output
 (no scores: the plain version's (Sq, Sk) tensor is not the kernel's),
 and reports the launch and its ``cost(...)`` to ``meta.report``; the
 ``launches`` counter counts the card's launches only.
+
+``KERNEL_CONTRACT`` is the launch's contract, which
+``repro_torch.analysis.kernel_lint`` holds the card to: the grid axes
+(``flash_tile`` in the CUDA source), the output dims in the order of
+``launch_config``'s cover, the axes whose tails the kernels guard, fp32
+accumulators and the shared-memory limit. ``tile_probe`` runs
+``flash_tile`` on the launch's own grid and returns each block's output
+box; ``out=`` takes a caller's output buffer (the lint's guarded
+launches; nothing on the main path passes one).
 """
 from __future__ import annotations
 
@@ -37,6 +46,23 @@ from repro_torch.kernels import build, meta
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128, 192, 256)
+
+# The JAX kernel's contract, on the card: a block owns one (q tile, query
+# head, batch row) tile and walks its k tiles itself, so no axis is a
+# reduction across blocks. Keys past kv_len (and past Sk: TMA reads zeros,
+# the scalar kernel guards its loads) never reach the softmax, as in the JAX
+# kernel; the last q tile's rows past Sq are not stored (the port masks
+# instead of padding).
+KERNEL_CONTRACT = dict(
+    kernel="flash_attention",
+    grid=("q_tile", "q_head", "batch"),
+    out_dims=("q", "q_head", "batch"),
+    reduction_axes=(),
+    masked={"kv": "kv_len", "q": "Sq"},
+    acc_dtype="float32",
+    smem_limit_bytes=232448,
+    launches=1,
+)
 
 
 def _library():
@@ -93,6 +119,23 @@ def launch_config(q: torch.Tensor, k: torch.Tensor) -> dict:
     return build.launch_config(fn, _DTYPE_CODES[q.dtype], B, Sq, k.shape[1], Hq, hd)
 
 
+def tile_probe(q: torch.Tensor, k: torch.Tensor):
+    """The output box of every block ``flash_attention(q, k, v)``
+    launches, from the kernels' own ``flash_tile`` on the launch's grid:
+    an ``(n, 9)`` int64 array of ``writer (q tile, head, batch), lo, hi``
+    in ``(Sq, Hq, B)``."""
+    _check(q, k, k, 0)
+    fn = _library().flash_attention_tile_probe
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, Sq, Hq, hd = q.shape
+    code, Sk = _DTYPE_CODES[q.dtype], k.shape[1]
+    return build.tile_boxes(
+        lambda boxes, cap, count, stream: fn(code, B, Sq, Sk, Hq, hd, boxes, cap, count,
+                                             stream), q.device)
+
+
 def kernel_path(q: torch.Tensor, k: torch.Tensor) -> str:
     """The kernel ``flash_attention(q, k, v)`` launches for these
     operands: ``"wgmma"`` (tensor cores, TMA) or ``"scalar"``."""
@@ -142,14 +185,18 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     kv_len: int = 0,
+    out: torch.Tensor = None,
 ) -> torch.Tensor:
     """Attention of q over k/v on the card; out (B, Sq, Hq, hd) in q's
-    dtype. Query i and key j sit at positions i and j; ``kv_len > 0``
-    masks keys at positions >= kv_len."""
+    dtype (a new tensor, or ``out``). Query i and key j sit at positions
+    i and j; ``kv_len > 0`` masks keys at positions >= kv_len."""
     _check(q, k, v, kv_len)
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    else:
+        build.check_out("flash_attention", out, q.shape, q.dtype, q.device)
     if out.numel() == 0:
         return out
     if meta.is_meta(q):

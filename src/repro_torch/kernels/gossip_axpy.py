@@ -18,6 +18,12 @@ back to the plain version. Given meta tensors (the dry run) it checks
 them as it checks CUDA ones, allocates the kernel's output and reports
 the launch and its ``cost(...)`` to ``repro_torch.kernels.meta``; the
 ``launches`` counter counts the card's launches only.
+
+``KERNEL_CONTRACT`` is the launch's contract for
+``repro_torch.analysis.kernel_lint``; ``tile_probe`` returns the element
+boxes each block stores, from the kernel's own split and tile stride on
+the launch's grid; ``out=`` takes a caller's output buffer (the lint's
+guarded launches; nothing on the main path passes one).
 """
 from __future__ import annotations
 
@@ -28,6 +34,21 @@ import torch
 from repro_torch.kernels import build, meta
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The JAX kernel pads to whole blocks and slices the pad off (masked {}).
+# The port pads nothing: a tile's vectors past the whole vectors are
+# guarded (v < nvec), and the elements after the last whole vector run on a
+# scalar tail, the port's own masked axis. No shared memory.
+KERNEL_CONTRACT = dict(
+    kernel="gossip_axpy",
+    grid=("block",),
+    out_dims=("n",),
+    reduction_axes=(),
+    masked={"tail": "n"},
+    acc_dtype="float32",
+    smem_limit_bytes=0,
+    launches=1,
+)
 
 
 def _library():
@@ -64,6 +85,24 @@ def launch_config(x: torch.Tensor, y: torch.Tensor) -> dict:
     return build.launch_config(fn, _DTYPE_CODES[x.dtype], _DTYPE_CODES[y.dtype], x.numel())
 
 
+def tile_probe(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor = None):
+    """The element boxes every block of ``gossip_axpy(x, y, alpha)``
+    stores (its split depends on the addresses: ``out`` is the output
+    buffer, a fresh one when not given): an ``(n, 9)`` int64 array of
+    ``writer (block), lo, hi`` along ``(n, 1, 1)``."""
+    _check(x, y)
+    out = torch.empty_like(x) if out is None else out
+    fn = build.load("gossip_axpy").gossip_axpy_tile_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cx, cy = _DTYPE_CODES[x.dtype], _DTYPE_CODES[y.dtype]
+    return build.tile_boxes(
+        lambda boxes, cap, count, stream: fn(cx, cy, x.data_ptr(), y.data_ptr(),
+                                             out.data_ptr(), x.numel(), boxes, cap, count,
+                                             stream), x.device)
+
+
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
     if x.device.type not in ("cuda", "meta"):
         raise ValueError(
@@ -84,15 +123,24 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
 
 
 def gossip_axpy(
-    x: torch.Tensor, y: torch.Tensor, alpha: float, *, inplace: bool = False
+    x: torch.Tensor, y: torch.Tensor, alpha: float, *, inplace: bool = False,
+    out: torch.Tensor = None,
 ) -> torch.Tensor:
     """``x + alpha * (y - x)`` in fp32, stored in x's dtype, on the card.
 
     x and y are contiguous CUDA tensors of one shape, each float32 or
     bfloat16 (y may be fp32 while x is bf16). With ``inplace=True`` the
-    result overwrites x, which is returned."""
+    result overwrites x, which is returned; else it goes to ``out`` when
+    given, a new tensor when not."""
     _check(x, y)
-    out = x if inplace else torch.empty_like(x)
+    if out is not None:
+        if inplace:
+            raise ValueError("gossip_axpy takes inplace=True or out=, not both")
+        build.check_out("gossip_axpy", out, x.shape, x.dtype, x.device)
+    elif inplace:
+        out = x
+    else:
+        out = torch.empty_like(x)
     n = x.numel()
     if n == 0:
         return out

@@ -34,6 +34,14 @@ it checks CUDA ones, allocates its kernel's output and reports the
 launch and its ``cost(...)`` to ``meta.report`` (the ``launches``
 counters count the card's launches only); ``GroupedMatmul`` then runs
 the meta branches forward and backward.
+
+``KERNEL_CONTRACT`` (the forward), ``KERNEL_CONTRACT_DX`` and
+``KERNEL_CONTRACT_DW`` are the launches' contracts for
+``repro_torch.analysis.kernel_lint``; ``tile_probe`` returns the output
+box of every tile a launch stores, from the kernels' own ``tile_coords``,
+``locate_tile`` and ``dw_tile`` on the launch's grid; ``out=`` takes a
+caller's output buffer (the lint's guarded launches; nothing on the main
+path passes one).
 """
 from __future__ import annotations
 
@@ -51,6 +59,34 @@ from repro_torch.kernels.ref import (
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"forward": 0, "dx": 1, "dw": 2}
+
+# The forward's contract. The JAX grid is (row block, column block, group)
+# with the group a reduction axis (every group visits every row block and
+# masks the rows it does not own); here a tile belongs to one group (or to
+# the rows past the groups), the 1-D grid's blocks map to (row tile, column
+# tile) through tile_coords' bands, and no two blocks store one element.
+# Rows past sum(group_sizes) are written as 0 and their x rows are never
+# stored from; columns past N are guarded.
+KERNEL_CONTRACT = dict(
+    kernel="grouped_matmul",
+    grid=("tile",),
+    out_dims=("rows", "cols"),
+    reduction_axes=(),
+    masked={"rows": "group_sizes", "cols": "N"},
+    acc_dtype="float32",
+    smem_limit_bytes=232448,
+    launches=1,
+)
+# dx: the forward's tiles over (M, K).
+KERNEL_CONTRACT_DX = dict(KERNEL_CONTRACT, kernel="grouped_matmul_dx",
+                          masked={"rows": "group_sizes", "cols": "K"})
+# dw: tiles of (group, K, N), a tile's rows the reduction inside its block
+# (rows of a slice past the group are zeroed before the product); the
+# tensor-core kernel is persistent, each block walking tiles with the
+# grid's stride, so the grid axis names the tile.
+KERNEL_CONTRACT_DW = dict(KERNEL_CONTRACT, kernel="grouped_matmul_dw",
+                          out_dims=("k", "n", "group"),
+                          masked={"rows": "group_sizes", "k": "K", "n": "N"})
 _LAUNCH_ARGS = [
     ctypes.c_int,                                        # dtype
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # two operands, sizes
@@ -120,6 +156,36 @@ def launch_config(a: torch.Tensor, b: torch.Tensor, G: int, *, kind: str = "forw
     fn.restype = ctypes.c_int
     return build.launch_config(fn, _KINDS[kind], _DTYPE_CODES[a.dtype], a.data_ptr(),
                                b.data_ptr(), None, M, K, N, G)
+
+
+def tile_probe(a: torch.Tensor, b: torch.Tensor, group_sizes: torch.Tensor, *,
+               kind: str = "forward", out: torch.Tensor = None):
+    """The output box of every tile a launch of ``kind`` stores for these
+    operands (``out`` the output buffer, a fresh one when not given), from
+    the kernels' own tile functions on the launch's grid: an ``(n, 9)``
+    int64 array of ``writer (tile), lo, hi`` along the output dims of
+    ``launch_config``."""
+    if kind == "forward":
+        _check(a, b, group_sizes)
+        M, K, N = a.shape[0], a.shape[1], b.shape[2]
+    elif kind == "dx":
+        _check_dx(a, b, group_sizes)
+        M, N, K = a.shape[0], a.shape[1], b.shape[1]
+    elif kind == "dw":
+        _check_dw(a, b, group_sizes)
+        M, K, N = a.shape[0], a.shape[1], b.shape[1]
+    else:
+        raise ValueError(f"unknown kind {kind!r}: expected one of {tuple(_KINDS)}")
+    fn = _library().grouped_matmul_tile_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    which, code, G = _KINDS[kind], _DTYPE_CODES[a.dtype], group_sizes.shape[0]
+    o = None if out is None else out.data_ptr()
+    return build.tile_boxes(
+        lambda boxes, cap, count, stream: fn(which, code, a.data_ptr(), b.data_ptr(),
+                                             group_sizes.data_ptr(), o, M, K, N, G, boxes,
+                                             cap, count, stream), a.device)
 
 
 def kernel_path(a: torch.Tensor, b: torch.Tensor, *, kind: str = "forward") -> str:
@@ -230,18 +296,30 @@ def _launch(fn_name: str, a, b, group_sizes, out, M, K, N, G) -> None:
         raise RuntimeError(f"{fn_name} failed: cudaError {err}")
 
 
+def _output(kernel: str, out, shape, like: torch.Tensor) -> torch.Tensor:
+    """A new output of ``shape`` in ``like``'s dtype and device, or the
+    caller's ``out`` checked against it."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    build.check_out(kernel, out, shape, like.dtype, like.device)
+    return out
+
+
 def grouped_matmul(
     x: torch.Tensor,             # (M, K), rows sorted by group
     w: torch.Tensor,             # (G, K, N)
     group_sizes: torch.Tensor,   # (G,) int32, on the card
+    *,
+    out: torch.Tensor = None,
 ) -> torch.Tensor:
-    """``out (M, N)`` in x's dtype on the card: row r of group g is
-    ``x[r] @ w[g]``, summed in fp32; rows past ``sum(group_sizes)`` are
-    0. Rows past M of a group whose sizes overrun M are dropped."""
+    """``out (M, N)`` in x's dtype on the card (a new tensor, or
+    ``out``): row r of group g is ``x[r] @ w[g]``, summed in fp32; rows
+    past ``sum(group_sizes)`` are 0. Rows past M of a group whose sizes
+    overrun M are dropped."""
     _check(x, w, group_sizes)
     M, K = x.shape
     G, _, N = w.shape
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = _output("grouped_matmul", out, (M, N), x)
     if out.numel() == 0:
         return out
     if meta.is_meta(x):
@@ -258,14 +336,17 @@ def grouped_matmul_dx(
     dy: torch.Tensor,            # (M, N), the output's gradient
     w: torch.Tensor,             # (G, K, N)
     group_sizes: torch.Tensor,   # (G,) int32, on the card
+    *,
+    out: torch.Tensor = None,
 ) -> torch.Tensor:
-    """``dx (M, K)`` in dy's dtype on the card: row r of group g is
-    ``dy[r] @ w[g]^T``, summed in fp32; rows past ``sum(group_sizes)``
-    are 0, groups clipped to M as in the forward."""
+    """``dx (M, K)`` in dy's dtype on the card (a new tensor, or
+    ``out``): row r of group g is ``dy[r] @ w[g]^T``, summed in fp32;
+    rows past ``sum(group_sizes)`` are 0, groups clipped to M as in the
+    forward."""
     _check_dx(dy, w, group_sizes)
     M, N = dy.shape
     G, K, _ = w.shape
-    dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
+    dx = _output("grouped_matmul_dx", out, (M, K), dy)
     if dx.numel() == 0:
         return dx
     if meta.is_meta(dy):
@@ -282,15 +363,18 @@ def grouped_matmul_dw(
     x: torch.Tensor,             # (M, K), rows sorted by group
     dy: torch.Tensor,            # (M, N), the output's gradient
     group_sizes: torch.Tensor,   # (G,) int32, on the card
+    *,
+    out: torch.Tensor = None,
 ) -> torch.Tensor:
-    """``dw (G, K, N)`` in x's dtype on the card: ``dw[g]`` is the fp32
-    sum over group g's rows, in ascending order, of ``x[r]^T dy[r]``; an
-    empty group's is 0 and rows past the groups add nothing."""
+    """``dw (G, K, N)`` in x's dtype on the card (a new tensor, or
+    ``out``): ``dw[g]`` is the fp32 sum over group g's rows, in ascending
+    order, of ``x[r]^T dy[r]``; an empty group's is 0 and rows past the
+    groups add nothing."""
     _check_dw(x, dy, group_sizes)
     M, K = x.shape
     N = dy.shape[1]
     G = group_sizes.shape[0]
-    dw = torch.empty((G, K, N), dtype=x.dtype, device=x.device)
+    dw = _output("grouped_matmul_dw", out, (G, K, N), x)
     if dw.numel() == 0:
         return dw
     if meta.is_meta(x):

@@ -3,7 +3,9 @@ versions.
 
 The port of ``repro.kernels.ops``: ``attention`` (flash attention),
 ``ssd`` (the Mamba2 chunk scan), ``grouped_matmul`` (the MoE expert
-products) and the gossip update. ``resolve_mode`` is the one place the
+products) and its two gradients alone (``grouped_matmul_dx``,
+``grouped_matmul_dw``: the kernel lint's cases; training reaches them
+through ``grouped_matmul``'s backward) and the gossip update. ``resolve_mode`` is the one place the
 decision is made, per tensor device:
 
   * ``"auto"``  -> ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU one;
@@ -29,6 +31,8 @@ from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.kernels.ref import (
     attention_ref,
     gossip_axpy_ref,
+    grouped_matmul_dw_ref,
+    grouped_matmul_dx_ref,
     grouped_matmul_ref,
     ssm_scan_ref,
 )
@@ -105,6 +109,24 @@ def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
     return _gm.GroupedMatmul.apply(
         x.contiguous(), w.contiguous(), group_sizes.to(torch.int32).contiguous()
     )
+
+
+def grouped_matmul_dx(dy, w, group_sizes, *, impl: str = "auto"):
+    """``dx (M, K)``: row r of group g is ``dy[r] @ w[g]^T``, rows past
+    ``sum(group_sizes)`` zero (``GroupedMatmul``'s input gradient)."""
+    if resolve_mode(impl, dy.device) == "torch":
+        return grouped_matmul_dx_ref(dy, w, group_sizes)
+    return _gm.grouped_matmul_dx(dy.contiguous(), w.contiguous(),
+                                 group_sizes.to(torch.int32).contiguous())
+
+
+def grouped_matmul_dw(x, dy, group_sizes, *, impl: str = "auto"):
+    """``dw (G, K, N)``: the sum over group g's rows of ``x[r]^T dy[r]``
+    (``GroupedMatmul``'s weight gradient)."""
+    if resolve_mode(impl, x.device) == "torch":
+        return grouped_matmul_dw_ref(x, dy, group_sizes)
+    return _gm.grouped_matmul_dw(x.contiguous(), dy.contiguous(),
+                                 group_sizes.to(torch.int32).contiguous())
 
 
 # ---------------------------------------------------------------------------

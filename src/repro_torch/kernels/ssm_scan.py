@@ -32,6 +32,13 @@ ring; the path from ``meta_path``, which the card's kernel lint holds to
 the C rule) and reports the launch and its ``cost(...)`` to
 ``meta.report``; the ``launches`` counter counts the card's launches
 only.
+
+``KERNEL_CONTRACT`` is the launch's contract for
+``repro_torch.analysis.kernel_lint``; ``tile_probe`` returns the y box of
+every block (the scalar kernel's ``scalar_item``, the tensor-core
+kernel's ``decode_ticket`` of ticket i for block i) on the launch's grid;
+``out=(y, final_state)`` takes a caller's output buffers (the lint's
+guarded launches; nothing on the main path passes them).
 """
 from __future__ import annotations
 
@@ -44,6 +51,23 @@ from repro_torch.kernels import build, meta
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
 MAX_SMEM_BYTES = 232448     # what one sm_90 block may opt in to
+
+# The JAX grid is (batch, head, chunk) with the chunk axis sequential and a
+# reduction for the final state. Here a block owns one work item, (b, h)
+# on the scalar kernel and one ticket's (chunk, b, heads) on the tensor-core
+# kernel, whose final state the last chunk's block alone writes: no
+# reduction across blocks. S is a multiple of the chunk (ops.ssd halves the
+# chunk until it divides), so nothing is masked.
+KERNEL_CONTRACT = dict(
+    kernel="ssm_scan",
+    grid=("work",),
+    out_dims=("s", "head", "batch"),
+    reduction_axes=(),
+    masked={},
+    acc_dtype="float32",
+    smem_limit_bytes=MAX_SMEM_BYTES,
+    launches=1,
+)
 
 
 _SCRATCH = {}   # (device index, stream) -> zeroed int32 scratch
@@ -145,6 +169,26 @@ def launch_config(x: torch.Tensor, B_mat: torch.Tensor, chunk: int,
                                C_mat.data_ptr())
 
 
+def tile_probe(x: torch.Tensor, B_mat: torch.Tensor, chunk: int,
+               C_mat: torch.Tensor = None):
+    """The y box of every block ``ssm_scan(x, dt, A, B_mat, C_mat,
+    chunk=chunk)`` launches, from the kernels' own block -> work
+    functions on the launch's grid: an ``(n, 9)`` int64 array of
+    ``writer (block), lo, hi`` in ``(S, H, B)``."""
+    C_mat = B_mat if C_mat is None else C_mat
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on CUDA tensors, got x on {x.device}")
+    fn = _library().ssm_scan_tile_probe
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    Bsz, S, H, P = x.shape
+    args = (_DTYPE_CODES[x.dtype], Bsz, S, H, P, B_mat.shape[-1], min(chunk, S),
+            x.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr())
+    return build.tile_boxes(
+        lambda boxes, cap, count, stream: fn(*args, boxes, cap, count, stream), x.device)
+
+
 def kernel_path(x: torch.Tensor, B_mat: torch.Tensor, chunk: int,
                 C_mat: torch.Tensor = None) -> str:
     """The kernel ``ssm_scan(x, dt, A, B_mat, C_mat, chunk=chunk)``
@@ -202,16 +246,23 @@ def ssm_scan(
     C_mat: torch.Tensor,    # (B, S, N)
     *,
     chunk: int = 128,
+    out=None,
 ):
-    """Returns ``(y (B,S,H,P) in x's dtype, final state (B,H,N,P) fp32)``."""
+    """Returns ``(y (B,S,H,P) in x's dtype, final state (B,H,N,P) fp32)``,
+    new tensors or the pair ``out``."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     chunk = min(chunk, x.shape[1])
     _check(x, dt, A, B_mat, C_mat, chunk)
     Bsz, S, H, P = x.shape
     N = B_mat.shape[-1]
-    y = torch.empty_like(x)
-    h_out = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    if out is None:
+        y = torch.empty_like(x)
+        h_out = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    else:
+        y, h_out = out
+        build.check_out("ssm_scan", y, x.shape, x.dtype, x.device)
+        build.check_out("ssm_scan", h_out, (Bsz, H, N, P), torch.float32, x.device)
     if meta.is_meta(x):
         return _meta_launch(x, y, h_out, Bsz, S, H, P, N, chunk)
     lib = _library()

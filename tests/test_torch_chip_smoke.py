@@ -353,3 +353,87 @@ def test_sp_phase_is_listed_wired_and_its_meta_views_record(smoke):
         comm.all_reduce = orig_reduce
     assert attention._sdpa_split is orig_split
     assert seen == ["max", "sum", "sum", "max", "sum"]
+
+
+def test_sweep_phase_runs_the_contract_tile_poison_and_launch_checks(smoke):
+    """Phase 9 holds every case to the launch rules and contract, its probe
+    tiles, its poisoned launches and its launch count, then runs the
+    planted faults and the checker, and logs the seconds the checks add."""
+    import ast
+
+    assert "planted" in smoke.__doc__ and "poisoned" in smoke.__doc__
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    def called(fn):
+        return {c.func.attr if isinstance(c.func, ast.Attribute) else c.func.id
+                for c in ast.walk(fns[fn]) if isinstance(c, ast.Call)
+                and isinstance(c.func, (ast.Attribute, ast.Name))}
+
+    assert {"lint_case", "poison_case", "run_counted", "launch_violations", "sweep_faults",
+            "phase_checker", "sweep_summary"} <= called("phase_sweep")
+    assert {"shift_box", "lint_tiles", "leaky_flash", "plain_attention",
+            "poison_case", "run_counted"} <= called("sweep_faults")
+    line = smoke.sweep_summary(80, 12.5, {"tiles": 1.25, "poison": 6.5}, {"wgmma": 40},
+                               {"gossip_axpy": 0.0})
+    assert line.startswith("sweep: 80 registry cases") and "in 12.5 s" in line
+    assert "tile probes took 1.2 s" in line and "poisoned launches 6.5 s" in line
+
+
+def test_sweep_planted_faults_are_flagged_on_the_cpu(smoke):
+    """The phase's planted faults with the plain versions standing in for
+    the kernels: a shifted probe box, a flash launch on k / v views
+    shifted into the poisoned tail, ``ops.attention`` on its plain path."""
+    import torch
+
+    from repro_torch.analysis import check, kernel_cases, kernel_lint
+    from repro_torch.kernels import ops, ref
+
+    boxes = [((qt, 0, 0), (64 * qt, 0, 0), (64 * qt + 64, 1, 1)) for qt in range(4)]
+    got, _ = kernel_lint.lint_tiles(kernel_lint.shift_box(boxes), (256, 1, 1),
+                                    kernel_lint.contract_for("flash_attention"))
+    assert smoke.planted_names(got) == {"output-overlap-undeclared", "output-not-covered"}
+
+    case = next(c for c in kernel_cases.sweep_cases("dbrx_132b")
+                if c.label == "dbrx_132b/tiny/flash_attention/ragged")
+    t = case.make("cpu", pad=kernel_lint.POISON_PAD)
+
+    def attend(q, k, v, out):
+        out[0].copy_(ref.attention_ref(q, k, v, causal=True))
+
+    ks, _ = smoke.shifted_kv(t[1], t[2])
+    shift = smoke.LEAK_SHIFT
+    assert ks.shape == t[1].shape and torch.equal(ks[0, :-shift], t[1][0, shift:])
+    assert kernel_lint.poison_case(case, t, launch=attend)[0] == []
+    got, _ = kernel_lint.poison_case(case, t, launch=smoke.leaky_flash(attend))
+    assert {"masked-tail-read", "masked-tail-guard-missing"} <= smoke.planted_names(got)
+
+    orig = ops.attention
+    with smoke.plain_attention():
+        assert ops.attention is not orig
+        viols, _ = check.check_kernel_cases([case], card=False)
+    assert ops.attention is orig
+    assert smoke.planted_names(viols) == {"kernel-launch-missing"}
+    assert check.check_kernel_cases([case], card=False)[0] == []
+
+
+@pytest.mark.parametrize("name,mapping", [
+    ("flash_attention", {"flash_tile()": 4}),
+    ("grouped_matmul", {"tile_coords(": 5, "locate_tile<": 3, "dw_tile(": 4}),
+    ("ssm_scan", {"scalar_item(": 3, "decode_ticket(": 3}),
+    ("gossip_axpy", {"scalar_head(": 3, "vectors_aligned(": 3, "whole_vectors(": 1,
+                     "whole_vectors<kVec>(": 2,
+                     "first_tile_vec()": 3, "tile_step_vecs()": 3}),
+])
+def test_each_library_exports_a_tile_probe_on_the_kernels_own_mapping(name, mapping):
+    """Each ``csrc/*.cu`` exports ``<name>_tile_probe`` (read from the
+    source: nvcc runs on the card's machine only), and its block -> tile
+    functions are called by the kernels and by the probe alike (their
+    definition, each kernel's call and the probe's)."""
+    src = (REPO / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
+    assert f'extern "C" int {name}_tile_probe(' in src
+    assert "emit_box(" in src and "_tile_probe_kernel" in src
+    for fn, n in mapping.items():
+        assert src.count(fn) >= n, (fn, src.count(fn))
+    assert "struct TileBox" in (REPO / "src" / "repro_torch" / "csrc" /
+                                "launch_config.cuh").read_text()
