@@ -49,12 +49,12 @@ non-zero exit:
 3. main    the decentralized trainer at full published width:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
-           paper8, MATCHA budget 0.5; first each matching's gather probe
-           over the (8, params per node) fp32 buffer; then masked gossip,
-           SGD lr 0.05 momentum
+           paper8, MATCHA budget 0.5; masked gossip, SGD lr 0.05 momentum
            0.9, 4 x 128 tokens per node, 5 steps, then 2 faulted steps
            (link drops at p_drop 0.35, per-node bits); launch counts,
-           per-step and per-phase times, dropped exchanges, peak memory,
+           each step's spans (unfenced, read after the step: the step,
+           fwd_bwd with forward and backward, optimizer, the gossip with
+           its target build and apply), dropped exchanges, peak memory,
            loss and consensus; then one more step whose gossip runs
            through the kernel and through the plain version from the same
            state, with the schedule row and with faulted bits, which must
@@ -270,7 +270,6 @@ NODES, BATCH, SEQ, STEPS = 8, 4, 128, 5
 FAULTED_STEPS, P_DROP = 2, 0.35  # faulted steps after the masked ones, drop rate
 CKPT_NODES = 2                  # nodes whose full-width state is checkpointed
 OVERLAP_STEPS, OVERLAP_FAULTED = 5, 2  # overlap steps at full width, then faulted ones
-PROBE_ITERS = 3                 # timed repetitions of each matching's gather probe
 SMALL_TOL = 1e-4                # card vs CPU, fp32 tiny preset, 2 steps
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
 # kernel vs plain version on the card: the kernels sum in another order
@@ -1797,16 +1796,17 @@ def peak_reading(torch) -> int:
 
 
 def phase_main(torch, cfg, plan):
-    """The full-width decentralized trainer: the per-matching probes,
-    masked steps, faulted steps, then overlap steps (plain and faulted)
-    and the flush; returns the kernel launches of the masked and the
-    overlap path, each counted from 0."""
+    """The full-width decentralized trainer: masked steps, faulted steps,
+    then overlap steps (plain and faulted) and the flush, each step's
+    spans read after it; returns the kernel launches of the masked and
+    the overlap path, each counted from 0."""
     from repro_torch.data.pipeline import DecentralizedBatches
     from repro_torch.dist import decen_train as dt
     from repro_torch.faults import FaultSpec, make_fault_schedule
     from repro_torch.kernels.gossip_axpy import gossip_axpy
     from repro_torch.models.transformer import Model
     from repro_torch.optim.optimizers import sgd
+    from repro_torch.telemetry import StepTimer, TraceRecorder
     from repro_torch.tree import flatten
 
     model = Model(cfg)
@@ -1814,7 +1814,6 @@ def phase_main(torch, cfg, plan):
         f"{cfg.num_kv_heads} head_dim {cfg.head_dim} d_ff {cfg.d_ff} vocab "
         f"{cfg.vocab_size}; reduced: num_layers 24 -> {cfg.num_layers} "
         f"(dataclasses.replace); {model.num_params()} params per replica")
-    probe_rows = phase_probes(torch, model, plan)
     total = STEPS + FAULTED_STEPS + 1
     schedule = plan.schedule(total, seed=0)
     t0 = time.perf_counter()
@@ -1829,8 +1828,9 @@ def phase_main(torch, cfg, plan):
         f"{time.perf_counter() - t0:.1f} s")
 
     fault_sched = make_fault_schedule(plan, total, FaultSpec(p_drop=P_DROP, seed=0))
-    steps = {False: dt.make_train_step(model, opt, plan, gossip_mode="masked"),
-             True: dt.make_train_step(model, opt, plan, gossip_mode="masked", faulted=True)}
+    timer = StepTimer(TraceRecorder())
+    steps = {f: dt.make_train_step(model, opt, plan, gossip_mode="masked", faulted=f,
+                                   timer=timer) for f in (False, True)}
     n_leaves = len(flatten(params))
     torch.cuda.reset_peak_memory_stats()
     gossip_axpy.launches = 0
@@ -1843,14 +1843,11 @@ def phase_main(torch, cfg, plan):
                                device="cuda")
         step = steps[faulted]
         before = gossip_axpy.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, losses, _ = step(params, opt_state, batches[k], bits)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        params, opt_state, losses, _ = step(params, opt_state, batches[k], bits, step=k)
+        phases = step.last_phases.ms()        # waits for the step's end event
+        step_ms.append(phases["step"])
         step_peaks.append(peak_reading(torch))
         launched = gossip_axpy.launches - before
-        phases = step.last_phases.ms()
         phase_ms.append(phases)
         loss = float(losses.mean())
         cons = float(dt.consensus_distance(params))
@@ -1858,8 +1855,12 @@ def phase_main(torch, cfg, plan):
         faults_note = (f" faulted (p_drop {P_DROP}): {fault_sched.dropped_links(row, k)} "
                        f"node-exchanges dropped, straggler delay "
                        f"{fault_sched.max_delay(k):g} units" if faulted else "")
-        log(f"main: step {k} {step_ms[-1]:.1f} ms (fwd_bwd {phases['fwd_bwd']:.1f}, "
-            f"optimizer {phases['optimizer']:.1f}, gossip {phases['gossip']:.1f} ms) "
+        log(f"main: step {k} {step_ms[-1]:.1f} ms (fwd_bwd {phases['fwd_bwd']:.1f}: forward "
+            f"{phases['forward']:.1f}, backward {phases['backward']:.1f}; optimizer "
+            f"{phases['optimizer']:.1f}; gossip {phases['gossip']:.1f}: target "
+            f"{phases['gossip/target']:.1f}, apply {phases['gossip/apply']:.1f} ms; "
+            f"pairs set {step.last_phases.counts()['pairs_set']:g} of "
+            f"{step.last_phases.counts()['pairs_exchanged']:g}) "
             f"gossip_axpy launches {launched} loss {loss:.4f} consensus {cons:.4e} "
             f"active {len(schedule.active_indices(k))}/{plan.num_matchings}{faults_note}")
         if launched != n_leaves:
@@ -1895,46 +1896,17 @@ def phase_main(torch, cfg, plan):
     torch.cuda.empty_cache()
     masked = dict(step_ms=step_ms[mid], phases=phase_ms[mid], peak=peak)
     overlap_launches = phase_overlap(torch, model, opt, plan, params, opt_state, batches,
-                                     probe_rows, masked)
+                                     masked)
     return launches + overlap_launches
 
 
-def phase_probes(torch, model, plan):
-    """Each matching's gather ``x[pi_j]`` over the (nodes, params per
-    node) fp32 buffer at full width, timed by CUDA events, before any
-    training state exists; returns the probe rows."""
-    from repro_torch.telemetry import StepTimer, TraceRecorder
-    from repro_torch.telemetry import probes as tprobes
-
-    rec = TraceRecorder()
-    elems = model.num_params()
-    t0 = time.perf_counter()
-    rows = tprobes.measure_matchings(plan, per_node_elements=elems, timer=StepTimer(rec),
-                                     iters=PROBE_ITERS, device="cuda")
-    secs = time.perf_counter() - t0
-    events = rec.events()
-    if [e.name for e in events] != [f"gossip/matching{r['matching']}" for r in rows
-                                    for _ in range(PROBE_ITERS)]:
-        fail(f"probes: events {[e.name for e in events][:8]}... do not follow the rows")
-    # a gather reads the buffer once and writes one copy
-    bound = 2 * 4 * NODES * elems / HBM_BYTES_PER_S * 1e3
-    log(f"probes: per-matching gather of ({NODES}, {elems}) fp32 "
-        f"({4 * NODES * elems / 1e9:.2f} GB), {PROBE_ITERS} timed of each after 1 warm-up, "
-        f"{secs:.1f} s with set-up: " + ", ".join(
-            f"m{r['matching']} mean {r['mean_ms']:.3f} (p50 {r['p50_ms']:.3f}, p95 "
-            f"{r['p95_ms']:.3f})" for r in rows)
-        + f" ms; bound {bound:.3f} ms (bytes); events {len(events)} (cat comm, tid 1)")
-    if not all(math.isfinite(r["mean_ms"]) and r["mean_ms"] > 0 for r in rows):
-        fail(f"probes: bad times {rows}")
-    torch.cuda.empty_cache()
-    return rows
-
-
-def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_rows, masked):
+def phase_overlap(torch, model, opt, plan, params, opt_state, batches, masked):
     """Overlap steps at full width from the masked run's state, then
-    faulted overlap steps and the flush: step times against the masked
-    median, overlap_ratio, the gossip_launch span on the side stream,
-    peak memory and the GossipState bytes; the gossip_axpy launches (12 a
+    faulted overlap steps and the flush: step times (from the step
+    span's start on the main stream to the later of its end and the
+    side stream's gossip_launch end) against the masked median,
+    overlap_ratio, the gossip_launch span on the side stream, peak
+    memory and the GossipState bytes; the gossip_axpy launches (12 a
     step, 12 for the flush) are returned. Before the flush, the pending
     correction lands through the kernel and through the plain version
     from the same state, leaf by leaf, bit for bit."""
@@ -1955,7 +1927,6 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
     steps = {f: dt.make_train_step(model, opt, plan, gossip_mode="overlap", bucket_plan=bplan,
                                    faulted=f, timer=timer) for f in (False, True)}
     flush = dt.make_gossip_flush(plan, bplan)
-    probe_ms = {r["matching"]: r["mean_ms"] for r in probe_rows}
     n_leaves = len(flatten(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1972,40 +1943,34 @@ def phase_overlap(torch, model, opt, plan, params, opt_state, batches, probe_row
         bits = torch.as_tensor(fault_sched.node_bits(row, k) if faulted else row, device="cuda")
         step = steps[faulted]
         before = gossip_axpy.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with timer.phase("step", cat="step", step=k) as span:
-            params, opt_state, gstate, losses, _ = step(
-                params, opt_state, gstate, batches[k % len(batches)], bits, step=k)
-            span.fence(losses)       # a device-wide synchronize: the side stream too
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        step.record_launch_spans(wait=True)
+        params, opt_state, gstate, losses, _ = step(
+            params, opt_state, gstate, batches[k % len(batches)], bits, step=k)
+        # reading the spans waits for both streams' end events
+        events = {e.name: e.args for e in step.last_phases.events()
+                  if e.name in ("step", "gossip_launch")}
+        phases = step.last_phases.ms()
+        main = events["step"]
+        begin = (events["gossip_launch"]["device_start_us"] - main["device_start_us"]) / 1e3
+        launch_ms = phases["gossip_launch"]
+        step_ms.append(max(main["device_dur_us"] / 1e3, begin + launch_ms))
         step_peaks.append(peak_reading(torch))
         launched = gossip_axpy.launches - before
-        phases = step.last_phases.ms()
         apply_ms.append(phases["gossip_apply"])
-        events = rec.events()
-        step_ev = [e for e in events if e.name == "step" and e.step == k][-1]
-        launch_ev = [e for e in events if e.name == "gossip_launch" and e.step == k][-1]
-        begin = (launch_ev.ts_us - step_ev.ts_us) / 1e3
-        active = schedule.active_indices(k)
-        m = tprobes.step_metrics(step=k, step_ms=step_ms[-1],
-                                 comm_ms=sum(probe_ms[j] for j in active), gossip_mode="overlap")
+        m = tprobes.step_metrics(step=k, step_ms=step_ms[-1], comm_ms=launch_ms,
+                                 gossip_mode="overlap")
         loss = float(losses.mean())
         cons = float(dt.consensus_distance(params))
         cons_peaks.append(peak_reading(torch))
-        main_ms = sum(phases.values())
+        main_ms = phases["gossip_apply"] + phases["fwd_bwd"] + phases["optimizer"]
         faults_note = (f" faulted (p_drop {P_DROP}): {fault_sched.dropped_links(row, k)} "
                        f"node-exchanges dropped" if faulted else "")
         log(f"overlap: step {k} {step_ms[-1]:.1f} ms (main stream: gossip_apply "
             f"{phases['gossip_apply']:.1f}, fwd_bwd {phases['fwd_bwd']:.1f}, optimizer "
             f"{phases['optimizer']:.1f} ms); gossip_launch on the side stream "
-            f"{step.last_launch_ms:.1f} ms, from {begin:.1f} to "
-            f"{begin + step.last_launch_ms:.1f} ms of the step; both streams busy "
-            f"{main_ms + step.last_launch_ms - step_ms[-1]:.1f} ms; probes of the "
-            f"{len(active)} active matchings {m['comm_ms']:.2f} ms, overlap_ratio "
-            f"{m['overlap_ratio']:.4f}; gossip_axpy launches {launched} loss {loss:.4f} "
-            f"consensus {cons:.4e}{faults_note}")
+            f"{launch_ms:.1f} ms, from {begin:.1f} to {begin + launch_ms:.1f} ms of the "
+            f"step; both streams busy {main_ms + launch_ms - step_ms[-1]:.1f} ms; "
+            f"overlap_ratio {m['overlap_ratio']:.4f}; gossip_axpy launches {launched} loss "
+            f"{loss:.4f} consensus {cons:.4e}{faults_note}")
         if launched != n_leaves:
             fail(f"overlap step {k}: {launched} gossip_axpy launches, expected {n_leaves}")
         if not (math.isfinite(loss) and math.isfinite(cons)):
@@ -2130,10 +2095,12 @@ def fsdp_sharded(torch, model, opt, plan, spec, layout, batches, bits, mode):
     numbers (step times, phase splits, launches, resident and peak)."""
     from repro_torch.dist import fsdp
     from repro_torch.kernels.gossip_axpy import gossip_axpy
+    from repro_torch.telemetry import StepTimer, TraceRecorder
 
     shards = fsdp.init_fsdp_params(model, layout, spec, seed=0, device=FSDP_DEVICE)
     opt_state = fsdp.init_fsdp_opt_state(opt, layout, spec, device=FSDP_DEVICE)
-    step = fsdp.make_fsdp_train_step(model, opt, plan, spec, layout, gossip_mode=mode)
+    step = fsdp.make_fsdp_train_step(model, opt, plan, spec, layout, gossip_mode=mode,
+                                     timer=StepTimer(TraceRecorder()))
     gstate = fsdp.init_fsdp_gossip_state(layout, spec, device=FSDP_DEVICE) if mode == "overlap" \
         else None
     torch.cuda.synchronize()
@@ -3765,8 +3732,10 @@ def check_traces(torch):
     os.makedirs(parent, exist_ok=True)
     root = tempfile.mkdtemp(prefix="trace-", dir=parent)
     try:
-        for mode, want in (("masked", {"step", "fwd_bwd", "optimizer", "gossip"}),
-                           ("overlap", {"step", "gossip_launch"})):
+        for mode, want in (("masked", {"step", "fwd_bwd", "forward", "backward", "optimizer",
+                                       "gossip", "gossip/target", "gossip/apply"}),
+                           ("overlap", {"step", "forward", "backward", "gossip_apply",
+                                        "gossip_launch"})):
             out = os.path.join(root, mode)
             train.main(["--preset", "tiny", "--steps", "3", "--gossip-mode", mode,
                         "--trace", out])
@@ -3775,14 +3744,16 @@ def check_traces(torch):
                 metrics = [json.loads(line) for line in f]
             names = {e.name for e in events}
             if (header["meta"]["device"] != "cuda" or [m["step"] for m in metrics] != [0, 1, 2]
-                    or not want | {"gossip/matching0"} <= names
+                    or not want <= names
+                    or any(n.startswith("gossip/matching") for n in names)
                     or read_chrome_trace(os.path.join(out, "trace.json")) != events):
                 fail(f"train --trace ({mode}): {sorted(names)}, metrics {metrics}")
             launch = [e for e in events if e.name == "gossip_launch"]
             log(f"check: launch.train --trace ({mode}) on the card: {len(events)} events "
                 f"({sorted(names)}); metrics steps 0-2, step ms "
                 + ", ".join(f"{m['step_ms']:.1f}" for m in metrics)
-                + (", gossip_launch ms " + ", ".join(f"{e.dur_us / 1e3:.2f}" for e in launch)
+                + (", gossip_launch ms " + ", ".join(f"{e.args['device_dur_us'] / 1e3:.2f}"
+                                                     for e in launch)
                    if launch else ""))
         out = os.path.join(root, "serve")
         serve.main(["--preset", "tiny", "--batch", "2", "--prompt-len", "32", "--gen", "4",

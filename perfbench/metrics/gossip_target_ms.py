@@ -1,0 +1,15 @@
+"""Mean milliseconds a step of the ``gossip/target`` spans that
+``TrainStep`` records inside its ``gossip``: each leaf's fp32 target
+build (the partners' gathers, subtracts, scales and adds), apart from
+``ops.gossip_apply`` (CUDA events, unfenced; summed over a step's
+leaves, averaged over the traced window's steps after the profiled ones
+and the ranks). A split of the card's time: a window whose profile saw
+no device activity (a run on the CPU, where the spans time the host)
+reads nothing."""
+
+
+def read(rec):
+    per = [p.get("gossip/target") for w in rec.windows
+           if (w.get("profile") or {}).get("busy_s") for p in w.get("phases", [])]
+    per = [v for v in per if v is not None]
+    return sum(per) / len(per) if per else None

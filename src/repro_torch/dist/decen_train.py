@@ -42,16 +42,21 @@ and every reduction over the parameters (``consensus_distance``, the
 global-norm clip) counts a split leaf's slices over the model group and
 a replicated leaf once.
 
-``make_phased_train_step`` is the telemetry variant: the same step with
-every phase span fenced and recorded into a ``StepTimer``
-(``repro_torch.telemetry``); overlap is refused there and timed whole
-step instead.
+A step built with a ``timer`` (``repro_torch.telemetry.StepTimer``)
+records its spans (``telemetry.timers``): ``step``, and inside it each
+node's ``fwd_bwd`` (``forward``, ``backward``) and ``optimizer``, then
+``gossip`` (each leaf's ``gossip/target`` and ``gossip/apply``) with the
+exchange's counters, or the overlap step's ``gossip_apply`` and
+``gossip_launch``; nothing is fenced, and the arithmetic is the same, so
+the results are bit-equal to the untraced step's. A step built without a
+timer keeps the same spans (not the counters) on a timer of its own, a
+call's at a time, for ``last_phases``: the form the benchmark's traced
+run reads. A disabled timer (``StepTimer(None)``) turns them off: such a
+step reads no clock, creates no CUDA event and keeps no span list.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,14 +68,15 @@ from repro_torch.dist import sharding as shd
 from repro_torch.dist.gossip import (
     NodeAxis,
     delayed_delta_inplace,
+    exchange_counts,
     mix_matchings,
     mix_matchings_masked,
 )
 from repro_torch.kernels import ops
 from repro_torch.models.module import _assign
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
-from repro_torch.telemetry.timers import StepTimer
-from repro_torch.telemetry.trace import TraceEvent
+from repro_torch.telemetry.timers import NO_SPANS, StepSpans, StepTimer
+from repro_torch.telemetry.trace import TraceRecorder
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 PyTree = Any
@@ -422,55 +428,6 @@ def make_gossip_flush(plan, bplan: bucketing.BucketPlan):
 # ---------------------------------------------------------------------------
 # Train steps
 # ---------------------------------------------------------------------------
-class PhaseTimes:
-    """Time per phase of one step, summed over the phase's spans.
-
-    Without a timer: CUDA events on the card (read back lazily; reading
-    synchronizes), the host clock on the CPU, and nothing is fenced.
-    With a ``StepTimer`` (the phased step): every span ends with
-    ``torch.cuda.synchronize`` and is timed by the host clock, and an
-    enabled timer records it as one event (cat ``phase``, tid 0)."""
-
-    def __init__(self, device, timer=None, step: int = -1):
-        self._device = torch.device(device)
-        self._cuda = self._device.type == "cuda"
-        self._timer = timer
-        self._step = step
-        self._spans = []
-
-    @contextlib.contextmanager
-    def span(self, name: str, **args):
-        if self._timer is not None:
-            with self._timer.phase(name, cat="phase", step=self._step, tid=0, **args):
-                t0 = time.perf_counter()
-                yield
-                if self._cuda:
-                    torch.cuda.synchronize(self._device)
-                self._spans.append((name, (time.perf_counter() - t0) * 1e3))
-        elif self._cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self._spans.append((name, start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._spans.append((name, (time.perf_counter() - t0) * 1e3))
-
-    def ms(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for name, *t in self._spans:
-            if len(t) == 2:
-                t[1].synchronize()
-                dt = t[0].elapsed_time(t[1])
-            else:
-                dt = t[0]
-            out[name] = out.get(name, 0.0) + dt
-        return out
-
-
 class TrainStep:
     """One decentralized step over node-stacked state:
 
@@ -484,12 +441,15 @@ class TrainStep:
     per node, shape (nodes,). With a ``spec`` over several data ranks
     ``params``/``opt_state`` hold this rank's nodes, ``batch`` and
     per-node ``bits`` are the run's (each rank keeps its rows), and the
-    results are this rank's nodes'. After a call, ``last_phases.ms()`` (or
-    ``last_phase_ms``) splits its time into fwd_bwd, optimizer and
-    gossip. With a ``timer`` every phase span is fenced and recorded
-    (``make_phased_train_step``); the arithmetic is the same, so the
-    results are bit-equal to the unphased step's. ``step=k`` names the
-    step in the recorded events.
+    results are this rank's nodes'. With a ``timer`` the step records
+    its spans, unfenced (see the module docstring), and after a call
+    ``last_phases`` is their ``telemetry.timers.StepSpans`` view:
+    ``last_phases.ms()`` (or ``last_phase_ms``) splits the step's device
+    time by span name, and ``last_phases.counts()`` holds the gossip's
+    ``pairs_exchanged`` and ``pairs_set``. ``step=k`` names the step in
+    the spans. Without a timer ``last_phases`` is the view of the same
+    spans on the step's own timer, without the counters; with a disabled
+    timer it stays ``None``.
     """
 
     def __init__(self, model, opt: Optimizer, plan, *, gossip_mode: str,
@@ -506,11 +466,30 @@ class TrainStep:
         self.grad_clip = grad_clip
         self.faulted = faulted
         self.timer = timer
+        # without a timer, the spans of one call at a time for last_phases
+        self._own = StepTimer(TraceRecorder(capacity=1024)) if timer is None else None
         self.last_phases = None
 
     @property
     def last_phase_ms(self) -> Dict[str, float]:
         return self.last_phases.ms() if self.last_phases is not None else {}
+
+    def _spans(self, step: int, device):
+        """This call's spans: on the step's timer, on its own without one,
+        ``NO_SPANS`` with a disabled one."""
+        timer = self._own if self.timer is None else self.timer
+        if not timer.enabled:
+            self.last_phases = None
+            return NO_SPANS
+        self.last_phases = StepSpans(timer, step=step, device=device)
+        return self.last_phases
+
+    def _count(self, span, bits, *, active=None, gate_bits=None) -> None:
+        """The exchange's (matching, node) pairs on ``span``, when traced."""
+        if self.timer is not None and self.timer.enabled:
+            span.count(**exchange_counts(bits, self.perms, self.num_local, active=active,
+                                         gate_bits=gate_bits, nodes=self.nodes,
+                                         device=self.last_phases.device))
 
     def _check_bits(self, bits) -> None:
         ndim, want = (2, "(nodes, M)") if self.faulted else (1, "(M,)")
@@ -518,19 +497,21 @@ class TrainStep:
             raise ValueError(f"a step built with faulted={self.faulted} takes "
                              f"{want} bits, got shape {tuple(np.shape(bits))}")
 
-    def _local_sgd(self, params, opt_state, batch, i: int, phases: PhaseTimes):
+    def _local_sgd(self, params, opt_state, batch, i: int, spans):
         """Node i's fwd/bwd and SGD update, written into its slices.
         Only this node's grads are alive at a time."""
-        with phases.span("fwd_bwd", node=i):
+        with spans("fwd_bwd", node=i):
             p_i = tree_map(lambda a: a[i].detach().requires_grad_(), params)
             b_i = {k: v[i] for k, v in batch.items()}
-            with self._rules():
+            with spans("forward", node=i), self._rules():
                 loss, metrics = self.model.loss(p_i, b_i)
-                grads = iter(torch.autograd.grad(loss, tree_leaves(p_i)))
-            g_i = tree_map(lambda _: next(grads), p_i)
-            if self.grad_clip:
-                g_i = self._clip(g_i)
-        with phases.span("optimizer", node=i), torch.no_grad():
+            with spans("backward", node=i):
+                with self._rules():
+                    grads = iter(torch.autograd.grad(loss, tree_leaves(p_i)))
+                g_i = tree_map(lambda _: next(grads), p_i)
+                if self.grad_clip:
+                    g_i = self._clip(g_i)
+        with spans("optimizer", node=i), torch.no_grad():
             p_view = tree_map(lambda a: a[i], params)
             s_view = tree_map(lambda a: a[i], opt_state)
             updates, s_new = self.opt.update(g_i, s_view, p_view)
@@ -558,11 +539,11 @@ class TrainStep:
     def num_local(self) -> int:
         return self.spec.local_nodes if self.spec is not None else self.perms.shape[1]
 
-    def _every_node(self, params, opt_state, batch, phases: PhaseTimes):
+    def _every_node(self, params, opt_state, batch, spans):
         if self.spec is not None:
             batch = self.spec.local(batch)
         per_node = [
-            self._local_sgd(params, opt_state, batch, i, phases)
+            self._local_sgd(params, opt_state, batch, i, spans)
             for i in range(self.num_local)
         ]
         losses = torch.stack([loss for loss, _ in per_node])
@@ -573,20 +554,22 @@ class TrainStep:
 
     def __call__(self, params, opt_state, batch, bits, *, step: int = -1):
         self._check_bits(bits)
-        device = tree_leaves(params)[0].device
-        phases = PhaseTimes(device, self.timer, step)
-        losses, metrics = self._every_node(params, opt_state, batch, phases)
-        with phases.span("gossip"), torch.no_grad():
-            # in place: each leaf's fp32 target is complete before its
-            # update overwrites the leaf, and nothing reads it afterwards
-            if self.gossip_mode == "masked":
-                mix_matchings_masked(params, self.alpha, self.perms, bits, inplace=True,
-                                     nodes=self.nodes)
-            elif self.gossip_mode == "static":
-                mix_matchings(params, self.alpha, self.perms, self.active,
-                              gate_bits=bits if self.faulted else None, inplace=True,
-                              nodes=self.nodes)
-        self.last_phases = phases
+        spans = self._spans(step, tree_leaves(params)[0].device)
+        with spans("step", cat="step"):
+            losses, metrics = self._every_node(params, opt_state, batch, spans)
+            with spans("gossip") as span, torch.no_grad():
+                # in place: each leaf's fp32 target is complete before its
+                # update overwrites the leaf, and nothing reads it afterwards
+                if self.gossip_mode == "masked":
+                    mix_matchings_masked(params, self.alpha, self.perms, bits, inplace=True,
+                                         nodes=self.nodes, spans=spans)
+                    self._count(span, bits)
+                elif self.gossip_mode == "static":
+                    gates = bits if self.faulted else None
+                    mix_matchings(params, self.alpha, self.perms, self.active,
+                                  gate_bits=gates, inplace=True, nodes=self.nodes,
+                                  spans=spans)
+                    self._count(span, bits, active=self.active, gate_bits=gates)
         return params, opt_state, losses, metrics
 
 
@@ -594,71 +577,35 @@ class DelayedLaunch:
     """The overlap mode's launch of the delayed exchange over the
     in-flight ``GossipState`` buffers, shared by the replicated
     :class:`OverlapStep` and the sharded ``repro_torch.dist.fsdp`` step:
-    on the card on a side CUDA stream that waits for the snapshot alone,
-    timed by CUDA events there; on the CPU in order, by the host clock.
-    The step class supplies ``perms``, ``nodes`` and ``alpha``."""
+    on the card on a side CUDA stream that waits for the snapshot alone;
+    on the CPU in order. With a timer the launch is the ``gossip_launch``
+    span (cat ``comm``, tid 1), its device interval on the side stream,
+    with the exchange's counters; ``last_launch_ms`` reads the newest
+    (waiting for it). The step class supplies ``perms``, ``nodes`` and
+    ``alpha``."""
 
-    def _init_launch(self, timer, num_buckets: int) -> None:
+    def _init_launch(self, num_buckets: int) -> None:
         self.num_buckets = num_buckets
-        self.launch_timer = timer if timer is not None and timer.enabled else None
-        self.last_launch_ms = None
         self._side = {}          # device -> (side stream, permutations on it)
-        self._pending = []       # launches whose events have not been read
 
-    def _anchor(self, device):
-        """Read the finished launches and, with a timer, an event on the
-        main stream that places this step's launch on the host clock."""
-        if device.type != "cuda":
-            return None
-        self.record_launch_spans()
-        if not self.launch_timer:
-            return None
-        ref = torch.cuda.Event(enable_timing=True)
-        anchor = (self.launch_timer.recorder.now_us(), ref)
-        ref.record()
-        return anchor
+    @property
+    def last_launch_ms(self) -> Optional[float]:
+        """The last call's launch time on the device; ``None`` with a
+        disabled timer."""
+        return self.last_phase_ms.get("gossip_launch")
 
-    def _launch(self, gstate: GossipState, bits, device, step: int, anchor) -> None:
+    def _launch(self, gstate: GossipState, bits, device, spans) -> None:
         with torch.no_grad():
             if device.type == "cuda":
-                self._launch_cuda(gstate, bits, device, step, anchor)
+                self._launch_cuda(gstate, bits, device, spans)
             else:
-                self._launch_cpu(gstate, bits, step)
+                with spans("gossip_launch", cat="comm", tid=1,
+                           buckets=self.num_buckets) as span:
+                    self._count(span, bits)
+                    delayed_delta_inplace(gstate.delta, bits, self.perms, nodes=self.nodes)
+                gstate.done = None
 
-    def record_launch_spans(self, *, wait: bool = False) -> None:
-        """Read the timing of every finished launch (every one, waiting
-        for the host, with ``wait``) into ``last_launch_ms`` and, with a
-        timer, the trace."""
-        keep = []
-        for step, anchor, start, done in self._pending:
-            if not wait and not done.query():
-                keep.append((step, anchor, start, done))
-                continue
-            done.synchronize()
-            # the start on the host clock: the anchor's host time plus the
-            # card's time from the anchor event to the launch
-            ts_us = anchor[0] + anchor[1].elapsed_time(start) * 1e3 if anchor else 0.0
-            self._finished(step, ts_us, start.elapsed_time(done))
-        self._pending = keep
-
-    def _finished(self, step: int, ts_us: float, ms: float) -> None:
-        self.last_launch_ms = ms
-        if self.launch_timer:
-            self.launch_timer.record(TraceEvent(
-                name="gossip_launch", cat="comm", ts_us=ts_us, dur_us=ms * 1e3,
-                step=step, pid=self.launch_timer.pid, tid=1,
-                args={"buckets": self.num_buckets},
-            ))
-
-    def _launch_cpu(self, gstate: GossipState, bits, step: int) -> None:
-        ts_us = self.launch_timer.recorder.now_us() if self.launch_timer else 0.0
-        t0 = time.perf_counter()
-        delayed_delta_inplace(gstate.delta, bits, self.perms, nodes=self.nodes)
-        gstate.done = None
-        self._finished(step, ts_us, (time.perf_counter() - t0) * 1e3)
-
-    def _launch_cuda(self, gstate: GossipState, bits, device, step: int,
-                     anchor) -> None:
+    def _launch_cuda(self, gstate: GossipState, bits, device, spans) -> None:
         if device not in self._side:
             self._side[device] = (
                 torch.cuda.Stream(device),
@@ -671,18 +618,19 @@ class DelayedLaunch:
         side.wait_stream(torch.cuda.current_stream(device))
         for t in (bits, idx) + tuple(gstate.delta):
             t.record_stream(side)
-        start = torch.cuda.Event(enable_timing=True)
-        done = torch.cuda.Event(enable_timing=True)
+        # the order the next reader of gstate waits on (not a timer)
+        done = torch.cuda.Event()
         with torch.cuda.stream(side):
-            start.record(side)
-            # over data ranks the exchange plans its own index; its
-            # send/recv handles make the side stream wait, not the main one
-            delayed_delta_inplace(gstate.delta, bits,
-                                  idx if self.nodes is None else self.perms,
-                                  nodes=self.nodes)
+            with spans("gossip_launch", cat="comm", tid=1, buckets=self.num_buckets) as span:
+                self._count(span, bits)
+                # over data ranks the exchange plans its own index; its
+                # send/recv handles make the side stream wait, not the main one
+                delayed_delta_inplace(gstate.delta, bits,
+                                      idx if self.nodes is None else self.perms,
+                                      nodes=self.nodes)
             done.record(side)
         gstate.done = done
-        self._pending.append((step, anchor, start, done))
+
 
 class OverlapStep(DelayedLaunch, TrainStep):
     """The overlap step (``gossip_mode="overlap"``):
@@ -704,36 +652,30 @@ class OverlapStep(DelayedLaunch, TrainStep):
     why the launch reads the snapshot and not the params. On the CPU the
     same operations run in order.
 
-    Each launch is timed: by CUDA events on the side stream on the card
-    (read by ``record_launch_spans`` once they completed; the newest in
-    ``last_launch_ms``), by the host clock on the CPU. An enabled
-    ``timer`` records each as one ``gossip_launch`` event (cat ``comm``,
-    tid 1), placed on the host clock through an event recorded on the
-    main stream as the step starts: exact when the card is idle then,
-    as it is after a fenced step. Nothing is fenced for it.
+    With a ``timer`` the spans are the sequential step's, with
+    ``gossip_apply`` and ``gossip_launch`` in place of ``gossip``.
     """
 
     def __init__(self, model, opt: Optimizer, plan, *, bucket_plan,
                  grad_clip: float, faulted: bool, timer=None,
                  spec: Optional[DistSpec] = None):
         super().__init__(model, opt, plan, gossip_mode="overlap", active=(),
-                         grad_clip=grad_clip, faulted=faulted, spec=spec)
+                         grad_clip=grad_clip, faulted=faulted, timer=timer, spec=spec)
         self.bplan = bucket_plan
-        self._init_launch(timer, bucket_plan.num_buckets)
+        self._init_launch(bucket_plan.num_buckets)
 
     def __call__(self, params, opt_state, gstate: GossipState, batch, bits, *,
                  step: int = -1):
         self._check_bits(bits)
         device = tree_leaves(params)[0].device
-        anchor = self._anchor(device)
-        phases = PhaseTimes(device)
-        with phases.span("gossip_apply"), torch.no_grad():
-            gstate.wait()
-            _apply_delayed(params, gstate.delta, self.bplan, self.alpha, inplace=True)
-            bucketing.ravel_stacked(self.bplan, params, out=gstate.delta)
-        self._launch(gstate, bits, device, step, anchor)
-        losses, metrics = self._every_node(params, opt_state, batch, phases)
-        self.last_phases = phases
+        spans = self._spans(step, device)
+        with spans("step", cat="step"):
+            with spans("gossip_apply"), torch.no_grad():
+                gstate.wait()
+                _apply_delayed(params, gstate.delta, self.bplan, self.alpha, inplace=True)
+                bucketing.ravel_stacked(self.bplan, params, out=gstate.delta)
+            self._launch(gstate, bits, device, spans)
+            losses, metrics = self._every_node(params, opt_state, batch, spans)
         return params, opt_state, gstate, losses, metrics
 
 
@@ -757,10 +699,11 @@ def make_train_step(
     per-node ``(nodes, M)`` bits; with all-ones gates a masked or overlap
     step's results are bit-equal to the default step's (static gossip
     sums gated deltas where its plain path sums partners, as in the JAX
-    package: fp32 rounding apart). ``timer`` (a ``StepTimer``) fences and
-    records the phases of a sequential step (``make_phased_train_step``)
-    and records an overlap step's launches without fencing anything.
-    ``spec``: the run's mesh when its nodes span several data ranks."""
+    package: fp32 rounding apart). ``timer`` (a ``StepTimer``) records
+    every step's spans and counters, unfenced; without one the step keeps
+    its last call's spans for ``last_phases``, and ``StepTimer(None)``
+    turns them off. ``spec``: the run's mesh when its nodes span several
+    data ranks."""
     if gossip_mode == "sequential":   # the JAX package's other spelling
         gossip_mode = "masked"
     if gossip_mode not in ("masked", "static", "overlap", "none"):
@@ -774,44 +717,3 @@ def make_train_step(
     return TrainStep(model, opt, plan, gossip_mode=gossip_mode,
                      active=active, grad_clip=grad_clip, faulted=faulted,
                      timer=timer, spec=spec)
-
-
-def make_phased_train_step(
-    model,
-    opt: Optimizer,
-    plan,
-    *,
-    timer=None,
-    gossip_mode: str = "masked",
-    active: Sequence[int] = (),
-    grad_clip: float = 0.0,
-    faulted: bool = False,
-    spec: Optional[DistSpec] = None,
-) -> TrainStep:
-    """Telemetry variant of :func:`make_train_step`: the same update, with
-    every fwd_bwd, optimizer (one each per node) and gossip span fenced
-    (``torch.cuda.synchronize``) so the host clock attributes wall time
-    per phase, and recorded into ``timer`` (``None`` times without
-    recording). Same call as the sequential step, with ``step=k``; after
-    each call ``step.last_phase_ms`` holds the phase-name ->
-    milliseconds dict of that call, and its results are bit-equal to the
-    unphased step's.
-
-    The fences cost the overlap of host and card at every boundary, so
-    this step is built only when ``--trace`` is on. ``overlap`` mode is
-    refused: fencing its phases would serialize the very overlap being
-    measured; overlap runs are timed whole-step, with per-matching probes
-    and the launch's own span.
-    """
-    if gossip_mode == "sequential":
-        gossip_mode = "masked"
-    if gossip_mode not in ("masked", "static", "none"):
-        raise ValueError(
-            "make_phased_train_step supports gossip_mode in "
-            f"('masked', 'static', 'none'); got {gossip_mode!r} "
-            "(overlap runs are timed whole-step: fencing phases would "
-            "serialize the overlap being measured)"
-        )
-    return make_train_step(model, opt, plan, gossip_mode=gossip_mode,
-                           active=active, grad_clip=grad_clip, faulted=faulted,
-                           timer=timer or StepTimer(), spec=spec)

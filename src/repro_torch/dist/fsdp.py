@@ -73,7 +73,6 @@ from repro_torch.dist.decen_train import (
     DelayedLaunch,
     DistSpec,
     GossipState,
-    PhaseTimes,
     TrainStep,
 )
 from repro_torch.dist.gossip import mix_matchings_masked
@@ -93,7 +92,6 @@ FP32_UPCAST_SITES = (
 )
 from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
-from repro_torch.telemetry.timers import StepTimer
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 PyTree = Any
@@ -559,18 +557,20 @@ def scatter_opt_state(layout: AnyFsdpLayout, opt: Optimizer, stacked_state: dict
 # ---------------------------------------------------------------------------
 # The fwd/bwd in each layout
 # ---------------------------------------------------------------------------
-def _grads_monolithic(model, layout: FsdpLayout, mesh, ps, batch, phases, node: int):
+def _grads_monolithic(model, layout: FsdpLayout, mesh, ps, batch, spans, node: int):
     """Gather the whole replica, fwd/bwd, then ravel and reduce-scatter
     the grads one bucket at a time (sum over the shard ranks)."""
-    with phases.span("gather", node=node), torch.no_grad():
+    with spans("gather", node=node), torch.no_grad():
         full = tuple(gather_shard(s, mesh) for s in ps)
-    with phases.span("fwd_bwd", node=node):
+    with spans("fwd_bwd", node=node):
         # unravel builds the tree in the plan's (sorted) leaf order
         p = tree_map(lambda a: a.detach().requires_grad_(), layout.unravel_cast(full))
-        loss, metrics = model.loss(p, batch)
-        grads = list(torch.autograd.grad(loss, tree_leaves(p)))
+        with spans("forward", node=node):
+            loss, metrics = model.loss(p, batch)
+        with spans("backward", node=node):
+            grads = list(torch.autograd.grad(loss, tree_leaves(p)))
         del p, full
-    with phases.span("reduce_scatter", node=node), torch.no_grad():
+    with spans("reduce_scatter", node=node), torch.no_grad():
         plan = layout.plan
         out = []
         for b, size in enumerate(plan.bucket_sizes):
@@ -722,10 +722,11 @@ class FsdpTrainStep(TrainStep):
     (each rank keeps its nodes and its ``1/S`` of each node's rows);
     ``bits`` the (M,) row, or with ``faulted`` the (nodes, M) per-node
     bits. ``losses`` and metrics: this rank's nodes, the mean over the
-    shard ranks. Spans per node: ``gather``, ``fwd_bwd``,
-    ``reduce_scatter`` (monolithic; streamed: ``fwd_bwd`` holds them),
-    ``optimizer``; then ``gossip``. With a ``timer`` every span is fenced
-    and recorded (``make_phased_fsdp_train_step``)."""
+    shard ranks. With a ``timer``, spans per node: ``gather``,
+    ``fwd_bwd`` (``forward``, ``backward``), ``reduce_scatter``
+    (monolithic; streamed: ``forward`` and ``backward`` hold them),
+    ``optimizer``; then ``gossip``, as the replicated step records
+    them, unfenced."""
 
     def __init__(self, model, opt: Optimizer, plan, spec: DistSpec, layout: AnyFsdpLayout,
                  *, gossip_mode: str, grad_clip: float, faulted: bool, timer=None):
@@ -755,20 +756,23 @@ class FsdpTrainStep(TrainStep):
             out[k] = v[:, s * per:(s + 1) * per]
         return out
 
-    def _node(self, shards, opt_state, batch, i: int, phases: PhaseTimes):
+    def _node(self, shards, opt_state, batch, i: int, spans):
         S = self.layout.num_shards
         b_i = {k: v[i] for k, v in batch.items()}
         with self._rules():
             if self.streaming:
-                with phases.span("fwd_bwd", node=i):
+                with spans("fwd_bwd", node=i):
                     ps = tuple(b[i].detach().requires_grad_() for b in shards)
-                    loss, metrics = _stream_loss(self.model, self.layout, ps, b_i, self.mesh)
-                    g = torch.autograd.grad(loss, ps)
+                    with spans("forward", node=i):
+                        loss, metrics = _stream_loss(self.model, self.layout, ps, b_i,
+                                                     self.mesh)
+                    with spans("backward", node=i):
+                        g = torch.autograd.grad(loss, ps)
                     del ps
             else:
                 loss, metrics, g = _grads_monolithic(
                     self.model, self.layout, self.mesh, tuple(b[i] for b in shards), b_i,
-                    phases, i)
+                    spans, i)
         with torch.no_grad():
             if S > 1:
                 g = tuple(x / S for x in g)
@@ -776,7 +780,7 @@ class FsdpTrainStep(TrainStep):
                 if self.spec.tp > 1 and self._weights is None:
                     self._weights = tp_weights(self.layout, self.spec, g[0].device)
                 g = _clip_sharded(g, self.grad_clip, self.spec, self._weights)
-        with phases.span("optimizer", node=i), torch.no_grad():
+        with spans("optimizer", node=i), torch.no_grad():
             p_view = _as_tree(b[i] for b in shards)
             s_view = {k: _as_tree(t[i] for t in v) if isinstance(v, tuple) else
                       tree_map(lambda a: a[i], v) for k, v in opt_state.items()}
@@ -785,9 +789,9 @@ class FsdpTrainStep(TrainStep):
             tree_map(lambda dst, src: dst.copy_(src), s_view, s_new)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def _every_node(self, shards, opt_state, batch, phases: PhaseTimes):
+    def _every_node(self, shards, opt_state, batch, spans):
         batch = self._sub_batch(batch)
-        per_node = [self._node(shards, opt_state, batch, i, phases)
+        per_node = [self._node(shards, opt_state, batch, i, spans)
                     for i in range(self.spec.local_nodes)]
         losses = torch.stack([loss for loss, _ in per_node])
         metrics = {k: torch.stack([m[k] for _, m in per_node]) for k in per_node[0][1]}
@@ -801,15 +805,16 @@ class FsdpTrainStep(TrainStep):
 
     def __call__(self, shards, opt_state, batch, bits, *, step: int = -1):
         self._check_bits(bits)
-        phases = PhaseTimes(shards[0].device, self.timer, step)
-        losses, metrics = self._every_node(shards, opt_state, batch, phases)
-        if self.gossip_mode == "sequential":
-            # the masked exchange on the bucket shards: shard s meets
-            # shard s of the partner, 1/S of the replicated bytes
-            with phases.span("gossip"), torch.no_grad():
-                mix_matchings_masked(_as_tree(shards), self.alpha, self.perms, bits,
-                                     inplace=True, nodes=self.nodes)
-        self.last_phases = phases
+        spans = self._spans(step, shards[0].device)
+        with spans("step", cat="step"):
+            losses, metrics = self._every_node(shards, opt_state, batch, spans)
+            if self.gossip_mode == "sequential":
+                # the masked exchange on the bucket shards: shard s meets
+                # shard s of the partner, 1/S of the replicated bytes
+                with spans("gossip") as span, torch.no_grad():
+                    mix_matchings_masked(_as_tree(shards), self.alpha, self.perms, bits,
+                                         inplace=True, nodes=self.nodes, spans=spans)
+                    self._count(span, bits)
         return shards, opt_state, losses, metrics
 
 
@@ -835,23 +840,22 @@ class FsdpOverlapStep(DelayedLaunch, FsdpTrainStep):
     def __init__(self, model, opt, plan, spec, layout, *, grad_clip: float, faulted: bool,
                  timer=None):
         super().__init__(model, opt, plan, spec, layout, gossip_mode="overlap",
-                         grad_clip=grad_clip, faulted=faulted)
-        self._init_launch(timer, layout.plan.num_buckets)
+                         grad_clip=grad_clip, faulted=faulted, timer=timer)
+        self._init_launch(layout.plan.num_buckets)
 
     def __call__(self, shards, opt_state, gstate: GossipState, batch, bits, *,
                  step: int = -1):
         self._check_bits(bits)
         device = shards[0].device
-        anchor = self._anchor(device)
-        phases = PhaseTimes(device)
-        with phases.span("gossip_apply"), torch.no_grad():
-            gstate.wait()
-            _land(shards, gstate, self.alpha, inplace=True)
-            for d, x in zip(gstate.delta, shards):
-                d.copy_(x)
-        self._launch(gstate, bits, device, step, anchor)
-        losses, metrics = self._every_node(shards, opt_state, batch, phases)
-        self.last_phases = phases
+        spans = self._spans(step, device)
+        with spans("step", cat="step"):
+            with spans("gossip_apply"), torch.no_grad():
+                gstate.wait()
+                _land(shards, gstate, self.alpha, inplace=True)
+                for d, x in zip(gstate.delta, shards):
+                    d.copy_(x)
+            self._launch(gstate, bits, device, spans)
+            losses, metrics = self._every_node(shards, opt_state, batch, spans)
         return shards, opt_state, gstate, losses, metrics
 
 
@@ -863,32 +867,14 @@ def make_fsdp_train_step(model, opt: Optimizer, plan, spec: DistSpec, layout: An
     picks the materialization: ``FsdpLayout`` gathers the whole model,
     ``FsdpStreamLayout`` one layer group (or one scan row) at a time.
     ``faulted=True`` takes per-node ``(nodes, M)`` bits; all-ones gates
-    reproduce the default step bit for bit."""
+    reproduce the default step bit for bit. ``timer`` records every
+    step's spans, unfenced; without one, or with ``StepTimer(None)``, as
+    ``decen_train.make_train_step``."""
     if gossip_mode == "overlap":
         return FsdpOverlapStep(model, opt, plan, spec, layout, grad_clip=grad_clip,
                                faulted=faulted, timer=timer)
     return FsdpTrainStep(model, opt, plan, spec, layout, gossip_mode=gossip_mode,
                          grad_clip=grad_clip, faulted=faulted, timer=timer)
-
-
-def make_phased_fsdp_train_step(model, opt: Optimizer, plan, spec: DistSpec,
-                                layout: AnyFsdpLayout, *, timer=None,
-                                gossip_mode: str = "sequential", grad_clip: float = 0.0,
-                                faulted: bool = False) -> FsdpTrainStep:
-    """Telemetry variant of :func:`make_fsdp_train_step`: every span
-    fenced and recorded into ``timer``; ``step.last_phase_ms`` holds a
-    call's phase-name -> ms. Overlap is refused (fencing would serialize
-    the overlap being measured); the isolated gather / reduce-scatter
-    costs come from ``telemetry.probes.measure_fsdp_collectives``."""
-    if gossip_mode == "masked":
-        gossip_mode = "sequential"
-    if gossip_mode not in ("sequential", "none"):
-        raise ValueError(
-            "make_phased_fsdp_train_step supports gossip_mode in ('sequential', "
-            f"'none'); got {gossip_mode!r} (overlap runs are timed whole-step: "
-            "fencing phases would serialize the overlap being measured)")
-    return FsdpTrainStep(model, opt, plan, spec, layout, gossip_mode=gossip_mode,
-                         grad_clip=grad_clip, faulted=faulted, timer=timer or StepTimer())
 
 
 def make_fsdp_gossip_flush(plan, layout: AnyFsdpLayout):

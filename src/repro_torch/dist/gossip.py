@@ -40,6 +40,12 @@ bit against the single-process run. Masked gossip exchanges all M
 matchings, as the JAX package's does.
 
 ``mix_dense`` is the O(m^2) oracle the tests hold the others to.
+
+``spans`` (a traced step's ``telemetry.timers.StepSpans``) records each
+leaf's ``gossip/target`` (the fp32 target build) and ``gossip/apply``
+(``ops.gossip_apply``), with the leaf's path and bytes;
+``exchange_counts`` is the step's counter of the (matching, node) pairs
+exchanged and of those whose bit was set.
 """
 from __future__ import annotations
 
@@ -51,7 +57,8 @@ import torch
 
 from repro_torch.dist import comm
 from repro_torch.kernels import ops
-from repro_torch.tree import tree_map
+from repro_torch.telemetry.timers import NO_SPANS
+from repro_torch.tree import tree_map, tree_map_with_path
 
 PyTree = Any
 
@@ -219,6 +226,50 @@ def _node_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (ndim - 1))
 
 
+def _per_leaf(stacked: PyTree, target, alpha: float, *, impl: str, inplace: bool,
+              spans) -> PyTree:
+    """Every floating leaf through ``ops.gossip_apply`` with its fp32
+    ``target(x)``, one leaf at a time, each half in its span."""
+
+    def leaf(path, x):
+        if not x.is_floating_point():
+            return x
+        nbytes = x.numel() * x.element_size()
+        with spans("gossip/target", leaf=path, bytes=nbytes):
+            y = target(x)
+        with spans("gossip/apply", leaf=path, bytes=nbytes):
+            return ops.gossip_apply(x, y, float(alpha), impl=impl, inplace=inplace)
+
+    return tree_map_with_path(leaf, stacked)
+
+
+def exchange_counts(bits, permutations, local_nodes: int, *, active=None, gate_bits=None,
+                    nodes: Optional[NodeAxis] = None, device) -> dict:
+    """One step's counter at the gossip boundary, as device tensors:
+    ``pairs_exchanged``, the (matching, node) pairs of this rank's nodes
+    the exchange ran, and ``pairs_set``, those with their bit set. The
+    masked exchange (``active`` None) runs every matching, weighted by
+    the ``(M,)`` row or the per-node ``(nodes, M)`` bits; the static one
+    runs the ``active`` matchings, each set, or weighted by the per-node
+    ``gate_bits``."""
+    num = int(np.shape(permutations)[0])
+    if active is None:
+        per_node = np.ndim(bits) == 2
+        shape = (local_nodes, num) if per_node else (num,)
+        b = _as_f32(_local_bits(bits, nodes), device, shape, "activation bits")
+        pairs = local_nodes * num
+        got = b.sum() if per_node else b.sum() * local_nodes
+    else:
+        active = _canonical_active(active, num)
+        pairs = local_nodes * len(active)
+        if gate_bits is None or not active:
+            got = torch.full((), float(pairs), device=device)
+        else:
+            g = _as_f32(_local_bits(gate_bits, nodes), device, (local_nodes, num), "gate_bits")
+            got = torch.stack([g[:, j].sum() for j in active]).sum()
+    return {"pairs_exchanged": torch.full((), float(pairs), device=device), "pairs_set": got}
+
+
 def mix_dense(stacked: PyTree, W) -> PyTree:
     """out_i = sum_j W[i, j] x_j with fp32 accumulation (test oracle)."""
 
@@ -241,13 +292,15 @@ def mix_matchings(
     gate_bits=None,                       # (m, M) per-node gates in {0, 1}
     inplace: bool = False,
     nodes: Optional[NodeAxis] = None,
+    spans=NO_SPANS,
 ) -> PyTree:
     """Static-activation gossip: x + alpha * sum_{j in active} (pi_j(x) - x).
 
     Only the active matchings are gathered. ``gate_bits`` (optional,
     ``(nodes, M)``) scales each node's delta for each matching, the JAX
     package's fault-degradation path; ``None`` is the plain update.
-    ``nodes``: this rank's node range, when the nodes span data ranks."""
+    ``nodes``: this rank's node range, when the nodes span data ranks;
+    ``spans``: a traced step's spans."""
     num, _ = np.shape(permutations)
     active = _canonical_active(active, num)
     if not active:
@@ -273,12 +326,7 @@ def mix_matchings(
                 _node_view(gates[:, j], x.dim())))
         return delta.add_(xf)
 
-    def leaf(x):
-        if not x.is_floating_point():
-            return x
-        return ops.gossip_apply(x, target(x), float(alpha), impl=impl, inplace=inplace)
-
-    return tree_map(leaf, stacked)
+    return _per_leaf(stacked, target, alpha, impl=impl, inplace=inplace, spans=spans)
 
 
 def mix_matchings_masked(
@@ -290,11 +338,13 @@ def mix_matchings_masked(
     impl: str = "auto",
     inplace: bool = False,
     nodes: Optional[NodeAxis] = None,
+    spans=NO_SPANS,
 ) -> PyTree:
     """Masked gossip: every matching's exchange runs, each delta scaled
     by its activation bit — the JAX package's one-executable schedule
     mode, and the main path's gossip. ``nodes``: this rank's node range,
-    when the nodes span data ranks (every matching is exchanged).
+    when the nodes span data ranks (every matching is exchanged);
+    ``spans``: a traced step's spans.
 
     ``bits`` is the (M,) schedule row, or the faulted step's ``(nodes,
     M)`` per-node effective bits (``FaultSchedule.node_bits``: the row
@@ -325,12 +375,7 @@ def mix_matchings_masked(
         # modes diverge for bf16 params
         return delta.add_(xf)
 
-    def leaf(x):
-        if not x.is_floating_point():
-            return x
-        return ops.gossip_apply(x, target(x), float(alpha), impl=impl, inplace=inplace)
-
-    return tree_map(leaf, stacked)
+    return _per_leaf(stacked, target, alpha, impl=impl, inplace=inplace, spans=spans)
 
 
 # ---------------------------------------------------------------------------

@@ -27,15 +27,19 @@ the pending exchange landed while the run keeps it pending (so a resumed
 run, starting from a zero ``GossipState``, ends bit-equal to an
 unbroken one), and the run ends by landing the last exchange.
 
-``--trace DIR`` measures the run: the sequential modes run the phased
-step (every fwd_bwd, optimizer and gossip span fenced), overlap runs are
-timed whole-step with their side-stream launch as a ``gossip_launch``
-span, each matching's gather is probed once up front, every step prints
-a metrics line (step ms, comm ms, overlap ratio, modeled bytes), and DIR
-receives ``events.jsonl``, ``trace.json`` and ``metrics.jsonl`` (schema
-``repro.telemetry/1``, which the JAX package's readers load). Fencing
-costs the overlap of host and card, so traced step times are an upper
-bound.
+``--trace DIR`` measures the run: the step records its spans
+(``repro_torch.telemetry.timers``), unfenced: ``step``, each node's
+``fwd_bwd`` (``forward``, ``backward``) and ``optimizer``, the
+``gossip`` with each leaf's ``gossip/target`` and ``gossip/apply``, or
+overlap's ``gossip_apply`` and its side-stream ``gossip_launch``. Every
+step prints a metrics line (the ``step`` span's ms; comm ms, the
+``gossip`` span in the sequential modes and the ``gossip_launch`` span
+in overlap; overlap ratio; modeled bytes), reading the spans after the
+step returns, and DIR receives ``events.jsonl``, ``trace.json`` and
+``metrics.jsonl`` (schema ``repro.telemetry/1``, which the JAX
+package's readers load). Nothing inside a step is fenced, so the step
+times are the card's, not a fenced upper bound; the host waits for each
+step before the next is issued, as it does for the loss.
 
 ``--model-par T`` trains tensor-parallel over a ``model`` axis of T
 ranks (``repro_torch.dist.sharding``'s rules, ``repro_torch.models.tp``),
@@ -369,8 +373,7 @@ def _train(args, device, spec):
            + f" ({spec.local_nodes} nodes a data rank)" if spread else ""))
 
     # --- telemetry (--trace DIR) -----------------------------------------
-    # A disabled StepTimer's spans are shared no-ops, so the untraced loop
-    # runs the same steps as before, unfenced.
+    # An untraced step gets a disabled timer and records nothing.
     from repro_torch.telemetry import StepTimer, TraceRecorder
 
     traced = bool(args.trace)
@@ -385,11 +388,6 @@ def _train(args, device, spec):
             device=str(device),
         ))
     timer = StepTimer(recorder)
-    # phased steps (per-phase fenced timing) for the sequential modes;
-    # overlap keeps its step, since fencing its phases would serialize the
-    # very overlap being measured, and is timed whole-step with
-    # per-matching probes and its launch span instead
-    phased = traced and gossip_mode != "overlap"
     gstate = flush = bplan = None
     if gossip_mode == "overlap":
         if use_fsdp:
@@ -407,19 +405,13 @@ def _train(args, device, spec):
         if key not in step_cache:
             active = tuple(active) if gossip_mode == "static" else ()
             if use_fsdp:
-                build = fsdp.make_phased_fsdp_train_step if phased else fsdp.make_fsdp_train_step
-                step_cache[key] = build(model, opt, plan, spec, layout, gossip_mode=gossip_mode,
-                                        faulted=faulted, timer=timer if traced else None)
-            elif phased:
-                step_cache[key] = dt.make_phased_train_step(
-                    model, opt, plan, timer=timer, gossip_mode=gossip_mode,
-                    active=active, faulted=faulted, spec=spec,
-                )
+                step_cache[key] = fsdp.make_fsdp_train_step(
+                    model, opt, plan, spec, layout, gossip_mode=gossip_mode,
+                    faulted=faulted, timer=timer)
             else:
                 step_cache[key] = dt.make_train_step(
                     model, opt, plan, gossip_mode=gossip_mode, active=active,
-                    bucket_plan=bplan, faulted=faulted,
-                    timer=timer if traced else None, spec=spec,
+                    bucket_plan=bplan, faulted=faulted, timer=timer, spec=spec,
                 )
         return step_cache[key]
 
@@ -467,28 +459,18 @@ def _train(args, device, spec):
     for _ in range(start_step):
         next(it)
 
-    # comm probes: each matching's gather timed on its own (once, up
-    # front; "comm" lane in the trace), with the modeled per-matching
-    # bytes from analysis.bytes_model
-    matching_ms = {}
+    # the modeled per-matching bytes of each step's metrics line
+    # (analysis.bytes_model)
     per_matching_bytes = 0
     if traced:
         from repro_torch.analysis import bytes_model
         from repro_torch.telemetry import probes as tprobes
 
         if use_fsdp:
-            elems = layout.per_device_elements
             per_matching_bytes = int(bytes_model.bucket_plan_bytes(
                 layout.plan, args.shard)["per_matching_comm_bytes"])
         else:
-            elems = model.num_params()
             per_matching_bytes = bytes_model.tree_storage_bytes(model.param_shapes())
-        probe_rows = tprobes.measure_matchings(
-            plan, per_node_elements=elems, timer=timer, iters=3, device=device,
-        )
-        matching_ms = {r["matching"]: r["mean_ms"] for r in probe_rows}
-        say("trace: per-matching comm probes "
-            + " ".join(f"m{r['matching']}={r['mean_ms']:.2f}ms" for r in probe_rows))
 
     rows = []
     trace_rows = []
@@ -506,23 +488,20 @@ def _train(args, device, spec):
             bits = schedule.activations[k].astype(np.float32)
         bits = torch.as_tensor(bits, device=device)
         stepf = get_step(active)
-        t0s = time.perf_counter()
-        with timer.phase("step", cat="step", step=k) as sp:
-            if gossip_mode == "overlap":
-                params, opt_state, gstate, losses, _ = stepf(
-                    params, opt_state, gstate, batch, bits, step=k
-                )
-                # delayed gossip hides behind compute: the step costs the
-                # slower of the two, not their sum
-                sim_time += max(schedule.comm_units(k), 1.0)
-            else:
-                params, opt_state, losses, _ = stepf(
-                    params, opt_state, batch, bits, step=k
-                )
-                # paper's delay model: one unit per activated matching,
-                # +1 compute
-                sim_time += schedule.comm_units(k) + 1.0
-            sp.fence((params, losses))
+        if gossip_mode == "overlap":
+            params, opt_state, gstate, losses, _ = stepf(
+                params, opt_state, gstate, batch, bits, step=k
+            )
+            # delayed gossip hides behind compute: the step costs the
+            # slower of the two, not their sum
+            sim_time += max(schedule.comm_units(k), 1.0)
+        else:
+            params, opt_state, losses, _ = stepf(
+                params, opt_state, batch, bits, step=k
+            )
+            # paper's delay model: one unit per activated matching,
+            # +1 compute
+            sim_time += schedule.comm_units(k) + 1.0
         if fault_sched is not None:
             # stragglers stretch the synchronous round: the step costs
             # the slowest node's extra units
@@ -537,13 +516,12 @@ def _train(args, device, spec):
                     tprobes.fault_event(recorder, step=k, kind="straggler",
                                         delay_units=delay)
         if traced:
-            step_ms = (time.perf_counter() - t0s) * 1e3
-            if phased:
-                phase_ms = stepf.last_phase_ms
-                comm_ms = phase_ms.get("gossip", 0.0)
-            else:
-                comm_ms = sum(matching_ms.get(j, 0.0) for j in active)
-                phase_ms = None
+            # reading the spans waits for the step's end on the card
+            phase_ms = stepf.last_phase_ms
+            step_ms = phase_ms.pop("step")
+            comm_ms = phase_ms.get("gossip_launch" if gossip_mode == "overlap" else "gossip",
+                                   0.0)
+            timer.read()
             mrec = tprobes.step_metrics(
                 step=k, step_ms=step_ms, comm_ms=comm_ms,
                 gossip_mode=gossip_mode,
@@ -579,9 +557,6 @@ def _train(args, device, spec):
         # land the exchange still in flight from the last step
         params = flush(params, gstate, inplace=True)
         say(f"flushed in-flight gossip: consensus {consensus(params):.3e}")
-        if traced:
-            for stepf in step_cache.values():
-                stepf.record_launch_spans(wait=True)
     if args.ckpt_dir:
         save(args.steps, params)
     if args.csv and rows and lead:

@@ -9,16 +9,18 @@ package is the measurement side.
   JAX package's: ``TraceEvent``, ``TraceRecorder`` (bounded ring
   buffer), the JSONL event log and the lossless Chrome-trace export,
   under the same schema ``repro.telemetry/1``.
-* :mod:`repro_torch.telemetry.timers` — ``StepTimer``: phase spans
-  fenced with ``torch.cuda.synchronize`` when tracing is on, and a
-  zero-cost off path (``timed_step`` returns the wrapped callable
-  itself).
-* :mod:`repro_torch.telemetry.probes` — per-matching gather probes
-  timed with CUDA events and the per-step metrics record.
+* :mod:`repro_torch.telemetry.timers` — ``StepTimer`` and the
+  per-step view ``StepSpans``: the port's one span system, each span
+  with a host interval on the Unix wall clock that torch.profiler uses
+  and, on the card, a device interval from CUDA events read lazily,
+  nothing fenced; a zero-cost off path (no clock read, no event, no
+  span list; ``timed_step`` returns the wrapped callable itself).
+* :mod:`repro_torch.telemetry.probes` — the FSDP collectives' probe,
+  fault events and the per-step metrics record.
 
 Nothing here imports ``repro_torch.dist``; ``torch`` is imported only
-where a span fences or a probe runs, so reading a trace file needs
-neither.
+where a span records CUDA events or fences or a probe runs, so reading
+a trace file needs neither.
 """
 from __future__ import annotations
 

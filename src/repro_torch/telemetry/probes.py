@@ -1,26 +1,23 @@
-"""Measured communication probes + per-step metrics records.
+"""The FSDP collectives' probe, fault events and per-step metrics records.
 
-The port of ``repro.telemetry.probes``. A host clock around the overlap
-step sees the whole step; what it cannot see inside is measured here,
-apart: each matching's exchange re-issued as its own probe on a
-payload the size of the real one (:func:`measure_matchings`). On one
-card a matching's exchange is the gather ``x[pi_j]`` along the node
-dim of the ``(nodes, per_node_elements)`` fp32 buffer, the same
-operation the gossip step runs for that matching; on the card each
-repetition is timed with CUDA events around it, on the CPU with the
-host clock. All durations are milliseconds; summaries report
-mean/p50/p95 over ``iters`` repetitions after ``warmup`` uncounted
-ones.
+The port of ``repro.telemetry.probes``, less its per-matching probes: a
+traced train step records its exchange where it runs
+(``telemetry.timers``; the ``gossip`` span and each leaf's
+``gossip/target`` and ``gossip/apply``, or the overlap step's
+``gossip_launch``), so nothing re-issues it apart.
 
 ``measure_fsdp_collectives`` times the sharded step's all-gather and
-reduce-scatter apart, over the mesh's shard group. ``step_metrics``,
+reduce-scatter apart, over the mesh's shard group: on the card each
+repetition with CUDA events around it, on the CPU with the host clock;
+summaries report mean/p50/p95 milliseconds over ``iters`` repetitions
+after ``warmup`` uncounted ones. ``step_metrics``,
 ``format_metrics_line``, ``fault_event`` and ``summarize_ms`` are the
 JAX package's, unchanged.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -74,56 +71,6 @@ def _probe_loop(timer: StepTimer, name: str, fn, *, iters: int, warmup: int,
             pid=timer.pid, tid=tid, args=dict(args),
         ))
     return summarize_ms(samples)
-
-
-def measure_matchings(
-    plan,
-    *,
-    per_node_elements: int,
-    timer: Optional[StepTimer] = None,
-    iters: int = 5,
-    warmup: int = 1,
-    seed: int = 0,
-    device="cuda",
-) -> List[Dict[str, Any]]:
-    """Measured per-matching exchange time.
-
-    For each matching j of ``plan`` this gathers a ``(num_nodes,
-    per_node_elements)`` fp32 buffer along the node dim with matching
-    j's involution, ``x[pi_j]`` (the exchange the gossip step runs for
-    that matching: every node receives its partner's payload), and
-    times ``iters`` repetitions. Returns one row per matching::
-
-        {"matching": j, "bytes_per_node": 4 * per_node_elements,
-         "mean_ms": ..., "p50_ms": ..., "p95_ms": ..., "n": iters}
-
-    Events are recorded (cat ``"comm"``, tid 1, names
-    ``gossip/matching{j}``) when ``timer`` is enabled. The buffer and
-    one gathered copy are alive at a time: two copies of the payload.
-    """
-    import torch
-
-    from repro_torch.device import resolve_device
-
-    device = resolve_device(device)
-    timer = timer or StepTimer()
-    perms = np.asarray(plan.permutations)
-    n = perms.shape[1]
-    per_node_elements = int(per_node_elements)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((n, per_node_elements), generator=gen, device=device,
-                    dtype=torch.float32)
-    idx = torch.as_tensor(perms, dtype=torch.int64, device=device)
-    rows = []
-    for j in range(perms.shape[0]):
-        summary = _probe_loop(
-            timer, f"gossip/matching{j}", lambda i=idx[j]: x.index_select(0, i),
-            iters=iters, warmup=warmup, device=device, cat="comm", tid=1,
-            bytes_per_node=4 * per_node_elements, matching=j,
-        )
-        rows.append({"matching": j, "bytes_per_node": 4 * per_node_elements,
-                     **summary})
-    return rows
 
 
 def measure_fsdp_collectives(
@@ -214,11 +161,10 @@ def step_metrics(
     """One step's measured metrics record (the ``--trace`` log line and
     CSV columns).
 
-    ``step_ms``    fenced whole-step wall time.
+    ``step_ms``    the whole step's time (its ``step`` span).
     ``comm_ms``    the step's communication time: the measured
-                   ``gossip`` phase when the phased executor ran,
-                   otherwise the per-matching probe means summed over
-                   the activated matchings.
+                   ``gossip`` span (sequential modes) or the overlap
+                   step's ``gossip_launch`` span.
     ``comm_bytes`` per-node bytes the step's exchange moved
                    (``analysis.bytes_model`` per-matching bytes x
                    activated matchings) — modeled, marked as such in
@@ -228,8 +174,8 @@ def step_metrics(
                    (the exchange serializes after the fwd/bwd); for
                    ``overlap`` mode, ``min(comm_ms, step_ms) / step_ms``
                    — an upper bound on the hidden fraction, since the
-                   probe-measured comm either fits under the compute or
-                   extends the step.
+                   launch either fits under the compute or extends the
+                   step.
     """
     step_ms = float(step_ms)
     comm_ms = float(comm_ms)

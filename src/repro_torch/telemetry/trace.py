@@ -9,7 +9,11 @@ One ``TraceEvent`` is a *completed* span — there are no begin/end pairs
 to mismatch. Timestamps and durations are host-clock **microseconds**;
 ``ts_us`` is relative to the owning :class:`TraceRecorder`'s epoch (its
 construction time), so events from one run share one time origin and
-the exported trace starts near t=0.
+the exported trace starts near t=0. The host clock is the Unix-epoch
+wall clock (``time.time_ns``), the one torch.profiler stamps its events
+with, and both export headers carry the epoch in Unix nanoseconds
+(``meta["epoch_unix_ns"]``): ``epoch_unix_ns + 1000 * ts_us`` puts an
+event on a profile's axis.
 
 Two interchangeable on-disk forms, both produced by
 :meth:`TraceRecorder.flush`:
@@ -35,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -116,16 +121,16 @@ class TraceRecorder:
         self.meta: Dict[str, Any] = dict(meta or {})
         self._events: deque = deque(maxlen=self.capacity)
         self.num_recorded = 0          # total ever seen (>= len(events))
-        import time
-
-        self.epoch = time.perf_counter()
+        self.epoch_ns = time.time_ns()
 
     # -- recording -----------------------------------------------------------
     def now_us(self) -> float:
-        """Microseconds since the recorder epoch (host perf counter)."""
-        import time
+        """Microseconds since the recorder epoch (the Unix wall clock)."""
+        return self.us(time.time_ns())
 
-        return (time.perf_counter() - self.epoch) * 1e6
+    def us(self, unix_ns: int) -> float:
+        """A Unix-clock instant in microseconds since the recorder epoch."""
+        return (unix_ns - self.epoch_ns) / 1e3
 
     def record(self, event: TraceEvent) -> None:
         self._events.append(event)
@@ -145,7 +150,7 @@ class TraceRecorder:
         ``(jsonl_path, chrome_path)``."""
         os.makedirs(out_dir, exist_ok=True)
         events = self.events()
-        meta = dict(self.meta)
+        meta = dict(self.meta, epoch_unix_ns=self.epoch_ns)
         jsonl = os.path.join(out_dir, EVENTS_JSONL)
         chrome = os.path.join(out_dir, CHROME_TRACE)
         write_jsonl(events, jsonl, meta=meta, dropped=self.num_dropped)

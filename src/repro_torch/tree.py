@@ -23,6 +23,14 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` leafwise, paths as :func:`tree_items` spells them."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}.{k}" if prefix else k)
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
 def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """``(path, leaf)`` pairs in declaration order."""
     if isinstance(tree, dict):

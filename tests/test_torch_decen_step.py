@@ -173,7 +173,8 @@ def test_losses_and_consensus_match_reference(run):
 def test_step_reports_phase_times(run):
     _, got = run
     for phases in got["phases"]:
-        assert set(phases) == {"fwd_bwd", "optimizer", "gossip"}
+        assert set(phases) == {"step", "fwd_bwd", "forward", "backward", "optimizer",
+                               "gossip", "gossip/target", "gossip/apply"}
         assert all(v >= 0 for v in phases.values())
 
 

@@ -40,6 +40,7 @@ from repro_torch.dist import fsdp as tf
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.transformer import Model
 from repro_torch.optim.optimizers import sgd
+from repro_torch.telemetry import StepTimer, TraceRecorder
 from repro_torch.tree import flatten
 
 NODES, BATCH, SEQ, STEPS = 4, 4, 32, 3
@@ -337,15 +338,14 @@ def test_step_builders_check_modes_layouts_and_batches(run):
     layout = tf.make_layout(model, spec)
     with pytest.raises(ValueError, match="unknown fsdp gossip_mode"):
         tf.make_fsdp_train_step(model, opt, plan, spec, layout, gossip_mode="static")
-    with pytest.raises(ValueError, match="overlap runs are timed whole-step"):
-        tf.make_phased_fsdp_train_step(model, opt, plan, spec, layout, gossip_mode="overlap")
     other = tf.make_layout(model, types.SimpleNamespace(num_nodes=NODES, num_shards=2))
     with pytest.raises(ValueError, match="shard factor"):
         tf.make_fsdp_train_step(model, opt, plan, spec, other)
-    step = tf.make_phased_fsdp_train_step(model, opt, plan, spec, layout)
+    step = tf.make_fsdp_train_step(model, opt, plan, spec, layout,
+                                   timer=StepTimer(TraceRecorder()))
     shards = tf.init_fsdp_params(model, layout, spec, device="cpu")
     state = tf.init_fsdp_opt_state(opt, layout, spec, device="cpu")
     data = DecentralizedBatches(cfg, NODES, BATCH, SEQ, seed=0, device="cpu")
     step(shards, state, next(data), np.ones(plan.num_matchings, np.float32))
-    assert {"gather", "fwd_bwd", "reduce_scatter", "optimizer", "gossip"} <= \
-        set(step.last_phase_ms)
+    assert {"gather", "fwd_bwd", "forward", "backward", "reduce_scatter", "optimizer",
+            "gossip", "gossip/target", "gossip/apply"} <= set(step.last_phase_ms)

@@ -185,7 +185,10 @@ def test_unported_flags_exit_naming_the_roadmap_item(flags, item, tmp_path):
     assert events == read_chrome_trace(str(tmp_path / "tr" / "trace.json"))
     assert [(e.name, e.cat, e.step) for e in events] == (
         [("prefill", "serve", -1)] + [("decode", "serve", i) for i in range(3)])
-    assert events[0].args == {"tokens": 16} and all(e.dur_us > 0 for e in events)
+    # each span carries its id and its parent's (none: the spans are top-level)
+    assert events[0].args == {"tokens": 16, "id": 1, "parent": None}
+    assert [e.args for e in events[1:]] == [{"id": i, "parent": None} for i in (2, 3, 4)]
+    assert all(e.dur_us > 0 for e in events)
 
 
 def test_run_reports_generated_ids_and_times():

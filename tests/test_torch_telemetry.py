@@ -7,33 +7,20 @@
   and ``timed_step(f, off) is f``.
 * ``step_metrics`` / ``format_metrics_line`` equal the JAX package's on
   the same inputs (exactly: the same Python).
-* ``measure_matchings`` on the CPU: one row per matching, the JAX
-  package's fields, and ``gossip/matching{j}`` events (cat ``comm``,
-  tid 1).
-* The phased step (fenced, recorded spans) is bit-equal to the unphased
-  step, refuses overlap with the JAX message, and an overlap step with a
-  timer records its ``gossip_launch`` spans.
-"""
-import dataclasses
 
-import numpy as np
+The spans inside the train steps are ``tests/test_torch_spans.py``'s.
+"""
 import pytest
 import torch
 
 import repro.telemetry as jt
 from repro.telemetry import probes as jprobes
-from repro_torch import core
 from repro_torch import telemetry as tt
 from repro_torch.configs.registry import get_smoke_config
-from repro_torch.data.pipeline import DecentralizedBatches
 from repro_torch.dist import decen_train as dt
 from repro_torch.models.transformer import Model
-from repro_torch.optim.optimizers import sgd
 from repro_torch.telemetry import probes as tprobes
 from repro_torch.telemetry import trace as ttrace
-from repro_torch.tree import flatten
-
-NODES = 8
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -93,7 +80,9 @@ def test_files_load_in_the_other_packages_readers(tmp_path, writer):
         rec.record(ev)
     jsonl, chrome = rec.flush(str(tmp_path))
     header, events = dst.read_jsonl(jsonl)
-    assert header["meta"] == {"gossip_mode": "overlap"}
+    # the port's recorder adds its epoch on the Unix clock
+    epoch = {"epoch_unix_ns": rec.epoch_ns} if writer == "port" else {}
+    assert header["meta"] == {"gossip_mode": "overlap", **epoch}
     as_json = lambda evs: [e.to_json() for e in evs]
     assert as_json(events) == as_json(_events(src))
     assert as_json(dst.read_chrome_trace(chrome)) == as_json(_events(src))
@@ -138,7 +127,8 @@ def test_enabled_timer_nests_and_records():
     assert step(torch.ones(2), step=5).tolist() == [2.0, 2.0]
     evs = rec.events()
     assert [(e.name, e.depth) for e in evs] == [("inner", 1), ("outer", 0), ("step", 0)]
-    assert evs[0].args == {"node": 2} and evs[2].step == 5
+    assert evs[0].args == {"node": 2, "id": 2, "parent": 1} and evs[2].step == 5
+    assert evs[1].args == {"id": 1, "parent": None}
     assert evs[1].ts_us <= evs[0].ts_us and evs[0].dur_us <= evs[1].dur_us
 
 
@@ -173,81 +163,3 @@ def test_step_metrics_equal_the_jax_packages():
     assert got["gather"]["n"] == got["reduce_scatter"]["n"] == 2
     assert got["bytes_per_node"] == 4 * layout.plan.total_elements
     assert [e.name for e in rec.events()[1:]] == ["gather"] * 2 + ["reduce_scatter"] * 2
-
-
-def test_measure_matchings_rows_on_the_cpu():
-    plan = core.plan_matcha(core.named_graph("paper8", NODES, seed=3), 0.5, seed=0)
-    rec = tt.TraceRecorder()
-    rows = tprobes.measure_matchings(plan, per_node_elements=1000, iters=2,
-                                     timer=tt.StepTimer(rec), device="cpu")
-    assert [r["matching"] for r in rows] == list(range(plan.num_matchings))
-    for r in rows:
-        assert set(r) == {"matching", "bytes_per_node", "mean_ms", "p50_ms", "p95_ms", "n"}
-        assert r["bytes_per_node"] == 4000 and r["n"] == 2 and r["mean_ms"] >= 0
-    evs = rec.events()
-    assert len(evs) == 2 * plan.num_matchings
-    assert {(e.name, e.cat, e.tid) for e in evs} == {
-        (f"gossip/matching{j}", "comm", 1) for j in range(plan.num_matchings)}
-    assert evs[0].args == {"bytes_per_node": 4000, "matching": 0}
-
-
-def _tiny_run(make_step, steps=2, overlap=False):
-    cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), compute_dtype="float32")
-    model = Model(cfg)
-    plan = core.plan_matcha(core.named_graph("paper8", NODES, seed=3), 0.5, seed=0)
-    sched = plan.schedule(steps, seed=0)
-    opt = sgd(0.05, momentum=0.9)
-    params = dt.init_stacked_params(model, NODES, seed=0, device="cpu")
-    opt_state = dt.init_stacked_opt_state(opt, model, NODES, device="cpu")
-    data = DecentralizedBatches(cfg, NODES, 2, 16, seed=0, device="cpu")
-    step = make_step(model, opt, plan)
-    gstate = dt.init_gossip_state(plan, step.bplan, device="cpu") if overlap else None
-    phase_ms = []
-    for k in range(steps):
-        bits = torch.as_tensor(sched.activations[k].astype(np.float32))
-        if overlap:
-            params, opt_state, gstate, losses, _ = step(params, opt_state, gstate,
-                                                        next(data), bits, step=k)
-        else:
-            params, opt_state, losses, _ = step(params, opt_state, next(data), bits, step=k)
-        phase_ms.append(step.last_phase_ms)
-    return flatten({"p": params, "s": opt_state}), losses, phase_ms
-
-
-@pytest.mark.parametrize("mode", ["masked", "static"])
-def test_phased_step_is_bit_equal_to_the_unphased_step(mode):
-    rec = tt.TraceRecorder()
-    timer = tt.StepTimer(rec)
-    active = (0, 2, 3)
-    plain = _tiny_run(lambda m, o, p: dt.make_train_step(m, o, p, gossip_mode=mode,
-                                                         active=active))
-    phased = _tiny_run(lambda m, o, p: dt.make_phased_train_step(
-        m, o, p, timer=timer, gossip_mode=mode, active=active))
-    for path, t in plain[0].items():
-        assert torch.equal(phased[0][path], t), path
-    assert torch.equal(phased[1], plain[1])
-    for ms in phased[2]:
-        assert set(ms) == {"fwd_bwd", "optimizer", "gossip"} and all(v >= 0 for v in ms.values())
-    evs = rec.events()
-    # per step: fwd_bwd and optimizer for each node, then gossip
-    assert [(e.name, e.step) for e in evs if e.name == "gossip"] == [("gossip", 0), ("gossip", 1)]
-    assert sorted(e.args["node"] for e in evs if e.name == "fwd_bwd" and e.step == 1) == \
-        list(range(NODES))
-    assert {e.cat for e in evs} == {"phase"}
-
-
-def test_phased_step_refuses_overlap_and_the_overlap_step_records_its_launch():
-    plan = core.plan_matcha(core.named_graph("paper8", NODES, seed=3), 0.5, seed=0)
-    with pytest.raises(ValueError, match="fencing phases would serialize"):
-        dt.make_phased_train_step(None, sgd(0.1), plan, gossip_mode="overlap")
-    rec = tt.TraceRecorder()
-    timer = tt.StepTimer(rec)
-    traced = _tiny_run(lambda m, o, p: dt.make_train_step(
-        m, o, p, gossip_mode="overlap", timer=timer), overlap=True)
-    plain = _tiny_run(lambda m, o, p: dt.make_train_step(
-        m, o, p, gossip_mode="overlap"), overlap=True)
-    for path, t in plain[0].items():
-        assert torch.equal(traced[0][path], t), path
-    launches = [e for e in rec.events() if e.name == "gossip_launch"]
-    assert [(e.cat, e.tid, e.step) for e in launches] == [("comm", 1, 0), ("comm", 1, 1)]
-    assert all(e.dur_us >= 0 and e.args == {"buckets": 1} for e in launches)
