@@ -45,13 +45,22 @@ non-zero exit:
            versions at dbrx's prefill shapes and at one node's training
            shape (4 x 128 tokens, top-4: 2,048 rows), in turns with
            torch._grouped_mm (dx: dy times w transposed; dw: the 2-D x 2-D
-           form over x transposed and dy);
+           form over x transposed and dy); the flash backward's dq and
+           dk / dv passes against their plain versions from the same lse
+           and D at the training cell's shape (1 x 4096, 16 / 8 heads of
+           128, causal) and at a ragged GQA-8 shape at hd 64, two launches
+           bit-equal, timed at the cell's shape beside the bound and, in
+           turns, scaled_dot_product_attention's backward (timed only);
 3. main    the decentralized trainer at full published width:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
            paper8, MATCHA budget 0.5; masked gossip, SGD lr 0.05 momentum
            0.9, 4 x 128 tokens per node, 5 steps, then 2 faulted steps
-           (link drops at p_drop 0.35, per-node bits); launch counts,
+           (link drops at p_drop 0.35, per-node bits); launch counts
+           (``analysis.launch_counts``: the training attention's flash
+           forward twice a layer and node under remat, its dq and dk / dv
+           passes once, and the forward / backward spans' attention
+           counters to match),
            each step's spans (unfenced, read after the step: the step,
            fwd_bwd with forward and backward, optimizer, the gossip with
            its target build and apply), dropped exchanges, peak memory,
@@ -108,7 +117,9 @@ non-zero exit:
            3 steps on 8 nodes, card against CPU at fp32 (scalar kernels)
            and bf16 (wgmma kernels); internlm2-1.8b at published width, 1
            layer, B 1 x S 8192, loss and gradients through sdpa_chunked
-           against the unchunked sdpa, fp32 and bf16; exact grouped-matmul
+           (the routing rule switched off) against the unchunked sdpa,
+           fp32 and bf16, and at bf16 the flash kernels and their backward
+           against both; exact grouped-matmul
            launch counts per MoE layer and node (3 forward, 3 more under
            remat, 3 dx, 3 dw);
 6. check   small inputs (the tiny presets, fp32) run on the card and on
@@ -130,20 +141,24 @@ non-zero exit:
            (masked and overlap) and the serving CLI must write files the
            port's readers load;
 7. tests   the card-only tests (``pytest -m cuda
-           tests/test_torch_kernels_cuda.py``) in a child process;
+           tests/test_torch_kernels_cuda.py
+           tests/test_torch_attention_train.py``) in a child process;
 8. dryrun  the dry run (``repro_torch.launch.dryrun``: each configuration
            above traced on meta tensors) against the card, configuration
            by configuration: the masked and the overlap training step
            (internlm2-1.8b, 2 layers, 8 nodes, 4 x 128 tokens), each served
            model's prefill and one decode step (B 8 x 2048; whisper 384),
            the dbrx replica, the dbrx MoE block at 8 x 2048 and
-           sdpa_chunked at S 8192 (fp32 and bf16): resident bytes against
+           attention at S 8192 (fp32: sdpa_chunked; bf16: the flash
+           kernels): resident bytes against
            memory_allocated before the first step (within the allocator's
            512-byte rounding of each storage), the peak against
            max_memory_allocated, reset per configuration (within 10%), and
            every kernel's launches against its counter (exact);
 9. sweep   every registry kernel case (``analysis.kernel_cases``: flash at
-           256 and a ragged 197 positions and windowed, SSD at two chunks,
+           256 and a ragged 197 positions and windowed, its backward's dq
+           and dk / dv passes at both lengths where the config is bf16 at
+           hd 64 or 128, SSD at two chunks,
            the grouped matmul and its dx and dw at 512 and a ragged 549
            rows, the two gossip cases; tiny and full widths of all ten
            models), each operand a prefix of a longer buffer: the path
@@ -276,6 +291,15 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
 # (and attention uses the fast exp); bf16 outputs may sit one bf16
 # rounding apart
 FA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the flash backward's passes against their plain versions (fp32 from the
+# same lse and D), as a relative norm (tests/test_torch_attention_train.py's
+# BWD_REL_TOL): the kernels round P and dS to bf16 as operands of their
+# products (2^-9 relative each) and store dq, dk and dv in bf16. An absolute
+# tolerance would not do: most causal rows' gradients are smaller than any
+# fixed one. A wrong tile, mask or scale reads of order 1; a zeroed half
+# tile of 32 rows mid-sequence some 0.03 at the cell's shape, which
+# flash_backward checks fails
+FA_BWD_REL_TOL = 2e-2
 SSM_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-2, 5e-2)}   # (abs, rel)
 SERVE_TOL = 1e-4                # card (kernels) vs CPU (plain), fp32 tiny serving
 # grouped matmul vs its plain version: fp32 sums over K in another order;
@@ -298,6 +322,10 @@ MOE_STEP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # order); at bf16 a flipped rounding of the attention output travels on
 CHUNKED_TOL = {"float32": {"loss": 1e-5, "grad": 1e-4},
                "bfloat16": {"loss": 1e-3, "grad": 1e-1}}
+# the flash kernels against either plain route at bf16: the kernels round P
+# and dS to bf16 as operands of their products where the plain routes keep
+# fp32 scores; the rest as CHUNKED_TOL's bf16
+FLASH_TRAIN_TOL = {"loss": 1e-3, "grad": 1e-1}
 JAMBA_LAYERS = 16               # jamba-v0.1-52b depth on one card (32 published)
 WHISPER_PROMPT = 384            # whisper prompt: prompt + generated within max_position 448
 FAMILY_ARCHS = ("gemma3_4b", "jamba_v0_1_52b", "whisper_base", "internvl2_1b")
@@ -725,6 +753,97 @@ def flash_wide(torch, qkv) -> float:
     return max_err
 
 
+def flash_backward(torch, ptxas):
+    """The flash backward's two passes (dq, then dk / dv) against their
+    plain versions from the same lse and D, at the training cell's shape
+    (1 x 4096, 16 / 8 heads of 128, causal) and at a ragged GQA-8 shape at
+    hd 64; timed at the cell's shape beside the bound (10 hd flops a live
+    pair at 989 TFLOP/s), the plain passes and, as ``library_ms``,
+    ``torch.nn.functional.scaled_dot_product_attention``'s backward (timed
+    only: the port never calls it). Returns the JSON row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    row, max_err = None, 0.0
+    for label, (B, S, Hq, Hkv, hd) in (("internlm2-1.8b training cell", (1, 4096, 16, 8, 128)),
+                                       ("ragged S, GQA 8, hd 64", (2, 1000, 16, 2, 64))):
+        q, k, v, do = mk(B, S, Hq, hd), mk(B, S, Hkv, hd), mk(B, S, Hkv, hd), mk(B, S, Hq, hd)
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device="cuda")
+        o = flash_attention(q, k, v, causal=True, lse=lse)
+        dq, delta = fab.flash_attention_dq(q, k, v, o, do, lse, causal=True)
+        dk, dv = fab.flash_attention_dkdv(q, k, v, do, lse, delta, causal=True)
+        again = fab.flash_attention_dq(q, k, v, o, do, lse, causal=True)
+        again += fab.flash_attention_dkdv(q, k, v, do, lse, again[1], causal=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again)):
+            fail(f"flash backward {label}: two launches on the same inputs differ")
+        pq, pdelta = ref.flash_attention_dq_ref(q, k, v, o, do, lse, causal=True)
+        pk, pv = ref.flash_attention_dkdv_ref(q, k, v, do, lse, delta, causal=True)
+        pairs = (("dq", dq, pq), ("delta", delta, pdelta), ("dk", dk, pk), ("dv", dv, pv))
+        errs = {name: rel_norm(torch, g, w) for name, g, w in pairs}
+        if not all(e < FA_BWD_REL_TOL for e in errs.values()):
+            fail(f"flash backward {label}: disagrees with its plain version ({errs}, "
+                 f"relative norms, tolerance {FA_BWD_REL_TOL:g})")
+        # the judge itself: a gradient with a half tile of rows zeroed
+        # mid-sequence (every batch row and head) has to fail it
+        half = slice(S // 2 + 32, S // 2 + 64)
+        planted = {}
+        for name, g, w in pairs[:1] + pairs[2:]:
+            bad = g.clone()
+            bad[:, half] = 0
+            planted[name] = rel_norm(torch, bad, w)
+            del bad
+        if not all(e >= FA_BWD_REL_TOL for e in planted.values()):
+            fail(f"flash backward {label}: a zeroed half tile passes the relative-norm "
+                 f"check ({planted})")
+        max_err = max(max_err, *errs.values())
+        del pq, pdelta, pk, pv, again
+        torch.cuda.empty_cache()
+        run = lambda: (fab.flash_attention_dkdv(q, k, v, do, lse,
+                                                fab.flash_attention_dq(q, k, v, o, do, lse,
+                                                                       causal=True)[1],
+                                                causal=True))
+        dq_ms = cuda_ms(torch, lambda: fab.flash_attention_dq(q, k, v, o, do, lse, causal=True),
+                        10)
+        dkdv_ms = cuda_ms(torch, lambda: fab.flash_attention_dkdv(q, k, v, do, lse, delta,
+                                                                  causal=True), 10)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        library = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+        (k1, k2), (l1, l2) = in_turns(torch, run, library, 10)
+        p_ms = cuda_ms(torch, lambda: (ref.flash_attention_dq_ref(q, k, v, o, do, lse),
+                                       ref.flash_attention_dkdv_ref(q, k, v, do, lse, delta)),
+                       2, warmup=1)
+        flops, nbytes = fab.cost(B, S, Hq, Hkv, hd, causal=True)
+        bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = ("operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
+                    else "bytes")
+        k_ms, l_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        log(f"kernels: flash backward {label} (B {B}, S {S}, heads {Hq}/{Hkv}, hd {hd}, "
+            f"bf16, causal; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): dq pass "
+            f"{dq_ms:.4f} ms, dk / dv pass {dkdv_ms:.4f} ms; in turns backward {k1:.4f} ms, "
+            f"sdpa backward {l1:.4f} ms, sdpa backward {l2:.4f} ms, backward {k2:.4f} ms "
+            f"({k_ms / l_ms:.2f}x sdpa's); plain passes {p_ms:.3f} ms; bound {bound:.4f} ms "
+            f"by {bound_by} ({bound / k_ms:.1%} of it); relative norm err against the plain "
+            f"passes { {n: float(f'{e:.3g}') for n, e in errs.items()} } (a zeroed half tile "
+            f"reads { {n: float(f'{e:.3g}') for n, e in planted.items()} }); two launches "
+            f"bit-equal")
+        if row is None:
+            row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                       library_ms=l_ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms)
+        del q, k, v, do, o, lse, dq, dk, dv, delta, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    log(f"kernels: flash backward ptxas: {ptxas_note(ptxas, 'flash_wgmma_d')}")
+    row["max_rel_err"] = max_err
+    return row
+
+
 def ssd_bound(B: int, S: int, H: int, P: int, N: int, Q: int):
     """(flops, bytes, bound ms, bound_by) of one bf16 SSD chunk scan
     (``ssm_scan.cost``)."""
@@ -847,7 +966,8 @@ def phase_tests():
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-m", "cuda",
-         os.path.join("tests", "test_torch_kernels_cuda.py")],
+         os.path.join("tests", "test_torch_kernels_cuda.py"),
+         os.path.join("tests", "test_torch_attention_train.py")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
     )
     lines = res.stdout.strip().splitlines()
@@ -1588,8 +1708,12 @@ def moe_train_step(torch, plan):
 
 def chunked_attention(torch):
     """internlm2-1.8b at published width, depth 24 -> 1, B 1 x S 8192: the
-    loss and every gradient through ``sdpa_chunked`` (the default at this
-    length) and through the unchunked ``sdpa``, at fp32 and bf16 compute."""
+    loss and every gradient through ``sdpa_chunked`` (the plain route at
+    this length, taken with the routing rule switched off, and counted)
+    and through the unchunked ``sdpa``, at fp32 and bf16 compute; at bf16
+    also through the route training takes there, the flash kernel and its
+    backward, held against both plain routes."""
+    from repro_torch.analysis import launch_counts
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DecentralizedBatches
     from repro_torch.models import attention
@@ -1597,13 +1721,15 @@ def chunked_attention(torch):
     from repro_torch.tree import flatten
 
     S = attention.CHUNKED_SDPA_THRESHOLD
-    chunked = attention.sdpa_chunked
+    chunked, rule = attention.sdpa_chunked, attention.flash_route
     calls = []
+    counters = {k: fn for k, fn in all_counters().items() if k.startswith("flash_attention")}
 
     def counted(*args, **kw):
         calls.append(args[0].shape)
         return chunked(*args, **kw)
 
+    plain_rule = lambda *a, **k: False
     for compute, tol in CHUNKED_TOL.items():
         cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=1,
                                   compute_dtype=compute)
@@ -1614,10 +1740,15 @@ def chunked_attention(torch):
             leaf.requires_grad_()
         batch = {k: v[0] for k, v in next(DecentralizedBatches(
             cfg, 1, 1, S, seed=0, device="cuda")).items()}
+        routes = [("chunked", S, plain_rule), ("unchunked", 1 << 30, plain_rule)]
+        if compute == "bfloat16":
+            routes.append(("flash kernels", S, rule))
         res = {}
-        for route, threshold in (("chunked", S), ("unchunked", 1 << 30)):
+        for route, threshold, route_rule in routes:
             calls.clear()
             attention.sdpa_chunked, attention.CHUNKED_SDPA_THRESHOLD = counted, threshold
+            attention.flash_route = route_rule
+            before = {name: fn.launches for name, fn in counters.items()}
             try:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1628,25 +1759,36 @@ def chunked_attention(torch):
                 ms = (time.perf_counter() - t0) * 1e3
             finally:
                 attention.sdpa_chunked, attention.CHUNKED_SDPA_THRESHOLD = chunked, S
+                attention.flash_route = rule
+            launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+            kernel = route == "flash kernels"
+            want = ({k: n for k, n in launch_counts.forward_backward(cfg, seq=S).items()
+                     if k in counters} if kernel else dict.fromkeys(counters, 0))
             # remat runs the layer again in the backward
-            if len(calls) != (cfg.num_layers * (1 + cfg.remat) if route == "chunked" else 0):
+            if len(calls) != (cfg.num_layers * (1 + cfg.remat) if route == "chunked" else 0) \
+                    or launched != want:
                 fail(f"chunked attention {compute} {route}: sdpa_chunked ran {len(calls)} "
-                     f"times")
+                     f"times, the flash kernels {launched} (expected {want})")
             res[route] = (float(loss.detach()), grads)
             log(f"moe: {cfg.name} ({cfg.num_layers} layer, {compute} compute) B 1 x S {S}, "
                 f"loss and {len(grads)} gradients through {route} attention: loss "
                 f"{res[route][0]:.6f}, {ms:.1f} ms (host clock, first call), peak memory "
-                f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+                f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; flash launches "
+                f"{launched}")
             del loss
-        loss_err = abs(res["chunked"][0] - res["unchunked"][0]) / abs(res["unchunked"][0])
-        errs = {path: rel_norm(torch, g, w) for path, g, w in
-                zip(leaves, res["chunked"][1], res["unchunked"][1])}
-        worst = max(errs, key=errs.get)
-        log(f"moe: {cfg.name} S {S} {compute}, sdpa_chunked vs unchunked sdpa: loss rel err "
-            f"{loss_err:.2e}, gradients max rel norm err {errs[worst]:.2e} ({worst}) "
-            f"(tolerance: loss {tol['loss']:g}, gradients {tol['grad']:g})")
-        if not (loss_err <= tol["loss"] and errs[worst] <= tol["grad"]):
-            fail(f"sdpa_chunked at S {S} {compute} disagrees with the unchunked sdpa")
+        for a, b, lim in [("chunked", "unchunked", tol)] + (
+                [("flash kernels", "chunked", FLASH_TRAIN_TOL),
+                 ("flash kernels", "unchunked", FLASH_TRAIN_TOL)] if "flash kernels" in res
+                else []):
+            loss_err = abs(res[a][0] - res[b][0]) / abs(res[b][0])
+            errs = {path: rel_norm(torch, g, w) for path, g, w in
+                    zip(leaves, res[a][1], res[b][1])}
+            worst = max(errs, key=errs.get)
+            log(f"moe: {cfg.name} S {S} {compute}, {a} vs {b}: loss rel err {loss_err:.2e}, "
+                f"gradients max rel norm err {errs[worst]:.2e} ({worst}) (tolerance: loss "
+                f"{lim['loss']:g}, gradients {lim['grad']:g})")
+            if not (loss_err <= lim["loss"] and errs[worst] <= lim["grad"]):
+                fail(f"{a} attention at S {S} {compute} disagrees with {b}")
         del params, leaves, res
         torch.cuda.empty_cache()
 
@@ -1800,6 +1942,7 @@ def phase_main(torch, cfg, plan):
     then overlap steps (plain and faulted) and the flush, each step's
     spans read after it; returns the kernel launches of the masked and
     the overlap path, each counted from 0."""
+    from repro_torch.analysis import launch_counts
     from repro_torch.data.pipeline import DecentralizedBatches
     from repro_torch.dist import decen_train as dt
     from repro_torch.faults import FaultSpec, make_fault_schedule
@@ -1832,6 +1975,15 @@ def phase_main(torch, cfg, plan):
     steps = {f: dt.make_train_step(model, opt, plan, gossip_mode="masked", faulted=f,
                                    timer=timer) for f in (False, True)}
     n_leaves = len(flatten(params))
+    # the training attention's kernels a step (analysis.launch_counts)
+    flash = {k: n for k, n in launch_counts.train_step(cfg, nodes=NODES, seq=SEQ).items()
+             if k.startswith("flash_attention")}
+    layers = launch_counts.flash_training_calls(cfg) * NODES
+    want_calls = {("forward", "attention_kernel"): layers, ("forward", "attention_plain"): 0,
+                  ("backward", "attention_kernel"): 2 * layers,
+                  ("backward", "attention_plain"): 0}
+    counters = {k: fn for k, fn in all_counters().items() if k in flash}
+    bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     gossip_axpy.launches = 0
     step_ms, phase_ms = [], []
@@ -1843,8 +1995,16 @@ def phase_main(torch, cfg, plan):
                                device="cuda")
         step = steps[faulted]
         before = gossip_axpy.launches
+        flash_before = {name: fn.launches for name, fn in counters.items()}
         params, opt_state, losses, _ = step(params, opt_state, batches[k], bits, step=k)
         phases = step.last_phases.ms()        # waits for the step's end event
+        flash_launched = {name: fn.launches - flash_before[name]
+                          for name, fn in counters.items()}
+        bwd_launches += flash_launched["flash_attention_dq"]
+        calls = attention_calls(step.last_phases)
+        if flash_launched != flash or calls != want_calls:
+            fail(f"step {k}: the training attention launched {flash_launched} (expected "
+                 f"{flash}), its spans counted {calls} (expected {want_calls})")
         step_ms.append(phases["step"])
         step_peaks.append(peak_reading(torch))
         launched = gossip_axpy.launches - before
@@ -1861,7 +2021,9 @@ def phase_main(torch, cfg, plan):
             f"{phases['gossip/target']:.1f}, apply {phases['gossip/apply']:.1f} ms; "
             f"pairs set {step.last_phases.counts()['pairs_set']:g} of "
             f"{step.last_phases.counts()['pairs_exchanged']:g}) "
-            f"gossip_axpy launches {launched} loss {loss:.4f} consensus {cons:.4e} "
+            f"gossip_axpy launches {launched}, flash {flash_launched}, attention calls "
+            f"{ {f'{a}/{b}': n for (a, b), n in calls.items()} } loss {loss:.4f} consensus "
+            f"{cons:.4e} "
             f"active {len(schedule.active_indices(k))}/{plan.num_matchings}{faults_note}")
         if launched != n_leaves:
             fail(f"step {k}: {launched} gossip_axpy launches, expected {n_leaves}")
@@ -1897,7 +2059,20 @@ def phase_main(torch, cfg, plan):
     masked = dict(step_ms=step_ms[mid], phases=phase_ms[mid], peak=peak)
     overlap_launches = phase_overlap(torch, model, opt, plan, params, opt_state, batches,
                                      masked)
-    return launches + overlap_launches
+    return launches + overlap_launches, bwd_launches
+
+
+def attention_calls(spans) -> dict:
+    """A traced step's training attention calls by (span, route): its
+    ``forward`` and ``backward`` spans' ``attention_kernel`` /
+    ``attention_plain`` counters, summed over the nodes."""
+    out = {}
+    for span in spans.spans:
+        if span.name in ("forward", "backward"):
+            for key, n in span.counts().items():
+                if key.startswith("attention_"):
+                    out[(span.name, key)] = out.get((span.name, key), 0) + int(n)
+    return out
 
 
 def phase_overlap(torch, model, opt, plan, params, opt_state, batches, masked):
@@ -3832,10 +4007,12 @@ EXAMPLE_STEPS = 6               # training steps of each example on the card
 def all_counters():
     """Every hand-written kernel's wrapper, by name (each counts its launches)."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_dkdv, flash_attention_dq
     from repro_torch.kernels.gossip_axpy import gossip_axpy
     from repro_torch.kernels.ssm_scan import ssm_scan
 
-    return {"flash_attention": flash_attention, "ssm_scan": ssm_scan,
+    return {"flash_attention": flash_attention, "flash_attention_dq": flash_attention_dq,
+            "flash_attention_dkdv": flash_attention_dkdv, "ssm_scan": ssm_scan,
             **gmm_counters(), "gossip_axpy": gossip_axpy}
 
 
@@ -3930,8 +4107,10 @@ def dry_configs():
     for compute in ("float32", "bfloat16"):
         cfg = dataclasses.replace(get_config("internlm2_1_8b"), num_layers=1,
                                   compute_dtype=compute)
-        out.append((f"sdpa_chunked ({cfg.name}, 1 layer, {compute}, B 1 x S 8192, loss and "
-                    "gradients)", *built(lambda device, cfg=cfg: dryrun.replica_call(
+        route = "the flash kernels" if compute == "bfloat16" else "sdpa_chunked"
+        out.append((f"attention at S 8192 ({cfg.name}, 1 layer, {compute}: {route}, "
+                    "B 1 x S 8192, loss and gradients)",
+                    *built(lambda device, cfg=cfg: dryrun.replica_call(
                         cfg, batch=1, seq=8192, device=device))))
     return out
 
@@ -3983,15 +4162,18 @@ def phase_dryrun(torch):
 
 
 def sweep_close(torch, case, got, want):
-    """Max abs error of a sweep case's kernel output against its plain
-    version, at the phase-2 tolerances (gossip bit for bit); inf if it
-    disagrees."""
+    """A sweep case's error against its plain version, at the phase-2
+    tolerances: the max abs error (gossip bit for bit), and for the flash
+    backward's passes the largest relative norm; inf if it disagrees."""
     k, dname = case.kernel, case.args[0][1]
     if k == "gossip_axpy":
         return 0.0 if torch.equal(got, want) else math.inf
     if k == "ssm_scan":
         atol, rtol = SSM_TOL[dname]
         return max(close(torch, g, w, atol, rtol) for g, w in zip(got, want))
+    if k.startswith("flash_attention_d"):
+        errs = [rel_norm(torch, g, w) for g, w in zip(got, want)]
+        return max(errs) if all(e < FA_BWD_REL_TOL for e in errs) else math.inf
     tol = (FA_TOL if k == "flash_attention" else GMM_TOL)[dname]
     # in slices along dim 0: kimi-k2's dw is 11 GB in bf16, 23 GB as the
     # plain version's fp32
@@ -4121,7 +4303,7 @@ def phase_sweep(torch):
             f"{stats['smem_bytes']} B shared, covers {stats['cover']} of {stats['extent']}; "
             f"{stats['tiles']['boxes']} tiles disjoint and covering; {pstats['poisoned_inputs']} "
             f"tails and {pstats['poisoned_rows']} rows poisoned, canaries and tails held; "
-            f"{n} launch; max abs err {err:.3g}")
+            f"{n} launch; err {err:.3g}")
         del t, got, want
         torch.cuda.empty_cache()
     log(sweep_summary(len(cases), time.perf_counter() - t0, added, paths, worst))
@@ -4137,7 +4319,8 @@ def sweep_summary(n: int, secs: float, added: dict, paths: dict, worst: dict) ->
     return (f"sweep: {n} registry cases pass kernel_lint (launch rules, contract, tiles), "
             f"the poison and launch checks and their tolerances in {secs:.1f} s, of which "
             f"the tile probes took {added['tiles']:.1f} s and the poisoned launches "
-            f"{added['poison']:.1f} s; paths {paths}; max abs err by kernel {worst}")
+            f"{added['poison']:.1f} s; paths {paths}; max err by kernel (abs; relative norm "
+            f"for the flash backward) {worst}")
 
 
 CHECK_ARGV = ["--shard", "2", "--all-layouts", "--faults", "--strict"]
@@ -4236,9 +4419,10 @@ def main() -> None:
     }
     row = phase_kernels(torch, leaf_shapes, float(plan.alpha))
     fa_row = phase_flash(torch, ptxas)
+    fab_row = flash_backward(torch, ptxas)
     ss_row = phase_ssm(torch, ptxas)
     gm_row, gm_bwd_rows = phase_gmm(torch, ptxas)
-    launches = phase_main(torch, cfg, plan)
+    launches, bwd_launches = phase_main(torch, cfg, plan)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(torch)
     phase_profile(torch)
@@ -4269,6 +4453,11 @@ def main() -> None:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:202",
              launches=serve_launches["flash_attention"], **fa_row),
+        # no TPU kernel: the JAX model trains through a plain einsum attention
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/models/attention.py (plain attention's VJP)",
+             launches=bwd_launches, **fab_row),
         dict(name="ssm_scan", route="cuda",
              source="src/repro_torch/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan.py:154",

@@ -8,7 +8,10 @@ the config has a window; the SSD chunk scan at two chunks; the grouped
 matmul at 512 rows and a ragged 549 (4 whole 128-row tiles and a 37-row
 tail); and two shared gossip-axpy cases (512 x 1024 fp32, 33 x 129
 bf16). The port adds its grouped matmul's backward, dx and dw, at the
-same two row counts.
+same two row counts, and its flash attention's backward passes (dq, dk /
+dv) at the two lengths, causal, where the backward takes the config (bf16
+at head width 64 or 128): their o, lse and D come from the plain forward
+on the drawn q, k, v and the drawn output gradient.
 
 A case holds its operands' shapes and dtypes (``args``, the JAX case's
 for the cases both packages have), the masked axes it exercises
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.kernels.flash_attention_bwd import takes
 
 __all__ = ["KernelCase", "cases_for_config", "shared_cases", "sweep_cases"]
 
@@ -90,6 +94,8 @@ class KernelCase:
             elif self.kernel.startswith("grouped_matmul") and len(shape) == 3:
                 a = a / math.sqrt(shape[1])
             out.append(padded(a, pad, dt) if pad else a.to(dt))
+        if self.kernel in BWD_KERNELS and gen is not None:
+            return _bwd_operands(self.kernel, out, pad)
         return tuple(out)
 
     def run_kernel(self, *t):
@@ -101,6 +107,10 @@ class KernelCase:
         o = self.opts
         if self.kernel == "flash_attention":
             return ops.attention(*t, causal=True, window=o["window"], impl="auto")
+        if self.kernel == "flash_attention_dq":
+            return ops.attention_dq(*t, causal=True, impl="auto")
+        if self.kernel == "flash_attention_dkdv":
+            return ops.attention_dkdv(*t, causal=True, impl="auto")
         if self.kernel == "ssm_scan":
             return ops.ssd(*t, chunk=o["chunk"], impl="auto")
         if self.kernel == "gossip_axpy":
@@ -121,6 +131,7 @@ class KernelCase:
         for each output, in the wrapper's order): the kernel lint's
         guarded launches."""
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_attention_bwd as fab
         from repro_torch.kernels import gossip_axpy as ga
         from repro_torch.kernels import grouped_matmul as gm
         from repro_torch.kernels import ssm_scan as ss
@@ -128,6 +139,8 @@ class KernelCase:
         o = self.opts
         if self.kernel == "flash_attention":
             return fa.flash_attention(*t, causal=True, window=o["window"], out=out[0])
+        if self.kernel in BWD_KERNELS:
+            return getattr(fab, self.kernel)(*t, causal=True, out=tuple(out))
         if self.kernel == "ssm_scan":
             return ss.ssm_scan(*t, chunk=o["chunk"], out=tuple(out))
         if self.kernel == "gossip_axpy":
@@ -147,6 +160,26 @@ class KernelCase:
         if self.kernel == "gossip_axpy":
             return ref.gossip_axpy_ref(t[0], t[1], o["alpha"])
         return getattr(ref, self.kernel + "_ref")(*t)
+
+
+BWD_KERNELS = ("flash_attention_dq", "flash_attention_dkdv")
+
+
+def _bwd_operands(kernel: str, t, pad: int):
+    """A backward case's operands from its drawn q, k, v and output
+    gradient: the plain forward's output and log-sum-exp (causal), and for
+    the dk / dv pass ``D = rowsum(do * o)``, each padded like the rest."""
+    from repro_torch.kernels import ref
+
+    q, k, v = t[:3]
+    do = t[4] if kernel == "flash_attention_dq" else t[3]
+    o = ref.attention_ref(q, k, v, causal=True)
+    lse = ref.attention_lse_ref(q, k, causal=True)
+    put = (lambda a: padded(a, pad)) if pad else (lambda a: a)
+    if kernel == "flash_attention_dq":
+        return q, k, v, put(o), do, put(lse)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, put(lse), put(delta)
 
 
 def padded(a: torch.Tensor, pad: int, dtype: torch.dtype = None) -> torch.Tensor:
@@ -181,6 +214,25 @@ def _attention_cases(arch, preset, cfg):
            case("ragged", SEQ_RAGGED, 0, (("kv", SEQ_RAGGED), ("q", SEQ_RAGGED)))]
     if cfg.sliding_window:
         out.append(case("windowed", SEQ_ALIGNED, cfg.sliding_window))
+    if takes(getattr(torch, dt), hd):
+        out += _attention_bwd_cases(arch, preset, cfg)
+    return out
+
+
+def _attention_bwd_cases(arch, preset, cfg):
+    hd, dt = cfg.head_dim, _dtype(cfg)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    stats = "float32"
+    out = []
+    for tag, seq, guards in (("aligned", SEQ_ALIGNED, ()),
+                             ("ragged", SEQ_RAGGED, (("kv", SEQ_RAGGED), ("q", SEQ_RAGGED)))):
+        q, kv, st = ((BATCH, seq, H, hd), dt), ((BATCH, seq, KV, hd), dt), ((BATCH, H, seq), stats)
+        out += [
+            KernelCase(f"{arch}/{preset}/flash_attention_dq/{tag}", "flash_attention_dq",
+                       (q, kv, kv, q, q, st), guards=guards),
+            KernelCase(f"{arch}/{preset}/flash_attention_dkdv/{tag}", "flash_attention_dkdv",
+                       (q, kv, kv, q, st, st), guards=guards),
+        ]
     return out
 
 

@@ -126,9 +126,15 @@ def lint_config(cfg: Dict, extent: Sequence[int], *, where: str = "") -> list:
 # ---------------------------------------------------------------------------
 def _module(kernel: str):
     """The wrapper module of a kernel, by the wrapper's name."""
-    from repro_torch.kernels import flash_attention, gossip_axpy, grouped_matmul, ssm_scan
+    from repro_torch.kernels import (
+        flash_attention,
+        flash_attention_bwd,
+        gossip_axpy,
+        grouped_matmul,
+        ssm_scan,
+    )
 
-    for mod in (flash_attention, gossip_axpy, grouped_matmul, ssm_scan):
+    for mod in (flash_attention, gossip_axpy, grouped_matmul, ssm_scan, flash_attention_bwd):
         if callable(getattr(mod, kernel, None)):
             return mod
     raise ValueError(f"unknown kernel {kernel!r}")
@@ -136,9 +142,12 @@ def _module(kernel: str):
 
 def contract_for(kernel: str) -> dict:
     """The ``KERNEL_CONTRACT`` of a wrapper, by the wrapper's name (the
-    grouped module's dx and dw: ``KERNEL_CONTRACT_DX`` / ``_DW``)."""
+    grouped module's dx and dw: ``KERNEL_CONTRACT_DX`` / ``_DW``; the
+    flash backward's passes: ``KERNEL_CONTRACT_DQ`` / ``_DKDV``)."""
     name = {"grouped_matmul_dx": "KERNEL_CONTRACT_DX",
-            "grouped_matmul_dw": "KERNEL_CONTRACT_DW"}.get(kernel, "KERNEL_CONTRACT")
+            "grouped_matmul_dw": "KERNEL_CONTRACT_DW",
+            "flash_attention_dq": "KERNEL_CONTRACT_DQ",
+            "flash_attention_dkdv": "KERNEL_CONTRACT_DKDV"}.get(kernel, "KERNEL_CONTRACT")
     return getattr(_module(kernel), name)
 
 
@@ -319,6 +328,7 @@ def case_tiles(case, t) -> np.ndarray:
     """The probe's boxes for a case's operands ``t`` (CUDA tensors), from
     its wrapper's ``tile_probe``."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import gossip_axpy as ga
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ssm_scan as ss
@@ -326,6 +336,8 @@ def case_tiles(case, t) -> np.ndarray:
     k = case.kernel
     if k == "flash_attention":
         return fa.tile_probe(t[0], t[1])
+    if k.startswith("flash_attention_d"):
+        return fab.tile_probe(k.removeprefix("flash_attention_"), t[0], t[1])
     if k == "ssm_scan":
         return ss.tile_probe(t[0], t[3], case.opts["chunk"], t[4])
     if k == "gossip_axpy":
@@ -339,9 +351,12 @@ def output_extent(case, t) -> Tuple[int, int, int]:
     """The output's three dims, in the order the case's config reports
     them (``launch_config`` of each wrapper)."""
     k = case.kernel
-    if k == "flash_attention":
+    if k in ("flash_attention", "flash_attention_dq"):
         B, Sq, Hq, _ = t[0].shape
         return Sq, Hq, B
+    if k == "flash_attention_dkdv":
+        B, S, Hkv, _ = t[1].shape
+        return S, Hkv, B
     if k == "ssm_scan":
         B, S, H, _ = t[0].shape
         return S, H, B
@@ -360,6 +375,7 @@ def case_config(case, t) -> Tuple[Dict, str]:
     """``(launch config, kernel_path)`` of a case's operands ``t`` (CUDA
     tensors) from its wrapper."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import gossip_axpy as ga
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import ssm_scan as ss
@@ -367,6 +383,9 @@ def case_config(case, t) -> Tuple[Dict, str]:
     k = case.kernel
     if k == "flash_attention":
         return fa.launch_config(t[0], t[1]), fa.kernel_path(t[0], t[1])
+    if k.startswith("flash_attention_d"):
+        kind = k.removeprefix("flash_attention_")
+        return fab.launch_config(kind, t[0], t[1]), fab.kernel_path(t[0])
     if k == "ssm_scan":
         chunk = case.opts["chunk"]
         return (ss.launch_config(t[0], t[3], chunk, t[4]),

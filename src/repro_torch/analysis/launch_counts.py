@@ -1,7 +1,8 @@
 """Expected launches of each hand-written kernel, from the config alone.
 
 What a call of the port must launch on the card, per wrapper
-(``flash_attention``, ``ssm_scan``, ``grouped_matmul`` and its
+(``flash_attention`` and its backward's ``flash_attention_dq`` /
+``flash_attention_dkdv``, ``ssm_scan``, ``grouped_matmul`` and its
 ``grouped_matmul_dx`` / ``grouped_matmul_dw``, ``gossip_axpy``), so a run
 can be held to it exactly (``chip_smoke.py``, the dry run's meta
 launches in ``tests/test_torch_dryrun.py``). The rules, as the model
@@ -17,10 +18,16 @@ code takes them:
   it divides the sequence, else one), in the prefill and in every decode
   step; in training 3 forward, 3 more under ``cfg.remat`` (the layer runs
   again in the backward), 3 dx and 3 dw per node;
+* in training, each self-attention call the routing rule sends to the
+  flash kernel (``models.attention.flash_route``: a bf16 config with no
+  softcap at a head width the backward takes, layers without a window,
+  whisper's encoder layers too, never cross-attention) runs the flash
+  forward once per node, once more under ``cfg.remat`` (the layer runs
+  again in the backward), and the backward's dq and dk / dv passes once
+  each. Training runs no SSD kernel (it has no backward);
 * a training step launches the gossip axpy once per float parameter leaf
   (masked, overlap, and static with a matching active), and the
-  end-of-run flush once per leaf again. Training runs no flash or SSD
-  kernel (they have no backward);
+  end-of-run flush once per leaf again;
 * a sharded (FSDP) step launches the gossip axpy once per bucket shard of
   its layout (sequential and overlap), and the overlap flush once per
   bucket shard again.
@@ -29,8 +36,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("flash_attention", "ssm_scan", "grouped_matmul", "grouped_matmul_dx",
-           "grouped_matmul_dw", "gossip_axpy")
+KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkdv", "ssm_scan",
+           "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "gossip_axpy")
 
 
 def _zero() -> Dict[str, int]:
@@ -55,6 +62,20 @@ def attention_layers(cfg) -> int:
 
 def mamba_layers(cfg) -> int:
     return sum(kind == "mamba" for kind in cfg.layer_kinds())
+
+
+def flash_training_calls(cfg) -> int:
+    """Attention calls of one training forward that take the flash kernel
+    and its backward (``models.attention.flash_route``)."""
+    from repro_torch.kernels.flash_attention_bwd import BACKWARD_HEAD_DIMS
+
+    if (cfg.logit_softcap or cfg.compute_dtype != "bfloat16" or not cfg.num_heads
+            or cfg.head_dim not in BACKWARD_HEAD_DIMS):
+        return 0
+    layers = sum(kind == "attn" or kind == "global" or (kind == "local" and
+                                                         not cfg.sliding_window)
+                 for kind in cfg.layer_kinds())
+    return layers + cfg.encoder_layers
 
 
 def ragged_moe_layers(cfg) -> int:
@@ -99,7 +120,11 @@ def forward_backward(cfg, *, seq: int, passes: int = 1) -> Dict[str, int]:
     """``passes`` losses and gradients of one replica over sequences of
     ``seq`` tokens."""
     moe = ragged_moe_layers(cfg) * token_chunks(cfg, seq) * passes
+    flash = flash_training_calls(cfg) * passes
     out = _zero()
+    out["flash_attention"] = flash * (1 + bool(cfg.remat))
+    out["flash_attention_dq"] = flash
+    out["flash_attention_dkdv"] = flash
     out["grouped_matmul"] = 3 * moe * (1 + bool(cfg.remat))
     out["grouped_matmul_dx"] = 3 * moe
     out["grouped_matmul_dw"] = 3 * moe

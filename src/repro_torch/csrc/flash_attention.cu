@@ -138,6 +138,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;                  // (B, Hq, Sq) or null: each row's log-sum-exp (wgmma only)
   int B, Sq, Sk, Hq, Hkv;
   int causal, window, kv_len;  // kv_len in [0, Sk]; keys >= kv_len masked
   float sm_scale;
@@ -157,6 +158,17 @@ __device__ __forceinline__ FlashTile flash_tile() {
   t.h = blockIdx.y;
   t.b = blockIdx.z;
   return t;
+}
+
+// The log-sum-exp of row qi of head h, log sum_j exp(s_j) over the scaled
+// scores s_j = q_i . k_j / sqrt(hd) of its live keys, from the row's max m
+// and sum l = sum_j exp(s_j - m) (both in the scaled domain): the backward
+// rebuilds P = exp(s - lse) from it. A row with no live key (l == 0) gets
+// +inf, so that the P rebuilt from it is 0, as the row's output is.
+__device__ __forceinline__ void store_lse(const Params& prm, int b, int h, int qi, float m,
+                                          float l) {
+  prm.lse[(static_cast<int64_t>(b) * prm.Hq + h) * prm.Sq + qi] =
+      l == 0.f ? __int_as_float(0x7f800000) : m + logf(l);
 }
 
 template <typename T, int HD>
@@ -660,6 +672,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const float inv = sum == 0.f ? 0.f : 1.f / sum;
     const int qi = qw + row_in + 8 * hh;
     if (qi >= prm.Sq) continue;
+    // m is in raw units: the scaled max is m * sm_scale
+    if (prm.lse != nullptr && (lane & 3) == 0)
+      store_lse(prm, b, h, qi, m[hh] * prm.sm_scale, sum);
     __nv_bfloat16* orow =
         out + ((static_cast<int64_t>(b) * prm.Sq + qi) * prm.Hq + h) * HD + col_in;
 #pragma unroll
@@ -772,17 +787,21 @@ __global__ void flash_tile_probe_kernel(long long rows, TileBox* boxes, int capa
 }  // namespace
 
 // dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Tensors
-// are contiguous (B, S, H, hd). kv_len <= 0 means Sk. Returns a
-// cudaError_t (0: ok).
+// are contiguous (B, S, H, hd). kv_len <= 0 means Sk. lse, when not null,
+// is a contiguous fp32 (B, Hq, Sq) that takes each row's log-sum-exp (the
+// training forward's; serving passes null); only the wgmma kernel writes
+// it, so a call off its path with lse is refused. Returns a cudaError_t
+// (0: ok).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
+                                      const void* v, void* out, void* lse, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int hd,
                                       int causal, int window, int kv_len,
                                       float sm_scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || kv_len > Sk)
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || kv_len > Sk ||
+      (lse != nullptr && !wgmma_path(dtype, hd, Sk)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params prm{q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window,
+  Params prm{q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, causal, window,
              kv_len <= 0 ? Sk : kv_len, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wgmma_path(dtype, hd, Sk)) return static_cast<int>(dispatch_wgmma(hd, prm, s));

@@ -73,6 +73,7 @@ from repro_torch.dist.gossip import (
     mix_matchings_masked,
 )
 from repro_torch.kernels import ops
+from repro_torch.models.attention import route_counts
 from repro_torch.models.module import _assign
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.telemetry.timers import NO_SPANS, StepSpans, StepTimer
@@ -428,6 +429,11 @@ def make_gossip_flush(plan, bplan: bucketing.BucketPlan):
 # ---------------------------------------------------------------------------
 # Train steps
 # ---------------------------------------------------------------------------
+def _since(before: Dict[str, int]) -> Dict[str, int]:
+    """The training attention calls by route since ``before``."""
+    return {k: v - before[k] for k, v in route_counts().items()}
+
+
 class TrainStep:
     """One decentralized step over node-stacked state:
 
@@ -446,7 +452,11 @@ class TrainStep:
     ``last_phases`` is their ``telemetry.timers.StepSpans`` view:
     ``last_phases.ms()`` (or ``last_phase_ms``) splits the step's device
     time by span name, and ``last_phases.counts()`` holds the gossip's
-    ``pairs_exchanged`` and ``pairs_set``. ``step=k`` names the step in
+    ``pairs_exchanged`` and ``pairs_set`` and the training attention's
+    calls by route, ``attention_kernel`` / ``attention_plain``
+    (``models.attention.route_counts``: on each ``forward`` span the
+    forward's calls, on each ``backward`` span remat's recomputed ones and
+    the flash backward's). ``step=k`` names the step in
     the spans. Without a timer ``last_phases`` is the view of the same
     spans on the step's own timer, without the counters; with a disabled
     timer it stays ``None``.
@@ -500,17 +510,24 @@ class TrainStep:
     def _local_sgd(self, params, opt_state, batch, i: int, spans):
         """Node i's fwd/bwd and SGD update, written into its slices.
         Only this node's grads are alive at a time."""
+        traced = self.timer is not None and self.timer.enabled
         with spans("fwd_bwd", node=i):
             p_i = tree_map(lambda a: a[i].detach().requires_grad_(), params)
             b_i = {k: v[i] for k, v in batch.items()}
-            with spans("forward", node=i), self._rules():
+            with spans("forward", node=i) as span, self._rules():
+                before = route_counts() if traced else None
                 loss, metrics = self.model.loss(p_i, b_i)
-            with spans("backward", node=i):
+                if traced:
+                    span.count(**_since(before))
+            with spans("backward", node=i) as span:
+                before = route_counts() if traced else None
                 with self._rules():
                     grads = iter(torch.autograd.grad(loss, tree_leaves(p_i)))
                 g_i = tree_map(lambda _: next(grads), p_i)
                 if self.grad_clip:
                     g_i = self._clip(g_i)
+                if traced:
+                    span.count(**_since(before))
         with spans("optimizer", node=i), torch.no_grad():
             p_view = tree_map(lambda a: a[i], params)
             s_view = tree_map(lambda a: a[i], opt_state)

@@ -14,8 +14,11 @@ every ``head_dim`` of the model registry.
 source.
 
 It masks the ragged q and k edges itself, so unlike the JAX wrapper no
-caller pads to block multiples. It has no backward: the serving prefill
-runs it, training keeps the model's ``sdpa``.
+caller pads to block multiples. Given ``lse=`` (an fp32 ``(B, Hq, Sq)``
+buffer) it also writes each row's log-sum-exp of the scaled scores:
+training's forward does (``kernels.flash_attention_bwd.FlashAttention``,
+whose backward kernels rebuild P from it); the serving prefill passes
+none and runs the kernel as before.
 
 The wrapper launches on PyTorch's current stream without synchronizing
 and counts its launches in ``flash_attention.launches``. It raises on
@@ -76,7 +79,7 @@ def _library():
         fn.argtypes = [
             ctypes.c_int,                                        # dtype
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
-            ctypes.c_void_p,                                     # out
+            ctypes.c_void_p, ctypes.c_void_p,                    # out, lse
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, Sq, Sk
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # Hq, Hkv, hd
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # causal, window, kv_len
@@ -186,10 +189,15 @@ def flash_attention(
     window: int = 0,
     kv_len: int = 0,
     out: torch.Tensor = None,
+    lse: torch.Tensor = None,
 ) -> torch.Tensor:
     """Attention of q over k/v on the card; out (B, Sq, Hq, hd) in q's
     dtype (a new tensor, or ``out``). Query i and key j sit at positions
-    i and j; ``kv_len > 0`` masks keys at positions >= kv_len."""
+    i and j; ``kv_len > 0`` masks keys at positions >= kv_len. ``lse``, a
+    contiguous fp32 (B, Hq, Sq) buffer, takes each row's log-sum-exp
+    ``log sum_j exp(q_i . k_j / sqrt(hd))`` over its live keys (+inf for
+    a row with none); only the wgmma kernel writes it, and a launch off
+    its path (``kernel_path``) with ``lse`` is refused."""
     _check(q, k, v, kv_len)
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -197,6 +205,8 @@ def flash_attention(
         out = torch.empty_like(q)
     else:
         build.check_out("flash_attention", out, q.shape, q.dtype, q.device)
+    if lse is not None:
+        build.check_out("flash_attention (lse)", lse, (B, Hq, Sq), torch.float32, q.device)
     if out.numel() == 0:
         return out
     if meta.is_meta(q):
@@ -208,7 +218,7 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
+            out.data_ptr(), None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
             int(bool(causal)), int(window), int(kv_len),
             1.0 / math.sqrt(hd), stream,
         )

@@ -1,8 +1,10 @@
 """Public wrappers that dispatch between the kernels and their plain
 versions.
 
-The port of ``repro.kernels.ops``: ``attention`` (flash attention),
-``ssd`` (the Mamba2 chunk scan), ``grouped_matmul`` (the MoE expert
+The port of ``repro.kernels.ops``: ``attention`` (flash attention,
+differentiable on the card through its backward kernels) and its two
+backward passes alone (``attention_dq``, ``attention_dkdv``: the kernel
+lint's cases), ``ssd`` (the Mamba2 chunk scan), ``grouped_matmul`` (the MoE expert
 products) and its two gradients alone (``grouped_matmul_dx``,
 ``grouped_matmul_dw``: the kernel lint's cases; training reaches them
 through ``grouped_matmul``'s backward) and the gossip update. ``resolve_mode`` is the one place the
@@ -25,11 +27,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gossip_axpy as _ga
 from repro_torch.kernels import grouped_matmul as _gm
 from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.kernels.ref import (
     attention_ref,
+    flash_attention_dkdv_ref,
+    flash_attention_dq_ref,
     gossip_axpy_ref,
     grouped_matmul_dw_ref,
     grouped_matmul_dx_ref,
@@ -64,12 +69,37 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0, impl: str = "aut
     """Attention of q (B,Sq,Hq,hd) over k/v (B,Sk,Hkv,hd), query i and
     key j at positions i and j. The kernel masks ragged lengths itself,
     so nothing is padded here (the JAX wrapper pads to block multiples
-    and masks the pad with ``kv_len``)."""
+    and masks the pad with ``kv_len``). Differentiable on both paths: the
+    plain version through autograd; the kernel, when grad is enabled and
+    an operand needs it, through ``FlashAttention`` (Sq == Sk, no window,
+    bf16 at the backward's head widths: it raises on anything else),
+    whose backward launches the dq and dk / dv kernels."""
     if resolve_mode(impl, q.device) == "torch":
         return attention_ref(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window
-    )
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if window:
+            raise ValueError("the flash backward takes no window: a windowed attention "
+                             "that needs its gradient runs the plain version")
+        return _fab.FlashAttention.apply(q, k, v, causal)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def attention_dq(q, k, v, o, do, lse, *, causal: bool = True, impl: str = "auto"):
+    """The backward's dq pass: ``(dq, D)`` from the forward's output
+    ``o`` and log-sum-exp ``lse`` and the output's gradient ``do``, with
+    ``D = rowsum(do * o)`` (``FlashAttention``'s first backward launch)."""
+    if resolve_mode(impl, q.device) == "torch":
+        return flash_attention_dq_ref(q, k, v, o, do, lse, causal=causal)
+    return _fab.flash_attention_dq(q, k, v, o, do, lse, causal=causal)
+
+
+def attention_dkdv(q, k, v, do, lse, delta, *, causal: bool = True, impl: str = "auto"):
+    """The backward's dk / dv pass: ``(dk, dv)`` from ``lse`` and the dq
+    pass's ``delta`` (``FlashAttention``'s second backward launch)."""
+    if resolve_mode(impl, q.device) == "torch":
+        return flash_attention_dkdv_ref(q, k, v, do, lse, delta, causal=causal)
+    return _fab.flash_attention_dkdv(q, k, v, do, lse, delta, causal=causal)
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,69 @@ def attention_ref(
     return o.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """fp32 scaled scores ``(B, Hkv, g, Sq, Sk)`` of q over k (query head h
+    reads kv head ``h // g``) and the live mask ``(Sq, Sk)``."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = (q.float() / math.sqrt(hd)).reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        live = torch.arange(Sk, device=q.device)[None, :] <= torch.arange(
+            Sq, device=q.device)[:, None]
+    return s, live
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True):
+    """The log-sum-exp (B, Hq, Sq) fp32 of each row's scaled scores over its
+    live keys, ``log sum_j exp(q_i . k_j / sqrt(hd))``: what the flash
+    kernel's ``lse`` output holds."""
+    B, Sq, Hq, _ = q.shape
+    s, live = _scores(q, k, causal)
+    lse = torch.logsumexp(torch.where(live, s, -math.inf), dim=-1)     # (B, Hkv, g, Sq)
+    return lse.reshape(B, Hq, Sq)
+
+
+def _probs(q, k, lse, causal):
+    """P = exp(s - lse) over the live keys, 0 elsewhere: (B, Hkv, g, Sq, Sk)."""
+    s, live = _scores(q, k, causal)
+    B, Hkv, g, Sq, _ = s.shape
+    p = torch.exp(s - lse.reshape(B, Hkv, g, Sq, 1))
+    return torch.where(live, p, 0.0)
+
+
+def flash_attention_dq_ref(q, k, v, o, do, lse, *, causal: bool = True):
+    """The backward's dq pass in fp32: ``(dq, D)`` with ``D = rowsum(do *
+    o)`` (B, Hq, S) fp32, ``dS = P (do v^T - D)`` from P rebuilt from the
+    given ``lse``, and ``dq = dS k / sqrt(hd)`` in q's dtype."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()     # (B, Hq, S)
+    p = _probs(q, k, lse, causal)
+    dog = do.float().reshape(B, S, Hkv, Hq // Hkv, hd)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.reshape(B, Hkv, Hq // Hkv, S, 1))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) / math.sqrt(hd)
+    return dq.reshape(B, S, Hq, hd).to(q.dtype), delta
+
+
+def flash_attention_dkdv_ref(q, k, v, do, lse, delta, *, causal: bool = True):
+    """The backward's dk / dv pass in fp32: ``dv = P^T do`` and ``dk = dS^T
+    q / sqrt(hd)`` summed over each kv head's query heads, from the given
+    ``lse`` and ``delta`` (B, Hq, S), in k's dtype."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    p = _probs(q, k, lse, causal)
+    dog = do.float().reshape(B, S, Hkv, g, hd)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - delta.reshape(B, Hkv, g, S, 1))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q.float().reshape(B, S, Hkv, g, hd))
+    return (dk / math.sqrt(hd)).to(k.dtype), dv.to(k.dtype)
+
+
 def ssm_scan_ref(
     x: torch.Tensor,            # (B, S, H, P)
     dt: torch.Tensor,           # (B, S, H), positive

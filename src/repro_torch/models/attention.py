@@ -5,9 +5,10 @@ The port of ``repro.models.attention``. Two execution paths share one
 declaration, as in the JAX package:
 
   * ``sdpa``: plain PyTorch attention over position arrays (with
-    softcap), for training and for every cache step but one; from
-    ``CHUNKED_SDPA_THRESHOLD`` queries on, ``sdpa_chunked`` runs it one
-    block of queries at a time, as the JAX model does;
+    softcap), for every cache step but one and for the training calls
+    the flash kernel does not take; from ``CHUNKED_SDPA_THRESHOLD``
+    queries on, ``sdpa_chunked`` runs it one block of queries at a time,
+    as the JAX model does;
   * ``repro_torch.kernels.ops.attention``: the hand-written Hopper
     flash-attention kernel on the card (its plain version on the CPU).
     A serving prefill that starts at position 0 runs it over the keys it
@@ -15,10 +16,13 @@ declaration, as in the JAX package:
     attention over the first S keys, which is the kernel's function.
     The same prefill runs it for the encoder's non-causal
     self-attention and for the decoder's cross-attention over the
-    encoder output (whisper). The kernel has no softcap and no
-    backward, so softcapped configurations, decode steps, later
-    prefills and training stay on ``sdpa`` (the backward kernel is a
-    later slice of the port).
+    encoder output (whisper). Training's cache-less self-attention runs
+    it with its backward kernels (``kernels.flash_attention_bwd``)
+    wherever ``flash_route`` allows: on the card (or meta) in bf16 at a
+    head width the backward takes, with no softcap and no window; every
+    other training call (fp32, gemma3's windows, hd 112 / 192 / 256,
+    cross-attention, softcapped configs), decode steps, later prefills
+    and CPU tensors stay on ``sdpa``.
 
 Under tensor parallel (``repro_torch.models.tp``) the block shards over
 heads, following the rules: where ``heads`` / ``kv_heads`` divide the
@@ -60,6 +64,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention_bwd import BACKWARD_HEAD_DIMS, flash_attention_dq
 from repro_torch.models import tp as tpl
 from repro_torch.models.layers import apply_dense, apply_rope, declare_dense
 from repro_torch.models.module import ParamBuilder, ones_init, torch_dtype
@@ -170,9 +176,39 @@ def sdpa_chunked(
 
 
 def _dispatch_sdpa(q, k, v, **kw):
+    """The plain route: ``sdpa``, or ``sdpa_chunked`` from the
+    threshold on; counts its calls in ``_dispatch_sdpa.calls``."""
+    _dispatch_sdpa.calls += 1
     if q.shape[1] >= CHUNKED_SDPA_THRESHOLD:
         return sdpa_chunked(q, k, v, **kw)
     return sdpa(q, k, v, **kw)
+
+
+_dispatch_sdpa.calls = 0
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, *, logit_softcap: float,
+                window: int) -> bool:
+    """Whether a cache-less self-attention call takes the flash kernel
+    and its backward (``ops.attention``, differentiable on the card)
+    instead of ``sdpa``: q and k on the card (or meta, the dry run) in
+    bf16, a head width the backward kernels take, no softcap, no window,
+    as many keys as queries. Its caller gives ``sdpa`` the same positions
+    for queries and keys, and every builder of them makes an arange, so
+    ``sdpa``'s positional causal mask is the kernel's index-causal one
+    whatever the start."""
+    return (q.device.type in ("cuda", "meta") and q.dtype == torch.bfloat16
+            and k.dtype == q.dtype and q.shape[-1] in BACKWARD_HEAD_DIMS
+            and not logit_softcap and not window and q.shape[1] == k.shape[1])
+
+
+def route_counts() -> dict:
+    """Attention calls so far by route, read from the launch counters:
+    ``attention_kernel``, the flash forward's launches on the card plus
+    its backward's (one dq launch each, then one dk / dv launch: counted
+    once); ``attention_plain``, ``_dispatch_sdpa``'s calls."""
+    return {"attention_kernel": flash_attention.launches + flash_attention_dq.launches,
+            "attention_plain": _dispatch_sdpa.calls}
 
 
 # ---------------------------------------------------------------------------
@@ -292,12 +328,13 @@ def attention_block(
     are written and the queries attend over the cache. Cross-attention
     is non-causal over encoder keys at positions ``0..Sk-1``, with no
     rope and no cache. ``prefill_from_zero`` marks a serving prefill
-    from position 0 (``positions`` is ``0..S-1``; inference only, the
-    kernel has no backward), which runs ``ops.attention``, the flash
-    kernel on the card, when the config has no softcap: a multi-token
-    cache step over the keys just written, cross-attention over
-    ``cross_kv``, and a cache-less call (the encoder's pass) over its
-    own keys. ``xm`` is ``x`` as it enters the sharded heads
+    from position 0 (``positions`` is ``0..S-1``; inference), which runs
+    ``ops.attention``, the flash kernel on the card, when the config has
+    no softcap: a multi-token cache step over the keys just written,
+    cross-attention over ``cross_kv``, and a cache-less call (the
+    encoder's pass) over its own keys. A cache-less self-attention call
+    (training's) takes the flash kernel with its backward where
+    ``flash_route`` allows. ``xm`` is ``x`` as it enters the sharded heads
     (``to_model(x)`` when not given) and ``reduce`` the row-parallel
     output's reduction (``reduce_from_model`` when not given): a
     sequence-parallel sublayer passes its own (``tp.SeqIn``).
@@ -347,11 +384,14 @@ def attention_block(
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        if kernel and prefill_from_zero:
-            out = ops.attention(q, mine(k), mine(v), causal=causal, window=window)
+        k, v = mine(k), mine(v)
+        if flash_route(q, k, logit_softcap=cfg.logit_softcap, window=window):
+            out = ops.attention(q, k, v, causal=causal)
+        elif kernel and prefill_from_zero:
+            out = ops.attention(q, k, v, causal=causal, window=window)
         else:
-            out = _dispatch_sdpa(q, mine(k), mine(v), q_positions=positions,
-                                 k_positions=positions, **sdpa_kw)
+            out = _dispatch_sdpa(q, k, v, q_positions=positions, k_positions=positions,
+                                 **sdpa_kw)
         new_cache = None
     elif kv_seq_split(cache_spec.length) is not None:
         # kv-seq-sharded cache: every kv head of the rank's slots

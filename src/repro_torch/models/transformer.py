@@ -26,8 +26,11 @@ caches for attention layers, the SSM and conv state for Mamba layers.
 The port updates them in place. A prefill from position 0 runs the
 hand-written flash-attention and SSD chunk-scan kernels on the card
 (``repro_torch.kernels.ops``), the encoder's self-attention and the
-cross-attention included; decode and training run the models' plain
-PyTorch attention and SSD, as the JAX model does.
+cross-attention included; decode runs the models' plain PyTorch
+attention and SSD, as the JAX model does. Training's cache-less
+self-attention takes the flash kernel and its backward where the
+routing rule allows (``attention.flash_route``); the rest of training,
+SSD included, stays plain.
 
 Encoder-decoder models encode stub frame embeddings (``_encode``:
 frontend projection, sinusoidal positions, non-causal layers) and give
@@ -543,8 +546,8 @@ class Model:
     def _encode(self, params, frames: torch.Tensor, *, prefill: bool = False):
         """Whisper-style encoder over stub frame embeddings (B, S_enc,
         fd). ``prefill``: the encoder pass of a serving prefill, whose
-        self-attention runs the flash kernel on the card (inference
-        only: training keeps ``sdpa``)."""
+        self-attention runs the flash kernel on the card; in training the
+        routing rule (``attention.flash_route``) decides."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         x = apply_dense(params["frontend_proj"], frames, dtype)

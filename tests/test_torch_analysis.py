@@ -36,6 +36,7 @@ from repro_torch.analysis import schedule
 from repro_torch.analysis.cost import CostMode
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core import named_graph, plan_matcha
+from repro_torch.kernels.flash_attention_bwd import takes
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -79,11 +80,18 @@ def _shapes(args):
 def test_kernel_cases_match_jax_sweep_cases(arch):
     want = {c.label: _shapes(c.args) for c in jax_kernel_cases.sweep_cases(arch)}
     cases = kernel_cases.sweep_cases(arch)
-    got = {c.label: [(s, d) for s, d in c.args] for c in cases
-           if c.kernel not in ("grouped_matmul_dx", "grouped_matmul_dw")}
+    port_only = ("grouped_matmul_dx", "grouped_matmul_dw", "flash_attention_dq",
+                 "flash_attention_dkdv")
+    got = {c.label: [(s, d) for s, d in c.args] for c in cases if c.kernel not in port_only}
     assert got == want
     extra = [c for c in cases if c.kernel in ("grouped_matmul_dx", "grouped_matmul_dw")]
     assert len(extra) == 2 * sum(c.kernel == "grouped_matmul" for c in cases)
+    # the flash backward's two passes beside each unwindowed flash case the
+    # backward takes (bf16 at hd 64 or 128)
+    bwd = [c for c in cases if c.kernel in ("flash_attention_dq", "flash_attention_dkdv")]
+    assert len(bwd) == 2 * sum(c.kernel == "flash_attention" and not c.opts["window"]
+                               and takes(getattr(torch, c.args[0][1]), c.args[0][0][3])
+                               for c in cases)
     # each case through its wrapper's meta branch: the wrapper's own
     # shape, dtype and width checks accept it, and its output is the
     # plain version's shape
@@ -94,8 +102,10 @@ def test_kernel_cases_match_jax_sweep_cases(arch):
         s0, s1, groups = c.args[0][0], c.args[1][0], c.args[-1][0][0]
         want = {"flash_attention": s0, "ssm_scan": s0, "gossip_axpy": s0,
                 "grouped_matmul": (s0[0], s1[-1]), "grouped_matmul_dx": (s0[0], s1[1]),
-                "grouped_matmul_dw": (groups, s0[1], s1[1])}[c.kernel]
-        out = out[0] if c.kernel == "ssm_scan" else out
+                "grouped_matmul_dw": (groups, s0[1], s1[1]), "flash_attention_dq": s0,
+                "flash_attention_dkdv": s1}[c.kernel]
+        out = out[0] if c.kernel in ("ssm_scan", "flash_attention_dq",
+                                     "flash_attention_dkdv") else out
         assert tuple(out.shape) == tuple(want), c.label
 
 
@@ -133,7 +143,8 @@ def test_kernel_lint_rejects_bad_configs(bad, name):
 def test_kernel_lint_extent_follows_each_wrapper():
     want = {"flash_attention": (256, 16, 2), "ssm_scan": (256, 32, 2),
             "grouped_matmul": (549, 10752, 1), "grouped_matmul_dx": (549, 6144, 1),
-            "grouped_matmul_dw": (6144, 10752, 16), "gossip_axpy": (33 * 129, 1, 1)}
+            "grouped_matmul_dw": (6144, 10752, 16), "gossip_axpy": (33 * 129, 1, 1),
+            "flash_attention_dq": (197, 48, 2), "flash_attention_dkdv": (197, 8, 2)}
     got = {}
     for arch in ("dbrx_132b", "mamba2_370m"):
         for c in kernel_cases.sweep_cases(arch):

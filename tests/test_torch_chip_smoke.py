@@ -144,7 +144,14 @@ def test_dry_configs_cover_every_driven_configuration(smoke):
     assert labels[0].startswith("train masked") and labels[1].startswith("train overlap")
     assert "after a warm-up step" in labels[1]
     assert all(label.startswith("consensus_distance") for label in labels[2:4])
-    assert sum(label.startswith("sdpa_chunked") for label in labels) == 2
+    assert sum(label.startswith("attention at S 8192") for label in labels) == 2
+
+
+# a training step of phase 3 (internlm2 at 2 layers, 8 nodes): the flash
+# forward twice a layer and node (remat), each backward pass once, and the
+# gossip axpy once a leaf
+TRAIN_LAUNCHES = {"gossip_axpy": 12, "flash_attention": 32, "flash_attention_dq": 16,
+                  "flash_attention_dkdv": 16}
 
 
 def test_dry_run_predicts_what_the_card_measured(smoke):
@@ -155,7 +162,7 @@ def test_dry_run_predicts_what_the_card_measured(smoke):
     cm = configs["train masked"]()
     assert cm.argument_bytes == 32313606656
     assert abs(cm.peak / 44.511e9 - 1) < smoke.DRY_PEAK_TOL
-    assert dict(cm.launches) == {"gossip_axpy": 12}
+    assert dict(cm.launches) == TRAIN_LAUNCHES
     cm = configs["dbrx MoE block fwd+bwd"]()
     assert cm.argument_bytes == 6744834048
     assert abs(cm.peak / 18.728e9 - 1) < 0.001
@@ -174,7 +181,7 @@ def test_dry_run_predicts_the_steady_overlap_step_and_the_consensus_peaks(smoke)
     cm = configs["train overlap"]()
     assert cm.argument_bytes == 48470393344
     assert abs(cm.peak / 56.551e9 - 1) < 0.001
-    assert dict(cm.launches) == {"gossip_axpy": 12}
+    assert dict(cm.launches) == TRAIN_LAUNCHES
     for mode, peak in (("masked", 45.203e9), ("overlap", 61.359e9)):
         cm = configs[f"consensus_distance over the {mode} state"]()
         assert abs(cm.peak / peak - 1) < 0.001, mode
@@ -199,6 +206,26 @@ def test_sweep_close_holds_gossip_bit_for_bit(smoke):
     want = gmm.run_plain(*t)
     assert smoke.sweep_close(torch, gmm, want + 1e-3, want) < 2e-3
     assert smoke.sweep_close(torch, gmm, want + 1.0, want) == float("inf")
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention_dq", "flash_attention_dkdv"])
+def test_sweep_close_judges_the_flash_backward_by_relative_norm(smoke, kernel):
+    """The backward's outputs stored in bf16 pass; a half tile of 32 rows
+    zeroed mid-sequence fails, though most of its elements are smaller
+    than an absolute tolerance of 0.05 would notice."""
+    import torch
+
+    from repro_torch.analysis import kernel_cases
+
+    case = next(c for c in kernel_cases.sweep_cases("whisper_base")
+                if c.label == f"whisper_base/tiny/{kernel}/aligned")
+    want = case.run_plain(*case.make("cpu"))
+    got = tuple(w.bfloat16() if w.dim() == 4 else w for w in want)
+    assert smoke.sweep_close(torch, case, got, want) < smoke.FA_BWD_REL_TOL
+    S = want[0].shape[1]
+    bad = got[0].clone()
+    bad[:, S // 2 + 32:S // 2 + 64] = 0
+    assert smoke.sweep_close(torch, case, (bad,) + got[1:], want) == float("inf")
 
 
 def test_fsdp_phase_is_listed_wired_and_reckons_its_bytes(smoke):
@@ -419,6 +446,7 @@ def test_sweep_planted_faults_are_flagged_on_the_cpu(smoke):
 
 @pytest.mark.parametrize("name,mapping", [
     ("flash_attention", {"flash_tile()": 4}),
+    ("flash_attention_bwd", {"dq_tile()": 3, "dkdv_tile()": 3}),
     ("grouped_matmul", {"tile_coords(": 5, "locate_tile<": 3, "dw_tile(": 4}),
     ("ssm_scan", {"scalar_item(": 3, "decode_ticket(": 3}),
     ("gossip_axpy", {"scalar_head(": 3, "vectors_aligned(": 3, "whole_vectors(": 1,

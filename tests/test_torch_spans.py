@@ -247,10 +247,14 @@ def test_a_step_built_without_a_timer_keeps_its_spans_without_the_counters(mode)
                                           ("overlap", False), ("overlap", True)])
 def test_the_counter_is_the_schedules_share(mode, faulted):
     _, _, views, _ = _traced(mode, faulted)
-    _, plan, _ = _setup()
+    cfg, plan, _ = _setup()
     M = plan.num_matchings
     for k, view in enumerate(views):
         got = view.counts()
+        # the training attention's calls ride on the forward and backward
+        # spans: fp32 on the CPU, every one plain, each layer again under remat
+        assert {key: got.pop(key) for key in ("attention_kernel", "attention_plain")} == {
+            "attention_kernel": 0, "attention_plain": 2 * NODES * cfg.num_layers}
         bits = _bits(k, faulted)
         if mode == "static":
             want_pairs = NODES * len(ACTIVE)
