@@ -70,8 +70,8 @@ def flash_training_calls(cfg) -> int:
     from repro_torch.kernels.flash_attention_bwd import BACKWARD_HEAD_DIMS
 
     if (cfg.logit_softcap or cfg.compute_dtype != "bfloat16" or not cfg.num_heads
-            or cfg.head_dim not in BACKWARD_HEAD_DIMS):
-        return 0
+            or cfg.head_dim not in BACKWARD_HEAD_DIMS or cfg.mla_kv_rank):
+        return 0                 # latent attention's v is narrower than its q and k
     layers = sum(kind == "attn" or kind == "global" or (kind == "local" and
                                                          not cfg.sliding_window)
                  for kind in cfg.layer_kinds())
@@ -79,8 +79,9 @@ def flash_training_calls(cfg) -> int:
 
 
 def ragged_moe_layers(cfg) -> int:
-    """MoE layers that take the grouped-matmul kernel (more than 8 experts)."""
-    if cfg.moe_num_experts <= 8:
+    """MoE layers that take the grouped-matmul kernel (a router over more
+    than 8 experts)."""
+    if cfg.router_experts <= 8:
         return 0
     return sum(map(cfg.layer_is_moe, range(cfg.num_layers)))
 
@@ -133,7 +134,7 @@ def forward_backward(cfg, *, seq: int, passes: int = 1) -> Dict[str, int]:
 
 def moe_block(cfg, *, seq: int) -> Dict[str, int]:
     """One MoE block's forward and backward alone (no remat)."""
-    n = 3 * token_chunks(cfg, seq) * (cfg.moe_num_experts > 8)
+    n = 3 * token_chunks(cfg, seq) * (cfg.router_experts > 8)
     return dict(_zero(), grouped_matmul=n, grouped_matmul_dx=n, grouped_matmul_dw=n)
 
 

@@ -33,7 +33,21 @@ class ModelConfig:
     moe_every: int = 1               # MoE FFN every N layers (others dense)
     moe_first_dense: int = 0         # first K layers use dense FFN (kimi: 1)
     moe_shared_expert: bool = False  # one always-on shared expert (kimi)
+    moe_shared_d_ff: int = 0         # its width (0 -> moe_d_ff); moonlight: 2 x 1408
     moe_token_chunks: int = 1        # process tokens in N chunks (peak-memory knob)
+    moe_router: str = "softmax"      # softmax (top-k renormalized) | sigmoid (deepseek-v3)
+    moe_route_scale: float = 1.0     # gates x this (deepseek-v3's routed_scaling_factor)
+    # the expert share: a layer holds moe_num_experts experts, from
+    # moe_first_expert on, of a router over moe_router_experts (0: the
+    # layer holds every expert the router picks from)
+    moe_router_experts: int = 0
+    moe_first_expert: int = 0
+
+    # multi-head latent attention (deepseek-v3): 0 -> plain attention.
+    # head_dim is the query / key width, mla_rope_dim of it rotated
+    mla_kv_rank: int = 0             # kv_lora_rank: the latent's width
+    mla_rope_dim: int = 0            # qk_rope_head_dim: one rotated key head for all
+    mla_v_dim: int = 0               # v_head_dim
 
     # attention layout
     attn_every: int = 0              # hybrid: one attn layer per N (jamba: 8)
@@ -61,6 +75,7 @@ class ModelConfig:
 
     # norms / embeddings
     norm: str = "rmsnorm"            # rmsnorm | layernorm
+    rms_eps: float = 1e-6            # the norms' epsilon
     tie_embeddings: bool = True
 
     # numerics
@@ -82,6 +97,21 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_kv_heads and self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be divisible by num_kv_heads")
+        if self.moe_num_experts and self.moe_first_expert + self.moe_num_experts > \
+                self.router_experts:
+            raise ValueError(f"experts {self.moe_first_expert}.."
+                             f"{self.moe_first_expert + self.moe_num_experts - 1} lie past "
+                             f"the router's {self.router_experts}")
+
+    @property
+    def router_experts(self) -> int:
+        """The router's width: the experts a token picks its top-k from."""
+        return self.moe_router_experts or self.moe_num_experts
+
+    @property
+    def holds_share(self) -> bool:
+        """Whether a MoE layer holds only some of the router's experts."""
+        return self.moe_num_experts < self.router_experts
 
     @property
     def padded_vocab(self) -> int:
@@ -130,7 +160,11 @@ class ModelConfig:
         total = active = 0
         for i, kind in enumerate(self.layer_kinds()):
             layer = 0
-            if kind in ("attn", "local", "global"):
+            if kind in ("attn", "local", "global") and self.mla_kv_rank:
+                r, h, v = self.mla_kv_rank, self.num_heads, self.mla_v_dim
+                layer += (d * h * hd + d * (r + self.mla_rope_dim)
+                          + r * h * (hd - self.mla_rope_dim + v) + h * v * d)
+            elif kind in ("attn", "local", "global"):
                 q = d * self.num_heads * hd
                 kv = 2 * d * self.num_kv_heads * hd
                 o = self.num_heads * hd * d
@@ -142,12 +176,16 @@ class ModelConfig:
                 layer += d_in * d                                      # out proj
             if self.layer_is_moe(i):
                 e_ff = self.moe_d_ff or self.d_ff
-                per_expert = (3 if self.gated_ffn else 2) * d * e_ff
-                layer_moe = self.moe_num_experts * per_expert + d * self.moe_num_experts
-                layer_active = self.moe_top_k * per_expert
+                mult = 3 if self.gated_ffn else 2
+                per_expert = mult * d * e_ff
+                layer_moe = self.moe_num_experts * per_expert + d * self.router_experts
+                # a share's experts take their expected part of the top-k pairs
+                layer_active = (self.moe_top_k * per_expert * self.moe_num_experts
+                                // self.router_experts)
                 if self.moe_shared_expert:
-                    layer_moe += per_expert
-                    layer_active += per_expert
+                    shared = mult * d * (self.moe_shared_d_ff or e_ff)
+                    layer_moe += shared
+                    layer_active += shared
                 total += layer + layer_moe
                 active += layer + layer_active
             else:

@@ -23,6 +23,9 @@ ARCH_IDS = (
     "granite_20b",
     "internlm2_1_8b",
 )
+# Architectures the port alone has (the JAX package's registry is
+# ``ARCH_IDS``, which the tests pin the port's to id for id).
+PORT_ARCH_IDS = ("moonlight_16b_a3b",)
 
 _ALIASES = {
     "whisper-base": "whisper_base",
@@ -35,13 +38,14 @@ _ALIASES = {
     "internvl2-1b": "internvl2_1b",
     "granite-20b": "granite_20b",
     "internlm2-1.8b": "internlm2_1_8b",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
 }
 
 
 def _module(arch_id: str):
     key = _ALIASES.get(arch_id, arch_id).replace("-", "_")
-    if key not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+    if key not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS + PORT_ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -48,7 +48,10 @@ node's ``fwd_bwd`` (``forward``, ``backward``) and ``optimizer``, then
 ``gossip`` (each leaf's ``gossip/target`` and ``gossip/apply``) with the
 exchange's counters, or the overlap step's ``gossip_apply`` and
 ``gossip_launch``; nothing is fenced, and the arithmetic is the same, so
-the results are bit-equal to the untraced step's. A step built without a
+the results are bit-equal to the untraced step's. The model's latent
+attention and MoE blocks open theirs inside ``forward`` and ``backward``
+(``mla``, ``moe`` and their ``/backward`` spans; ``telemetry.blocks``),
+with ``moe``'s pair counters when traced. A step built without a
 timer keeps the same spans (not the counters) on a timer of its own, a
 call's at a time, for ``last_phases``: the form the benchmark's traced
 run reads. A disabled timer (``StepTimer(None)``) turns them off: such a
@@ -76,6 +79,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.attention import route_counts
 from repro_torch.models.module import _assign
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.telemetry.blocks import block_spans
 from repro_torch.telemetry.timers import NO_SPANS, StepSpans, StepTimer
 from repro_torch.telemetry.trace import TraceRecorder
 from repro_torch.tree import tree_items, tree_leaves, tree_map
@@ -514,7 +518,8 @@ class TrainStep:
         with spans("fwd_bwd", node=i):
             p_i = tree_map(lambda a: a[i].detach().requires_grad_(), params)
             b_i = {k: v[i] for k, v in batch.items()}
-            with spans("forward", node=i) as span, self._rules():
+            with spans("forward", node=i) as span, self._rules(), \
+                    block_spans(spans, counters=traced):
                 before = route_counts() if traced else None
                 loss, metrics = self.model.loss(p_i, b_i)
                 if traced:

@@ -97,7 +97,6 @@ from repro_torch.tree import tree_items, tree_leaves, tree_map
 PyTree = Any
 
 FSDP_GOSSIP_MODES = ("sequential", "overlap", "none")
-_AUX = ("load_balance", "router_z")
 
 
 # ---------------------------------------------------------------------------
@@ -618,19 +617,19 @@ class _ScanStreamSegment(torch.autograd.Function):
             yield i, full
 
     @staticmethod
-    def forward(ctx, x, rows, layout, gi, body, mesh):
+    def forward(ctx, x, rows, layout, gi, body, mesh, names):
         # the backward runs on autograd's thread: carry the rules there
-        ctx.meta = (layout, gi, bound(body.apply_layer), mesh)
+        ctx.meta = (layout, gi, bound(body.apply_layer), mesh, names)
         ctx.save_for_backward(x, rows)
-        aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in _AUX}
+        aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in names}
         for _, full in _ScanStreamSegment._rows(rows, mesh, range(rows.shape[0])):
             x, a = body.apply_layer(x, _row_view(layout, gi, full))
-            aux = {k: aux[k] + a[k] for k in _AUX}
-        return (x,) + tuple(aux[k] for k in _AUX)
+            aux = {k: aux[k] + a[k] for k in names}
+        return (x,) + tuple(aux[k] for k in names)
 
     @staticmethod
     def backward(ctx, dx, *daux):
-        layout, gi, apply_layer, mesh = ctx.meta
+        layout, gi, apply_layer, mesh, names = ctx.meta
         x0, rows = ctx.saved_tensors
         reps = rows.shape[0]
         inputs = []
@@ -646,7 +645,7 @@ class _ScanStreamSegment(torch.autograd.Function):
                 raw = full.detach().requires_grad_()
                 y, aux = apply_layer(x_in, _row_view(layout, gi, raw))
                 outs, grads = [y], [dx]
-                for k, d in zip(_AUX, daux):
+                for k, d in zip(names, daux):
                     if d is not None and aux[k].requires_grad:
                         outs.append(aux[k])
                         grads.append(d)
@@ -655,7 +654,7 @@ class _ScanStreamSegment(torch.autograd.Function):
                 draw = torch.zeros_like(raw)
             drows[i] = reduce_scatter_full(draw, mesh)
             inputs[i] = None
-        return dx, drows, None, None, None, None
+        return dx, drows, None, None, None, None, None
 
 
 def _row_view(layout: FsdpStreamLayout, gi: int, full_row) -> PyTree:
@@ -681,10 +680,11 @@ def _stream_loss(model, layout: FsdpStreamLayout, shards, batch, mesh):
                     raise ValueError(
                         f"group {layout.plan.names[gi]!r}: layout planned {reps} scan rows "
                         f"but the model's scan body has {st.scan.repeats} iterations")
+                names = tuple(carry["aux"])     # the model's router losses
                 x, *aux = _ScanStreamSegment.apply(
-                    carry["x"], shards[gi].view(reps, -1), layout, gi, st.scan, mesh)
+                    carry["x"], shards[gi].view(reps, -1), layout, gi, st.scan, mesh, names)
                 carry = {**carry, "x": x, "aux": {
-                    k: carry["aux"][k] + a for k, a in zip(_AUX, aux)}}
+                    k: carry["aux"][k] + a for k, a in zip(names, aux)}}
                 continue
 
         def run(carry, *gshards, _st=st):

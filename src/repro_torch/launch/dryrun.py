@@ -343,7 +343,7 @@ def moe_block_call(cfg, *, batch: int, seq: int, seed: int = 0, device="meta"):
             return torch.empty(shape, dtype=dtype, device=device)
         return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
-    p = {"router": {"w": rand(D, E, scale=D ** -0.5, dtype=torch.float32)},
+    p = {"router": {"w": rand(D, cfg.router_experts, scale=D ** -0.5, dtype=torch.float32)},
          "w1": rand(E, D, F, scale=D ** -0.5), "w3": rand(E, D, F, scale=D ** -0.5),
          "w2": rand(E, F, D, scale=F ** -0.5)}
     x, ct = rand(batch, seq, D), rand(batch, seq, D)
@@ -454,13 +454,20 @@ def refused(cfg, shape_name: str, reason: str, extras: Dict[str, Any]) -> Dict[s
 
 
 def config_for(arch: str, *, preset: str = "full", layers: int = 0,
-               bf16_params: bool = False):
+               bf16_params: bool = False, experts: int = 0, vocab: int = 0):
+    """The arch's config, cut: ``layers`` deep, ``experts`` of each MoE
+    layer held (of the router's, which keeps its width: one chip's share),
+    ``vocab`` rows of the vocabulary (a slice); 0 keeps the config's."""
     from repro_torch.configs.registry import get_config, get_smoke_config
 
     cfg = get_smoke_config(arch) if preset == "tiny" else get_config(arch)
     over = {}
     if layers:
         over["num_layers"] = layers
+    if experts:
+        over.update(moe_num_experts=experts, moe_router_experts=cfg.router_experts)
+    if vocab:
+        over["vocab_size"] = vocab
     if bf16_params:
         over["param_dtype"] = "bfloat16"
     return dataclasses.replace(cfg, **over) if over else cfg
@@ -476,18 +483,21 @@ def run_one(arch: str, shape_name: str, *, nodes: int = 8, layers: int = 0,
             batch: int = 0, seq: int = 0, gossip_mode: str = "masked",
             graph: str = "paper8", bf16_params: bool = False, preset: str = "full",
             out_dir: str = "", multi_pod: bool = False, kv_seq_shard: bool = False,
-            seq_par: bool = False, production: bool = False) -> Dict[str, Any]:
+            seq_par: bool = False, production: bool = False, experts: int = 0,
+            vocab: int = 0) -> Dict[str, Any]:
     """The dry run of one (arch, shape): the record, also written to
     ``out_dir/<arch>_<shape>.json`` when ``out_dir`` is given. ``batch``
     and ``seq`` override the shape's (for training ``batch`` is a node's);
-    ``layers`` cuts the depth. ``production`` (implied by ``multi_pod``,
+    ``layers`` cuts the depth, ``experts`` and ``vocab`` hold a share of
+    the experts and the vocabulary (``config_for``). ``production`` (implied by ``multi_pod``,
     ``kv_seq_shard`` and ``seq_par``): rank 0 of the production mesh, two
     pods with ``multi_pod``; the file is
     then ``<arch>_<shape>_<mp|sp>[_kvseq][_seqpar].json``."""
     from repro_torch.configs.base import INPUT_SHAPES, long_context_variant
     from repro_torch.models.transformer import PositionRangeError
 
-    cfg = config_for(arch, preset=preset, layers=layers, bf16_params=bf16_params)
+    cfg = config_for(arch, preset=preset, layers=layers, bf16_params=bf16_params,
+                     experts=experts, vocab=vocab)
     shape = INPUT_SHAPES[shape_name]
     t0 = time.perf_counter()
     if production or multi_pod or kv_seq_shard or seq_par:
@@ -588,17 +598,22 @@ def _run_mesh(arch, cfg, shape, *, multi_pod, kv_seq_shard, seq_par, batch, seq,
 
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch.configs.base import INPUT_SHAPES
-    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.configs.registry import ARCH_IDS, PORT_ARCH_IDS
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun",
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", required=True, choices=list(ARCH_IDS) + ["all"])
+    ap.add_argument("--arch", required=True,
+                    choices=list(ARCH_IDS) + list(PORT_ARCH_IDS) + ["all"],
+                    help="a registry id; all: the ten the JAX package has too")
     ap.add_argument("--shape", required=True, choices=list(INPUT_SHAPES) + ["all"])
     ap.add_argument("--preset", default="full", choices=("tiny", "full"))
     ap.add_argument("--nodes", type=int, default=8, help="training nodes (paper8: 8)")
     ap.add_argument("--graph", default="paper8")
     ap.add_argument("--layers", type=int, default=0, help="cut the depth (0: the config's)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="experts each MoE layer holds of its router's (0: all)")
+    ap.add_argument("--vocab", type=int, default=0, help="vocabulary rows held (0: all)")
     ap.add_argument("--batch", type=int, default=0,
                     help="a node's batch (training) or the batch (serving); 0: the shape's")
     ap.add_argument("--seq", type=int, default=0, help="sequence length; 0: the shape's")
@@ -632,7 +647,8 @@ def main(argv=None) -> int:
                               bf16_params=args.bf16_params, preset=args.preset,
                               out_dir=args.out, multi_pod=args.multi_pod,
                               kv_seq_shard=args.kv_seq_shard,
-                              production=args.production_mesh)
+                              production=args.production_mesh, experts=args.experts,
+                              vocab=args.vocab)
             except Exception as e:  # noqa: BLE001 - report and go on
                 failures.append((a, s))
                 print(f"FAIL {a} {s}: {e!r}", file=sys.stderr)

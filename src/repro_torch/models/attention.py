@@ -48,6 +48,11 @@ rank moves its query heads' gather and three all-reduces of ``(B, Sq,
 H)`` statistics and ``(B, Sq, H, hd)`` fp32 outputs, not its cache
 slice.
 
+``mla_block`` is DeepSeek-V3's multi-head latent attention, for
+training: its query / key heads are wider than its value heads, so
+``sdpa`` and ``sdpa_chunked`` take v's width and ``flash_route`` refuses
+unequal widths (its kernels take one).
+
 Decode uses an explicit-position KV cache: positions are stored next to
 k/v, so full caches and ring-buffer (sliding-window) caches share one
 code path. The port writes caches in place: ``cache_write`` updates the
@@ -69,6 +74,7 @@ from repro_torch.kernels.flash_attention_bwd import BACKWARD_HEAD_DIMS, flash_at
 from repro_torch.models import tp as tpl
 from repro_torch.models.layers import apply_dense, apply_rope, declare_dense
 from repro_torch.models.module import ParamBuilder, ones_init, torch_dtype
+from repro_torch.telemetry.blocks import BackwardSpan, current_block_spans
 
 NEG_INF = -2.0**30  # large-but-finite: keeps masked softmax NaN-free
 
@@ -98,6 +104,20 @@ def declare_attention(
     del cross  # same parameter structure; kv source differs at apply time
 
 
+def declare_mla(b: ParamBuilder, path: str, cfg: ModelConfig) -> None:
+    """Multi-head latent attention's projections (DeepSeek-V3, no query
+    LoRA): ``wq`` d -> heads x head_dim, ``wkv_a`` d -> the latent and
+    the shared rotated key head, the latent's norm, ``wkv_b`` latent ->
+    heads x (unrotated key + value), ``wo`` heads x value -> d."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    r, rope, vd = cfg.mla_kv_rank, cfg.mla_rope_dim, cfg.mla_v_dim
+    declare_dense(b, f"{path}.wq", d, h * hd)
+    declare_dense(b, f"{path}.wkv_a", d, r + rope)
+    b.declare(f"{path}.kv_norm.scale", (r,), (None,), init=ones_init)
+    declare_dense(b, f"{path}.wkv_b", r, h * (hd - rope + vd))
+    declare_dense(b, f"{path}.wo", h * vd, d)
+
+
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n, hd)
 
@@ -111,7 +131,7 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 def sdpa(
     q: torch.Tensor,              # (B, Sq, Hq, hd)
     k: torch.Tensor,              # (B, Sk, Hkv, hd)
-    v: torch.Tensor,              # (B, Sk, Hkv, hd)
+    v: torch.Tensor,              # (B, Sk, Hkv, hd_v)
     *,
     q_positions: torch.Tensor,    # (B, Sq) int
     k_positions: torch.Tensor,    # (B, Sk) int; -1 marks invalid slots
@@ -119,9 +139,10 @@ def sdpa(
     window: int = 0,              # 0: unlimited
     logit_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """fp32 scaled-dot-product attention. GQA keeps the JAX grouping:
-    q is viewed as (B, Sq, Hkv, g, hd), so query head h reads kv head
-    ``h // g``."""
+    """fp32 scaled-dot-product attention, scaled by q's head width; the
+    output takes v's (latent attention's differs from q's). GQA keeps the
+    JAX grouping: q is viewed as (B, Sq, Hkv, g, hd), so query head h
+    reads kv head ``h // g``."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
@@ -142,7 +163,7 @@ def sdpa(
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, vf)
-    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+    return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def sdpa_chunked(
@@ -187,18 +208,19 @@ def _dispatch_sdpa(q, k, v, **kw):
 _dispatch_sdpa.calls = 0
 
 
-def flash_route(q: torch.Tensor, k: torch.Tensor, *, logit_softcap: float,
-                window: int) -> bool:
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                logit_softcap: float, window: int) -> bool:
     """Whether a cache-less self-attention call takes the flash kernel
     and its backward (``ops.attention``, differentiable on the card)
     instead of ``sdpa``: q and k on the card (or meta, the dry run) in
-    bf16, a head width the backward kernels take, no softcap, no window,
-    as many keys as queries. Its caller gives ``sdpa`` the same positions
-    for queries and keys, and every builder of them makes an arange, so
-    ``sdpa``'s positional causal mask is the kernel's index-causal one
-    whatever the start."""
+    bf16, one head width for q, k and v that the backward kernels take,
+    no softcap, no window, as many keys as queries. Its caller gives
+    ``sdpa`` the same positions for queries and keys, and every builder
+    of them makes an arange, so ``sdpa``'s positional causal mask is the
+    kernel's index-causal one whatever the start."""
     return (q.device.type in ("cuda", "meta") and q.dtype == torch.bfloat16
             and k.dtype == q.dtype and q.shape[-1] in BACKWARD_HEAD_DIMS
+            and k.shape[-1] == v.shape[-1] == q.shape[-1]
             and not logit_softcap and not window and q.shape[1] == k.shape[1])
 
 
@@ -352,7 +374,7 @@ def attention_block(
     q = _split_heads(_project(p["wq"], x, xm, hd_.q, dtype), hd_.hq, hd)
     if cfg.qk_norm:
         q = _rms(q, tpl.to_model(p["q_norm"]["scale"]) if hd_.sharded
-                 else p["q_norm"]["scale"])
+                 else p["q_norm"]["scale"], cfg.rms_eps)
     sdpa_kw = dict(causal=causal, window=window, logit_softcap=cfg.logit_softcap)
 
     def mine(t):
@@ -378,14 +400,14 @@ def attention_block(
     v = _split_heads(_project(p["wv"], x, xm, hd_.kv, dtype), hd_.hkv, hd)
     if cfg.qk_norm:
         k = _rms(k, tpl.to_model(p["k_norm"]["scale"]) if hd_.kv == "heads"
-                 else p["k_norm"]["scale"])
+                 else p["k_norm"]["scale"], cfg.rms_eps)
     if use_rope and cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
         k, v = mine(k), mine(v)
-        if flash_route(q, k, logit_softcap=cfg.logit_softcap, window=window):
+        if flash_route(q, k, v, logit_softcap=cfg.logit_softcap, window=window):
             out = ops.attention(q, k, v, causal=causal)
         elif kernel and prefill_from_zero:
             out = ops.attention(q, k, v, causal=causal, window=window)
@@ -425,6 +447,63 @@ def attention_block(
                                  q_positions=positions,
                                  k_positions=new_cache["pos"], **sdpa_kw)
     return _out(p, out, x, hd_, dtype, reduce), new_cache
+
+
+def mla_block(
+    p: dict,
+    x: torch.Tensor,                    # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,            # (B, S)
+    causal: bool = True,
+    window: int = 0,
+    cache: Optional[dict] = None,
+    **_,
+) -> Tuple[torch.Tensor, None]:
+    """Multi-head latent attention (DeepSeek-V3 without query LoRA), a
+    cache-less self-attention: q's heads split into ``head_dim -
+    mla_rope_dim`` unrotated and ``mla_rope_dim`` rotated dims; keys and
+    values come from a ``mla_kv_rank`` latent under an RMSNorm
+    (``cfg.rms_eps``), beside one rotated key head that every head
+    shares. Scores are scaled by 1/sqrt(head_dim) and the output takes
+    v's width (``mla_v_dim``). The rotation is the port's ``apply_rope``
+    on split halves; the published weights pair interleaved columns, a
+    fixed permutation of the rotated columns of ``wq`` and ``wkv_a``.
+    ``flash_route`` decides the route by its rule; its kernels take one
+    head width, so the call runs ``sdpa`` (``sdpa_chunked`` from the
+    threshold on). Spans ``mla`` and ``mla/backward`` on the step's
+    block spans (``telemetry.blocks``). Serving caches and tensor
+    parallel do not take this block yet: it raises."""
+    if cache is not None or tpl.context() is not None:
+        raise NotImplementedError("latent attention runs cache-less and without tensor "
+                                  "parallel rules: it has no latent cache or sharding yet")
+    dtype = torch_dtype(cfg.compute_dtype)
+    h, hd, r = cfg.num_heads, cfg.head_dim, cfg.mla_kv_rank
+    rope, vd = cfg.mla_rope_dim, cfg.mla_v_dim
+    nope = hd - rope
+    spans, _ = current_block_spans()
+    back = BackwardSpan(spans, "mla/backward")
+    with spans("mla"):
+        x = back.input(x)
+        B, S, _ = x.shape
+        q = _split_heads(apply_dense(p["wq"], x, dtype), h, hd)
+        q_nope, q_pe = q.split([nope, rope], dim=-1)
+        latent, k_pe = apply_dense(p["wkv_a"], x, dtype).split([r, rope], dim=-1)
+        latent = _rms(latent, p["kv_norm"]["scale"], cfg.rms_eps)
+        kv = _split_heads(apply_dense(p["wkv_b"], latent, dtype), h, nope + vd)
+        k_nope, v = kv.split([nope, vd], dim=-1)
+        q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+        k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(B, S, h, rope)], dim=-1)
+        if flash_route(q, k, v, logit_softcap=cfg.logit_softcap, window=window):
+            out = ops.attention(q, k, v, causal=causal)
+        else:
+            out = _dispatch_sdpa(q, k, v, q_positions=positions, k_positions=positions,
+                                 causal=causal, window=window,
+                                 logit_softcap=cfg.logit_softcap)
+        y = apply_dense(p["wo"], out.reshape(B, S, h * vd), dtype)
+        return back.output(y), None
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +588,7 @@ def _sdpa_split(q, k, v, *, q_positions, k_positions, causal: bool, window: int,
     l = comm.all_reduce(e.sum(dim=-1), tp.group)
     o = comm.all_reduce(torch.einsum("bkgqs,bskd->bqkgd", e, v.float()).contiguous(), tp.group)
     den = l.permute(0, 3, 1, 2)[..., None]                      # (B, Sq, Hkv, g, 1)
-    return (o / den).reshape(B, Sq, Hq, hd).to(q.dtype)
+    return (o / den).reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def _attend_split(q, new_cache, positions, hd_: _Heads, tp: tpl.TP, cfg: ModelConfig,

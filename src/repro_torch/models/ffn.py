@@ -4,7 +4,7 @@ The port of ``repro.models.ffn``. MoE has the JAX package's two
 execution paths:
 
   * ``einsum``: every expert on every token, masked combine; the model
-    takes it for 8 experts or fewer;
+    takes it for a router over 8 experts or fewer;
   * ``ragged``: sort the token-expert pairs by expert and run the three
     expert products as grouped matmuls (``ops.grouped_matmul``: the
     hand-written Hopper kernel on the card, its plain version on the
@@ -41,7 +41,25 @@ each token's local terms in ascending expert order before the sum over
 the ranks.
 Where the experts do not divide but the expert ``ffn`` dim does, every
 rank runs every pair on its slice of that dim. The shared expert is a
-dense block.
+dense block (``moe_shared_d_ff`` wide: DeepSeek-V3's shared experts as
+one SwiGLU).
+
+Routers: ``softmax`` (the JAX package's: softmax, top-k, the k weights
+renormalized; switch load balance and z-loss) and ``sigmoid``
+(DeepSeek-V3's, ``_sigmoid_router``; its sequence-wise balance loss).
+``AUX_WEIGHTS`` weighs each in the objective.
+
+The expert share (a config whose ``moe_num_experts`` is less than its
+router's ``moe_router_experts``; guide: one chip's part of an
+expert-parallel layer): the layer holds experts ``moe_first_expert`` ..
+of the router's, routes every token over all of them (the top-k
+normalization divides by the k picked scores, the absent experts'
+included), and adds only its own experts' terms; the result, partial by
+the absent experts' terms, goes on to the next layer. On the ragged path
+every pair is dispatched, the held experts' first: the kernels write 0
+for the rest, so nothing waits for the host. Spans ``moe`` and
+``moe/backward``, and on ``moe`` the counters ``moe_pairs_held`` /
+``moe_pairs_routed`` (``telemetry.blocks``).
 """
 from __future__ import annotations
 
@@ -56,6 +74,18 @@ from repro_torch.kernels import ops
 from repro_torch.models import tp as tpl
 from repro_torch.models.layers import activation_fn, apply_dense, declare_dense
 from repro_torch.models.module import ParamBuilder, torch_dtype
+from repro_torch.telemetry.blocks import BackwardSpan, current_block_spans
+
+# The objective's weight of each router loss: the switch load balance and
+# the router z-loss of the softmax routers, DeepSeek-V3's sequence-wise
+# balance (its alpha, arXiv:2412.19437 section 4.2) of the sigmoid router.
+AUX_WEIGHTS = {"load_balance": 1e-2, "router_z": 1e-3, "seq_balance": 1e-4}
+
+
+def aux_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The router losses a MoE layer of ``cfg`` gives, in the order the
+    objective adds them."""
+    return ("seq_balance",) if cfg.moe_router == "sigmoid" else ("load_balance", "router_z")
 
 
 def declare_ffn(
@@ -92,15 +122,18 @@ def ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # Mixture of Experts
 # ---------------------------------------------------------------------------
 def declare_moe(b: ParamBuilder, path: str, cfg: ModelConfig) -> None:
+    """The router over ``cfg.router_experts``, the ``moe_num_experts``
+    experts the layer holds, and the shared expert (``moe_shared_d_ff``
+    wide)."""
     d, e = cfg.d_model, cfg.moe_num_experts
     f = cfg.moe_d_ff or cfg.d_ff
-    declare_dense(b, f"{path}.router", d, e, (None, None))
+    declare_dense(b, f"{path}.router", d, cfg.router_experts, (None, None))
     b.declare(f"{path}.w1", (e, d, f), ("experts", None, "ffn"), init=_expert_init)
     if cfg.gated_ffn:
         b.declare(f"{path}.w3", (e, d, f), ("experts", None, "ffn"), init=_expert_init)
     b.declare(f"{path}.w2", (e, f, d), ("experts", "ffn", None), init=_expert_init)
     if cfg.moe_shared_expert:
-        declare_ffn(b, f"{path}.shared", d, f, cfg.gated_ffn)
+        declare_ffn(b, f"{path}.shared", d, cfg.moe_shared_d_ff or f, cfg.gated_ffn)
 
 
 def _expert_init(gen, shape, dtype, device):
@@ -115,11 +148,13 @@ def _router(p, x: torch.Tensor, cfg: ModelConfig):
     expert ids (..., T, k) and the aux losses over the T tokens (one
     value per leading index; scalars for a 2-D x, as in JAX)."""
     logits = x.float() @ p["router"]["w"].float()                # (..., T, E)
+    if cfg.moe_router == "sigmoid":
+        return _sigmoid_router(logits, cfg)
     probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = torch.topk(logits, cfg.moe_top_k, dim=-1)
     gates = torch.softmax(top_vals, dim=-1)                      # renormalize
     # switch-style load balance: E * sum_e fraction_e * prob_e
-    E = cfg.moe_num_experts
+    E = cfg.router_experts
     onehot = F.one_hot(top_idx, E).float()                       # (..., T, k, E)
     frac = onehot.sum(dim=-2).mean(dim=-2)                       # tokens per e
     lb = E * torch.sum(frac * probs.mean(dim=-2), dim=-1)
@@ -127,10 +162,38 @@ def _router(p, x: torch.Tensor, cfg: ModelConfig):
     return gates, top_idx, {"load_balance": lb, "router_z": z}
 
 
+def _sigmoid_router(logits: torch.Tensor, cfg: ModelConfig):
+    """DeepSeek-V3's router (``noaux_tc`` with one group): sigmoid scores;
+    the top-k of the scores plus ``e_score_correction_bias``, a bias its
+    training recipe moves and the published config does not fix, held at
+    0 here, so the top-k of the scores; the k scores normalized to sum 1
+    and scaled by ``moe_route_scale``. The aux loss is the sequence-wise
+    balance (arXiv:2412.19437 eq. 17-20) over the T tokens: sum over the
+    experts of ``E / (k T)`` x the tokens that picked expert i, times the
+    mean over the tokens of its score over the sum of every expert's."""
+    k, E = cfg.moe_top_k, cfg.router_experts
+    scores = torch.sigmoid(logits)                               # (..., T, E)
+    top_vals, top_idx = torch.topk(scores, k, dim=-1)
+    gates = top_vals / top_vals.sum(dim=-1, keepdim=True) * cfg.moe_route_scale
+    T = scores.shape[-2]
+    picked = F.one_hot(top_idx, E).float().sum(dim=(-3, -2))    # (..., E)
+    share = (scores / scores.sum(dim=-1, keepdim=True)).mean(dim=-2)
+    balance = torch.sum(picked * (E / (k * T)) * share, dim=-1)
+    return gates, top_idx, {"seq_balance": balance}
+
+
+def _held(cfg: ModelConfig, experts=None) -> Tuple[int, int]:
+    """The ``(lo, hi)`` router ids of the experts a layer holds: this
+    rank's under expert parallel (``experts``), else the config's share."""
+    if experts is not None:
+        return experts
+    return cfg.moe_first_expert, cfg.moe_first_expert + cfg.moe_num_experts
+
+
 def _moe_einsum(p, x2d, gates, idx, cfg: ModelConfig, experts=None) -> torch.Tensor:
-    """Every expert on every token, masked combine, in fp32. (T, E, F)
-    memory. ``experts``: the ``(lo, hi)`` this rank holds (expert
-    parallel)."""
+    """Every held expert on every token, masked combine, in fp32. (T, E,
+    F) memory. ``experts``: the ``(lo, hi)`` this rank holds (expert
+    parallel); otherwise the config's share."""
     dtype = torch_dtype(cfg.compute_dtype)
     act = activation_fn(cfg.ffn_activation)
     xd = x2d.to(dtype)
@@ -138,11 +201,10 @@ def _moe_einsum(p, x2d, gates, idx, cfg: ModelConfig, experts=None) -> torch.Ten
     if "w3" in p:
         h = h * torch.einsum("td,edf->tef", xd, p["w3"].to(dtype))
     y_all = torch.einsum("tef,efd->ted", h, p["w2"].to(dtype))   # (T, E, D)
-    onehot = F.one_hot(idx, cfg.moe_num_experts).float()         # (T, k, E)
+    onehot = F.one_hot(idx, cfg.router_experts).float()          # (T, k, E)
     weights = (gates[..., None] * onehot).sum(dim=1)             # (T, E)
-    if experts is not None:
-        weights = weights[:, experts[0]:experts[1]]
-    return torch.einsum("ted,te->td", y_all.float(), weights)
+    lo, hi = _held(cfg, experts)
+    return torch.einsum("ted,te->td", y_all.float(), weights[:, lo:hi])
 
 
 class _PairRows(torch.autograd.Function):
@@ -174,20 +236,22 @@ class _PairRows(torch.autograd.Function):
 def _moe_ragged(p, x2d, gates, idx, cfg: ModelConfig, experts=None) -> torch.Tensor:
     """Sort the (token, expert) pairs by expert, run the expert products
     as grouped matmuls, and add each token's k gated outputs back in
-    ascending expert order in fp32 (returned in fp32). Without
-    ``experts`` no step of the forward waits for the host, nor do the dx
-    and dw kernels of the backward on the card. ``experts``: the
-    ``(lo, hi)`` this rank holds (expert parallel); the pairs routed to
-    them sort to the front and only those are dispatched, at least one
+    ascending expert order in fp32 (returned in fp32). The pairs routed
+    to the held experts sort to the front. Without ``experts`` no step of
+    the forward waits for the host, nor do the dx and dw kernels of the
+    backward on the card: every pair is dispatched, and the kernels write
+    0 for the rows past the held experts' groups (a config's share, whose
+    other pairs add nothing). ``experts``: the ``(lo, hi)`` this rank
+    holds (expert parallel); only its pairs are dispatched, at least one
     row: their count is read on the host (one wait a call), which sizes
     the pair buffers to the rank's pairs. The others add nothing."""
     dtype = torch_dtype(cfg.compute_dtype)
     act = activation_fn(cfg.ffn_activation)
     T, D = x2d.shape
     k = cfg.moe_top_k
-    E = cfg.moe_num_experts
+    E = cfg.router_experts
     flat_e = idx.reshape(-1)                                     # (P,) P = T*k
-    lo, hi = experts if experts is not None else (0, E)
+    lo, hi = _held(cfg, experts)
     key = flat_e if lo == 0 else torch.remainder(flat_e - lo, E)
     order = torch.argsort(key, stable=True)
     tok = order // k                                             # token per pair
@@ -236,11 +300,27 @@ def moe_block(
     when not given; ``tp.SeqIn.xm`` under sequence parallel). The combine
     is reduced per token chunk over the whole sequence, so the output is
     whole."""
+    spans, counting = current_block_spans()
+    back = BackwardSpan(spans, "moe/backward")
+    with spans("moe") as span:
+        y, aux, idx = _moe(p, back.input(x), cfg, impl=impl, xm=xm)
+        if counting:
+            lo, hi = _held(cfg)
+            span.count(moe_pairs_held=((idx >= lo) & (idx < hi)).sum(),
+                       moe_pairs_routed=idx.numel())
+        return back.output(y), aux
+
+
+def _moe(p, x, cfg: ModelConfig, *, impl: str, xm):
+    """``moe_block``'s work: ``(y, aux, expert ids)``."""
     B, S, D = x.shape
     dtype = torch_dtype(cfg.compute_dtype)
     tp = tpl.context()
     experts = None
     split = tp is not None and (tp.sharded("experts") or tp.sharded("ffn"))
+    if split and cfg.holds_share:
+        raise NotImplementedError(f"{cfg.name} holds {cfg.moe_num_experts} of its router's "
+                                  f"{cfg.router_experts} experts: no tensor parallel on top")
     if tp is not None and tp.sharded("experts"):
         experts = tp.part(cfg.moe_num_experts)
 
@@ -277,4 +357,4 @@ def moe_block(
         raise ValueError(f"unknown moe impl {impl!r}")
     if cfg.moe_shared_expert:
         y = y + ffn_block(p["shared"], x, cfg, xm=xm)
-    return y, aux
+    return y, aux, idx

@@ -38,12 +38,16 @@ every decoder layer a cross-attention over the encoder output. Vision
 models prepend the projected ``prefix_embeddings`` to the token
 embeddings; the prefix positions' logits are dropped.
 
-MoE layers take the JAX model's branch: the einsum path for 8 experts
-or fewer, else the ragged path, whose expert products run the
+MoE layers take the JAX model's branch: the einsum path for a router
+over 8 experts or fewer, else the ragged path, whose expert products run the
 hand-written grouped-matmul kernel on the card (in prefill and decode
 alike, and in training, whose backward runs its dx and dw kernels).
-Their load-balance and router-z losses are summed over the
-layers into the training loss.
+Their router losses (load balance and router z, or the sigmoid
+router's sequence-wise balance) are summed over the layers into the
+training loss, each weighed by ``ffn.AUX_WEIGHTS``. A config with
+``mla_kv_rank`` takes latent attention (``attention.mla_block``) in
+every attention layer; its blocks, and the MoE blocks, open their spans
+on the step's (``telemetry.blocks``), carried into remat's recompute.
 
 ``param_group_specs`` / ``stream_stages`` are the JAX model's streaming
 view of the same forward, for the streamed FSDP layouts
@@ -86,12 +90,21 @@ from repro_torch.models.attention import (
     CacheSpec,
     attention_block,
     declare_attention,
+    declare_mla,
     encoder_kv,
     init_kv_cache,
     kv_seq_split,
+    mla_block,
 )
 from repro_torch.models import tp as tpl
-from repro_torch.models.ffn import declare_ffn, declare_moe, ffn_block, moe_block
+from repro_torch.models.ffn import (
+    AUX_WEIGHTS,
+    aux_names,
+    declare_ffn,
+    declare_moe,
+    ffn_block,
+    moe_block,
+)
 from repro_torch.models.layers import (
     apply_dense,
     apply_norm,
@@ -115,6 +128,7 @@ from repro_torch.models.module import (
     split_of,
     torch_dtype,
 )
+from repro_torch.telemetry.blocks import bind_block_spans
 from repro_torch.tree import tree_leaves, tree_map
 
 SCAN_THRESHOLD = 8
@@ -264,6 +278,8 @@ def _declare_layer(
     declare_norm(b, f"{path}.norm1", cfg.d_model, cfg.norm)
     if seg.kind == "mamba":
         declare_mamba(b, f"{path}.mixer", cfg)
+    elif cfg.mla_kv_rank:
+        declare_mla(b, f"{path}.mixer", cfg)
     else:
         declare_attention(b, f"{path}.mixer", cfg)
     if cross:
@@ -307,9 +323,10 @@ def _top_builder(cfg: ModelConfig) -> ParamBuilder:
     return top
 
 
-def _zero_aux(device) -> Dict[str, torch.Tensor]:
+def _zero_aux(device, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Zero router losses, under the names a MoE layer of ``cfg`` gives."""
     z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"load_balance": z, "router_z": z}
+    return {name: z for name in aux_names(cfg)}
 
 
 class Model:
@@ -433,7 +450,8 @@ class Model:
         tp = tpl.seq_parallel() if cache is None else None
 
         def sublayer(norm, block):
-            h = apply_norm(norm if tp is None else tpl.sum_grad(norm), x, cfg.norm)
+            h = apply_norm(norm if tp is None else tpl.sum_grad(norm), x, cfg.norm,
+                           cfg.rms_eps)
             if tp is None:
                 return block(h)
             seq = tpl.SeqIn(h, tp)
@@ -449,7 +467,8 @@ class Model:
             ))
         else:
             window = cfg.sliding_window if seg.kind == "local" else 0
-            y, new_cache = sublayer(p["norm1"], lambda h, **seq: attention_block(
+            attend = mla_block if cfg.mla_kv_rank else attention_block
+            y, new_cache = sublayer(p["norm1"], lambda h, **seq: attend(
                 p["mixer"], h, cfg, positions=positions, causal=True, window=window,
                 cache=cache, cache_spec=cache_spec,
                 prefill_from_zero=prefill_from_zero, **seq,
@@ -467,7 +486,7 @@ class Model:
                 # sliced, not reduce-scattered
                 y, aux = sublayer(p["norm2"], lambda h, xm=None, reduce=None: moe_block(
                     p["ffn"], h, cfg,
-                    impl="einsum" if cfg.moe_num_experts <= 8 else "ragged", xm=xm,
+                    impl="einsum" if cfg.router_experts <= 8 else "ragged", xm=xm,
                 ))
             else:
                 y = sublayer(p["norm2"], lambda h, **seq: ffn_block(p["ffn"], h, cfg, **seq))
@@ -495,7 +514,7 @@ class Model:
             return x, aux
 
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(one, x, p, cross_kv)
+            return checkpoint(bind_block_spans(one), x, p, cross_kv)
         return one(x, p, cross_kv)
 
     def _run_segment(self, params_seg, x, seg, *, positions, caches=None,
@@ -509,7 +528,7 @@ class Model:
             return self._run_periodic(params_seg, x, seg, positions=positions,
                                       caches=caches, cache_specs=cache_spec,
                                       prefill_from_zero=prefill_from_zero)
-        aux_total = _zero_aux(x.device)
+        aux_total = _zero_aux(x.device, self.cfg)
         for i in range(seg.count):
             x, aux = self._run_layer(
                 tree_map(lambda a: a[i], params_seg), x, seg, positions=positions,
@@ -527,7 +546,7 @@ class Model:
         """One loop over the repeats; each pass applies the whole pattern,
         position j from ``params_seg[f"pos_{j}"]`` (and its cache) at the
         pass's index (the JAX model's scan body)."""
-        aux_total = _zero_aux(x.device)
+        aux_total = _zero_aux(x.device, self.cfg)
         for r in range(seg.reps):
             for j, sub in enumerate(seg.pattern):
                 key = f"pos_{j}"
@@ -555,18 +574,18 @@ class Model:
         positions = self._positions(frames.shape[0], frames.shape[1], x.device)
 
         def one(x, p):
-            h = apply_norm(p["norm1"], x, cfg.norm)
+            h = apply_norm(p["norm1"], x, cfg.norm, cfg.rms_eps)
             y, _ = attention_block(p["mixer"], h, cfg, positions=positions,
                                    causal=False, prefill_from_zero=prefill)
             x = x + y
-            h = apply_norm(p["norm2"], x, cfg.norm)
+            h = apply_norm(p["norm2"], x, cfg.norm, cfg.rms_eps)
             return x + ffn_block(p["ffn"], h, cfg)
 
         remat = cfg.remat and torch.is_grad_enabled()
         for i in range(self._enc_segment.count):
             p_i = tree_map(lambda a: a[i], params["encoder"])
             x = checkpoint(one, x, p_i) if remat else one(x, p_i)
-        return apply_norm(params["enc_final_norm"], x, cfg.norm)
+        return apply_norm(params["enc_final_norm"], x, cfg.norm, cfg.rms_eps)
 
     def forward(self, params, tokens: torch.Tensor, *,
                 prefix_embeddings: Optional[torch.Tensor] = None,
@@ -583,7 +602,7 @@ class Model:
         enc_out = None
         if encoder_frames is not None:
             enc_out = self._encode(params, encoder_frames)
-        aux_total = _zero_aux(x.device)
+        aux_total = _zero_aux(x.device, self.cfg)
         for s, seg in enumerate(self.segments):
             cross_kvs = None
             if enc_out is not None:
@@ -593,7 +612,7 @@ class Model:
             )
             aux_total = {k: aux_total[k] + aux[k] for k in aux_total}
         x = tpl.seq_gather(x)
-        x = apply_norm(params["final_norm"], x, cfg.norm)
+        x = apply_norm(params["final_norm"], x, cfg.norm, cfg.rms_eps)
         if prefix_len:
             x = x[:, prefix_len:, :]
         return self._unembed(params, x), aux_total
@@ -644,7 +663,9 @@ class Model:
     def _combine_loss(logits, batch: dict, aux: dict) -> Tuple[torch.Tensor, dict]:
         """ce + aux-regularizer objective and its metrics."""
         ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
-        total = ce + 1e-2 * aux["load_balance"] + 1e-3 * aux["router_z"]
+        total = ce
+        for name, value in aux.items():
+            total = total + AUX_WEIGHTS[name] * value
         return total, {"ce": ce, **aux}
 
     def loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
@@ -700,7 +721,7 @@ class Model:
             def apply_period(x, view):
                 p_slice = view[key]
                 positions = self._stream_positions(x)
-                aux_total = _zero_aux(x.device)
+                aux_total = _zero_aux(x.device, self.cfg)
                 for j, sub in enumerate(seg.pattern):
                     x, _, aux = self._layer_apply(p_slice[f"pos_{j}"], x, sub,
                                                   positions=positions)
@@ -712,7 +733,7 @@ class Model:
         def apply_layer(x, view):
             positions = self._stream_positions(x)
             x, _, aux = self._layer_apply(view[key], x, seg, positions=positions)
-            return x, _add_aux(_zero_aux(x.device), aux)
+            return x, _add_aux(_zero_aux(x.device, self.cfg), aux)
 
         return ScanStreamBody(repeats=seg.count, apply_layer=apply_layer)
 
@@ -735,7 +756,7 @@ class Model:
             positions = self._positions(x.shape[0], x.shape[1], x.device)
             x = self._seq_split(self._add_positions(top, x, positions, 0, x.shape[1]))
             return {**carry, "x": x, "positions": positions, "prefix_len": prefix_len,
-                    "aux": _zero_aux(x.device)}
+                    "aux": _zero_aux(x.device, self.cfg)}
 
         stages = [StreamStage("embed", (index["embed"],), embed_apply)]
         if has_frames:
@@ -784,7 +805,8 @@ class Model:
             view: Dict[str, Any] = {}
             for sub in groups:
                 view.update(sub)
-            x = apply_norm(view["final_norm"], tpl.seq_gather(carry["x"]), cfg.norm)
+            x = apply_norm(view["final_norm"], tpl.seq_gather(carry["x"]), cfg.norm,
+                           cfg.rms_eps)
             if carry["prefix_len"]:
                 x = x[:, carry["prefix_len"]:, :]
             total, metrics = self._combine_loss(self._unembed(view, x), carry["batch"],
@@ -887,7 +909,7 @@ class Model:
                 prefill_from_zero=S > 1 and start == 0,
             )
             li += seg.count
-        x = apply_norm(params["final_norm"], x, cfg.norm)
+        x = apply_norm(params["final_norm"], x, cfg.norm, cfg.rms_eps)
         return tpl.gather_vocab(self._unembed(params, x[:, -1:, :]), cfg.padded_vocab), caches
 
 

@@ -34,6 +34,10 @@ A step built with a disabled timer (``StepTimer(None)``) takes
 :data:`NO_SPANS` instead, whose every span is the shared no-op: it reads
 no clock, creates no CUDA event and keeps no list.
 
+Spans inside the model (``mla``, ``moe`` and their backward spans) are
+opened on a step's :class:`StepSpans` by the blocks themselves:
+:mod:`repro_torch.telemetry.blocks`.
+
 ``span.fence(x)`` waits for the card (``torch.cuda.synchronize`` on every
 card that holds a tensor in ``x``): for a caller that asks for a fenced
 host time (the serving CLI's prefill and decode, :func:`timed_step`,
@@ -61,6 +65,10 @@ from repro_torch.telemetry.trace import TraceEvent, TraceRecorder
 #   gossip_apply    the overlap step's landing of the pending correction
 #   gossip_launch   the overlap step's exchange on its side stream
 #                   (cat "comm", tid 1)
+#   mla / moe       a latent-attention / MoE block's forward (inside
+#                   forward, and inside backward for remat's recompute);
+#                   moe counts moe_pairs_held / moe_pairs_routed
+#   mla/backward, moe/backward   the block's backward (inside backward)
 #   gather / reduce_scatter   the monolithic FSDP step's collectives
 #   prefill / decode   serve-side spans (fenced)
 PHASES: Tuple[str, ...] = (
@@ -74,6 +82,10 @@ PHASES: Tuple[str, ...] = (
     "gossip/apply",
     "gossip_apply",
     "gossip_launch",
+    "mla",
+    "mla/backward",
+    "moe",
+    "moe/backward",
     "prefill",
     "decode",
 )

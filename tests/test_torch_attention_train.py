@@ -44,10 +44,11 @@ from repro_torch.models.transformer import Model
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def _qk(device="meta", dtype=torch.bfloat16, hd=128, S=16, Sk=None):
+def _qk(device="meta", dtype=torch.bfloat16, hd=128, S=16, Sk=None, hd_v=None):
     q = torch.empty((2, S, 4, hd), dtype=dtype, device=device)
     k = torch.empty((2, Sk or S, 2, hd), dtype=dtype, device=device)
-    return q, k
+    v = torch.empty((2, Sk or S, 2, hd_v or hd), dtype=dtype, device=device)
+    return q, k, v
 
 
 ROUTE = dict(logit_softcap=0.0, window=0)
@@ -63,10 +64,11 @@ ROUTE = dict(logit_softcap=0.0, window=0)
     ("window", dict(), dict(window=1024), False),
     ("keys of another length", dict(Sk=24), {}, False),
     ("cpu", dict(device="cpu"), {}, False),
+    ("v narrower than q and k (latent attention)", dict(hd=128, hd_v=64), {}, False),
 ])
 def test_flash_route_takes_and_refuses(case, qk, over, want):
-    q, k = _qk(**qk)
-    assert attention.flash_route(q, k, **dict(ROUTE, **over)) is want, case
+    q, k, v = _qk(**qk)
+    assert attention.flash_route(q, k, v, **dict(ROUTE, **over)) is want, case
 
 
 @pytest.mark.parametrize("case,plain", [

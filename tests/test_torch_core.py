@@ -39,10 +39,16 @@ def _assert_same_plan(a, b):
 
 def test_configs_match_field_by_field():
     assert registry.ARCH_IDS == jreg.ARCH_IDS
+    # the fields only the port has (latent attention, the sigmoid router,
+    # the expert share, rms_eps) keep their defaults in every JAX config
+    port_only = {f.name: f.default for f in dataclasses.fields(registry.get_config("dbrx_132b"))
+                 if f.name not in dataclasses.asdict(jreg.get_config("dbrx_132b"))}
+    assert set(port_only) >= {"mla_kv_rank", "moe_router", "moe_router_experts", "rms_eps"}
     for arch in jreg.ARCH_IDS:
         for getter in ("get_config", "get_smoke_config"):
             want = dataclasses.asdict(getattr(jreg, getter)(arch))
             got = dataclasses.asdict(getattr(registry, getter)(arch))
+            assert {k: got.pop(k) for k in port_only} == port_only, (arch, getter)
             assert got == want, (arch, getter)
         assert registry.get_config(arch).param_counts() == jreg.get_config(arch).param_counts()
 

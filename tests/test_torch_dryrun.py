@@ -330,3 +330,26 @@ def test_mesh_flags_run_one_rank_of_the_production_mesh(flags, shape, mesh, tmp_
         rules_of = lambda m, c: jshd.serve_rules(m, c, multi_pod=pods == 2,  # noqa: E731
                                                  kv_seq_sharded=kv)
     assert rec["param_bytes_per_rank"] == _jax_rank_param_bytes("internlm2_1_8b", 2, rules_of)
+
+
+def test_cli_moonlight_share_train(tmp_path):
+    """Moonlight-16B-A3B (a port-only arch) at full width, cut as its
+    benchmark cell is: 2 layers (the dense one and one MoE layer), 8 of
+    the router's 64 experts held (``--experts``), a 20,480-row vocabulary
+    slice (``--vocab``). Latent attention takes the plain route (no flash
+    launch); every node's MoE layer launches the grouped matmul 3 times,
+    3 more under remat, then dx and dw 3 times each; the gossip one
+    launch a leaf. The resident bytes hold 8 fp32 replicas and their
+    velocities."""
+    assert dryrun.main(["--arch", "moonlight_16b_a3b", "--shape", "train_4k", "--layers", "2",
+                        "--batch", "1", "--seq", "256", "--experts", "8", "--vocab", "20480",
+                        "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "moonlight_16b_a3b_train_4k.json").read_text())
+    cfg = dryrun.config_for("moonlight_16b_a3b", layers=2, experts=8, vocab=20480)
+    assert (cfg.moe_num_experts, cfg.router_experts, cfg.vocab_size) == (8, 64, 20480)
+    model = Model(cfg)
+    assert rec["kernel_launches"] == {
+        "grouped_matmul": 8 * 6, "grouped_matmul_dx": 8 * 3, "grouped_matmul_dw": 8 * 3,
+        "gossip_axpy": len(flatten(model.param_shapes()))}
+    assert rec["memory"]["argument_bytes"] >= 2 * 8 * 4 * model.num_params()
+    assert rec["fits"] and rec["params_total"] == cfg.param_counts()["total"]
