@@ -51,6 +51,13 @@ non-zero exit:
            128, causal) and at a ragged GQA-8 shape at hd 64, two launches
            bit-equal, timed at the cell's shape beside the bound and, in
            turns, scaled_dot_product_attention's backward (timed only);
+           latent attention's widths (q / k 192 over v 128) at
+           Moonlight-16B-A3B's training shape (1 x 8192, 16 / 16 heads,
+           causal): the forward with its lse and both passes against their
+           plain fp32 versions, bit-equal over two launches, timed against
+           their bounds beside sdpa (timed only), and the kernel lint's
+           contracts, tile probes, poisoned tails and canaries at those
+           instantiations (``latent_cases``);
 3. main    the decentralized trainer at full published width:
            internlm2-1.8b (d 2048, 16 heads, 8 kv heads, head_dim 128,
            d_ff 8192, vocab 92544), depth cut 24 -> 2 layers, 8 nodes on
@@ -842,6 +849,164 @@ def flash_backward(torch, ptxas):
     log(f"kernels: flash backward ptxas: {ptxas_note(ptxas, 'flash_wgmma_d')}")
     row["max_rel_err"] = max_err
     return row
+
+
+# Moonlight-16B-A3B's training attention (latent attention: q / k 192 =
+# 128 + 64 rotated, v 128): (B, S, query heads, kv heads)
+LATENT_SHAPE = (1, 8192, 16, 16)
+LATENT_WIDTHS = (192, 128)
+
+
+def latent_cases():
+    """The kernel lint's cases at the (192, 128) instantiations: the
+    forward, the dq pass and the dk / dv pass at a ragged causal length
+    (197: a 5-row tail past the dq pass's 128-row blocks, a 5-key tail past
+    the 64-key tiles) with Moonlight's 16 / 16 heads, batch 2."""
+    from repro_torch.analysis.kernel_cases import KernelCase
+
+    hd, hdv = LATENT_WIDTHS
+    B, S, H = 2, 197, 16
+    bf, st = "bfloat16", "float32"
+    q, k, v = ((B, S, H, hd), bf), ((B, S, H, hd), bf), ((B, S, H, hdv), bf)
+    rows, stats = ((B, S, H, hdv), bf), ((B, H, S), st)
+    guards = (("kv", S), ("q", S))
+    tag = "moonlight-16b-a3b/latent"
+    return [
+        KernelCase(f"{tag}/flash_attention/ragged", "flash_attention", (q, k, v),
+                   options=(("window", 0),), guards=guards),
+        KernelCase(f"{tag}/flash_attention_dq/ragged", "flash_attention_dq",
+                   (q, k, v, rows, rows, stats), guards=guards),
+        KernelCase(f"{tag}/flash_attention_dkdv/ragged", "flash_attention_dkdv",
+                   (q, k, v, rows, stats, stats), guards=guards),
+    ]
+
+
+def flash_latent(torch, ptxas):
+    """Latent attention's widths (q / k 192 over v 128, the kernels' own
+    instantiations) at Moonlight's training shape (1 x 8192, 16 / 16 heads,
+    causal): the forward with its lse, the dq pass and the dk / dv pass,
+    each against its plain fp32 version (the passes from the same lse and
+    D) and timed against its bound (operations at 989 TFLOP/s: the forward
+    2 (192 + 128) flops a live pair and head, the passes what each
+    executes, the backward 2 (3 x 192 + 2 x 128)); two launches bit-equal;
+    the kernel lint's launch rules, contract, tile probe, poisoned tails
+    and canaries on ``latent_cases``; ``sdpa``'s forward and backward at
+    that shape timed as the library yardstick only. Returns the JSON
+    row."""
+    import torch.nn.functional as F
+
+    from repro_torch.analysis import kernel_lint
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+
+    for case in latent_cases():
+        t = case.make("cuda", pad=kernel_lint.POISON_PAD)
+        viols, stats = kernel_lint.lint_case(case, t)
+        pv, pstats = kernel_lint.poison_case(case, t)
+        got, n = kernel_lint.run_counted(case, t)
+        viols += pv + kernel_lint.launch_violations(case, n)
+        if viols:
+            fail(f"latent {case.label}: " + "; ".join(f"[{v.name}] {v.detail}" for v in viols))
+        torch.cuda.synchronize()
+        err = sweep_close(torch, case, got, case.run_plain(*t))
+        if not math.isfinite(err):
+            fail(f"latent {case.label}: the kernel disagrees with its plain version")
+        log(f"kernels: latent {case.label} {[tuple(x.shape) for x in t]}: path "
+            f"{stats['kernel_path']}, grid {stats['grid']} x {stats['threads']} threads, "
+            f"{stats['smem_bytes']} B shared, covers {stats['cover']} of {stats['extent']}; "
+            f"{stats['tiles']['boxes']} tiles disjoint and covering; {pstats['poisoned_inputs']} "
+            f"tails poisoned, canaries and tails held; {n} launch; err {err:.3g}")
+        del t, got
+    torch.cuda.empty_cache()
+
+    B, S, Hq, Hkv = LATENT_SHAPE
+    hd, hdv = LATENT_WIDTHS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    q, k, v, do = mk(B, S, Hq, hd), mk(B, S, Hkv, hd), mk(B, S, Hkv, hdv), mk(B, S, Hq, hdv)
+    if (fa.kernel_path(q, k, v), fab.kernel_path(q, k, v)) != ("wgmma", "wgmma"):
+        fail("latent attention's widths do not take the wgmma kernels")
+
+    def run():
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device="cuda")
+        o = fa.flash_attention(q, k, v, causal=True, lse=lse)
+        dq, delta = fab.flash_attention_dq(q, k, v, o, do, lse, causal=True)
+        return (o, lse, dq, delta) + fab.flash_attention_dkdv(q, k, v, do, lse, delta,
+                                                              causal=True)
+
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("latent flash: two launches on the same inputs differ")
+    del again
+    o, lse, dq, delta, dk, dv = first
+    want_o = ref.attention_ref(q, k, v, causal=True)
+    errs = {"out": rel_norm(torch, o, want_o),
+            "lse": float((lse - ref.attention_lse_ref(q, k, causal=True)).abs().max())}
+    del want_o
+    torch.cuda.empty_cache()
+    pq, pdelta = ref.flash_attention_dq_ref(q, k, v, o, do, lse, causal=True)
+    errs.update(dq=rel_norm(torch, dq, pq), delta=rel_norm(torch, delta, pdelta))
+    del pq, pdelta
+    torch.cuda.empty_cache()
+    pk, pv = ref.flash_attention_dkdv_ref(q, k, v, do, lse, delta, causal=True)
+    errs.update(dk=rel_norm(torch, dk, pk), dv=rel_norm(torch, dv, pv))
+    del pk, pv
+    torch.cuda.empty_cache()
+    if errs["lse"] >= 1e-3 or not all(e < FA_BWD_REL_TOL for n, e in errs.items() if n != "lse"):
+        fail(f"latent flash: disagrees with its plain versions ({errs}; relative norms, lse "
+             f"max abs)")
+
+    times = {
+        "forward": cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, lse=lse), 10),
+        "dq": cuda_ms(torch, lambda: fab.flash_attention_dq(q, k, v, o, do, lse, causal=True),
+                      10),
+        "dkdv": cuda_ms(torch, lambda: fab.flash_attention_dkdv(q, k, v, do, lse, delta,
+                                                                causal=True), 10),
+    }
+    flops = {
+        "forward": fa.cost(B, S, S, Hq, Hkv, hd, torch.bfloat16, causal=True, hd_v=hdv)[0],
+        "dq": fab.pass_cost("dq", B, S, Hq, Hkv, hd, causal=True, hd_v=hdv)[0],
+        "dkdv": fab.pass_cost("dkdv", B, S, Hq, Hkv, hd, causal=True, hd_v=hdv)[0],
+    }
+    bounds = {n: f / BF16_FLOP_PER_S * 1e3 for n, f in flops.items()}
+    bwd_ms = times["dq"] + times["dkdv"]
+    bwd_bound = fab.cost(B, S, Hq, Hkv, hd, causal=True, hd_v=hdv)[0] / BF16_FLOP_PER_S * 1e3
+    p_ms = cuda_ms(torch, lambda: (ref.flash_attention_dq_ref(q, k, v, o, do, lse),
+                                   ref.flash_attention_dkdv_ref(q, k, v, do, lse, delta)),
+                   1, warmup=0)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    try:
+        lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                        is_causal=True), 5)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                             retain_graph=True), 5)
+        library = f"sdpa forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms"
+        del ot, dot
+    except RuntimeError as e:         # the yardstick only: the port never calls it
+        lib_fwd = lib_bwd = None
+        library = f"sdpa not measured ({str(e).splitlines()[0]})"
+    log(f"kernels: latent flash at Moonlight's training shape (B {B}, S {S}, heads {Hq}/{Hkv}, "
+        f"q / k {hd}, v {hdv}, bf16, causal): " + "; ".join(
+            f"{n} {times[n]:.4f} ms, bound {bounds[n]:.4f} ms ({bounds[n] / times[n]:.1%})"
+            for n in times) +
+        f"; backward {bwd_ms:.4f} ms against {bwd_bound:.4f} ms ({bwd_bound / bwd_ms:.1%}); "
+        f"plain fp32 passes {p_ms:.1f} ms; {library} (timed only); errors against the plain "
+        f"versions { {n: float(f'{e:.3g}') for n, e in errs.items()} } (relative norms, lse "
+        f"max abs); two launches bit-equal")
+    log(f"kernels: latent flash ptxas: {ptxas_note(ptxas, 'flash_wgmma_kernel<192, 128')}; "
+        f"{ptxas_note(ptxas, 'flash_wgmma_dq_kernel<192')}; "
+        f"{ptxas_note(ptxas, 'flash_wgmma_dkdv_split')}")
+    del q, k, v, do, first, o, lse, dq, delta, dk, dv, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(forward_ms=times["forward"], dq_ms=times["dq"], dkdv_ms=times["dkdv"],
+                forward_bound_ms=bounds["forward"], backward_bound_ms=bwd_bound,
+                plain_ms=p_ms, library_forward_ms=lib_fwd, library_backward_ms=lib_bwd,
+                max_rel_err=max(e for n, e in errs.items() if n != "lse"))
 
 
 def ssd_bound(B: int, S: int, H: int, P: int, N: int, Q: int):
@@ -4420,6 +4585,7 @@ def main() -> None:
     row = phase_kernels(torch, leaf_shapes, float(plan.alpha))
     fa_row = phase_flash(torch, ptxas)
     fab_row = flash_backward(torch, ptxas)
+    fab_row["latent"] = flash_latent(torch, ptxas)
     ss_row = phase_ssm(torch, ptxas)
     gm_row, gm_bwd_rows = phase_gmm(torch, ptxas)
     launches, bwd_launches = phase_main(torch, cfg, plan)

@@ -335,9 +335,9 @@ def case_tiles(case, t) -> np.ndarray:
 
     k = case.kernel
     if k == "flash_attention":
-        return fa.tile_probe(t[0], t[1])
+        return fa.tile_probe(t[0], t[1], t[2])
     if k.startswith("flash_attention_d"):
-        return fab.tile_probe(k.removeprefix("flash_attention_"), t[0], t[1])
+        return fab.tile_probe(k.removeprefix("flash_attention_"), t[0], t[1], t[2])
     if k == "ssm_scan":
         return ss.tile_probe(t[0], t[3], case.opts["chunk"], t[4])
     if k == "gossip_axpy":
@@ -382,10 +382,11 @@ def case_config(case, t) -> Tuple[Dict, str]:
 
     k = case.kernel
     if k == "flash_attention":
-        return fa.launch_config(t[0], t[1]), fa.kernel_path(t[0], t[1])
+        return fa.launch_config(t[0], t[1], t[2]), fa.kernel_path(t[0], t[1], t[2])
     if k.startswith("flash_attention_d"):
         kind = k.removeprefix("flash_attention_")
-        return fab.launch_config(kind, t[0], t[1]), fab.kernel_path(t[0])
+        return (fab.launch_config(kind, t[0], t[1], t[2]),
+                fab.kernel_path(t[0], t[1], t[2]))
     if k == "ssm_scan":
         chunk = case.opts["chunk"]
         return (ss.launch_config(t[0], t[3], chunk, t[4]),

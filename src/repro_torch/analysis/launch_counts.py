@@ -20,8 +20,9 @@ code takes them:
   again in the backward), 3 dx and 3 dw per node;
 * in training, each self-attention call the routing rule sends to the
   flash kernel (``models.attention.flash_route``: a bf16 config with no
-  softcap at a head width the backward takes, layers without a window,
-  whisper's encoder layers too, never cross-attention) runs the flash
+  softcap at a pair of head widths the backward takes, latent
+  attention's (192, 128) among them, layers without a window, whisper's
+  encoder layers too, never cross-attention) runs the flash
   forward once per node, once more under ``cfg.remat`` (the layer runs
   again in the backward), and the backward's dq and dk / dv passes once
   each. Training runs no SSD kernel (it has no backward);
@@ -69,9 +70,10 @@ def flash_training_calls(cfg) -> int:
     and its backward (``models.attention.flash_route``)."""
     from repro_torch.kernels.flash_attention_bwd import BACKWARD_HEAD_DIMS
 
+    v_dim = cfg.mla_v_dim if cfg.mla_kv_rank else cfg.head_dim   # latent attention's v
     if (cfg.logit_softcap or cfg.compute_dtype != "bfloat16" or not cfg.num_heads
-            or cfg.head_dim not in BACKWARD_HEAD_DIMS or cfg.mla_kv_rank):
-        return 0                 # latent attention's v is narrower than its q and k
+            or (cfg.head_dim, v_dim) not in BACKWARD_HEAD_DIMS):
+        return 0
     layers = sum(kind == "attn" or kind == "global" or (kind == "local" and
                                                          not cfg.sliding_window)
                  for kind in cfg.layer_kinds())

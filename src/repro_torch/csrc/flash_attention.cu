@@ -21,7 +21,8 @@
 // Two kernels, chosen by one rule (wgmma_path below):
 //
 // * bf16 with hd 64, 112, 128, 192 or 256 (every serving width but the
-//   smoke models' 32): the wgmma kernel. Consumer warpgroups own 64 q rows
+//   smoke models' 32), and q / k of 192 over a v of 128 (latent attention,
+//   below): the wgmma kernel. Consumer warpgroups own 64 q rows
 //   each: one at hd 64 / 112 / 128, two at 192 / 256; a block is (q tile
 //   of 64 or 128 rows, q head, batch), costliest q tiles launched first.
 //   One thread issues TMA loads through 4-D tensor maps (hd, heads, S, B),
@@ -63,6 +64,16 @@
 //   need the 64-byte swizzle, a second descriptor layout that no serving
 //   model needs.
 //
+// Latent attention (DeepSeek-V3, Moonlight) scores q / k heads of 192 and
+// sums v heads of 128: the output and O take v's width. v's width is a
+// template parameter of its own beside q / k's (HDV; HDV == HD is every
+// other instantiation, whose code, tiles and launch are as before), so the
+// pair (192, 128) runs the one-warpgroup kernel: Q and K tiles of three
+// boxes, V tiles of two, O 64 fp32 registers a thread (n128 pieces), a
+// 104 KB ring, two blocks an SM as at hd 128. v is never zero-padded to
+// 192: that would spend a third more of the P V products and of the
+// output's bytes on zeros. The scale is 1/sqrt(192), q's width.
+//
 // Both walk the k tiles of a q tile from the window's first live tile to
 // the causal diagonal and kv_len (the TPU's sequential k grid axis and its
 // pl.when tile skip), mask per element against absolute indices (so no
@@ -74,9 +85,10 @@
 // at hd 128 and 208 KB at hd 256 (one block an SM, under the 227 KB
 // opt-in); wgmma (warpgroups + 4) tiles of 64 rows x the padded width in
 // bf16: 80 KB at hd 112 / 128 (two blocks an SM), 144 KB at 192, 192 KB at
-// 256. At hd 256 a scalar thread holds 64 fp32 accumulators. Head widths
-// 32, 64, 112, 128, 192 and 256 (every head_dim of the model registry) are
-// compiled; any other width is refused with cudaErrorInvalidValue (the
+// 256, 104 KB at (192, 128). At hd 256 a scalar thread holds 64 fp32
+// accumulators. Head widths 32, 64, 112, 128, 192 and 256 (every head_dim
+// of the model registry) and the pair (192, 128) on wgmma are compiled;
+// any other width or pair is refused with cudaErrorInvalidValue (the
 // Python wrapper raises first).
 
 #include <cstdint>
@@ -386,31 +398,37 @@ cudaError_t dispatch_hd(int hd, const Params& prm, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// wgmma path: bf16, hd 64, 112, 128 (one warpgroup), 192 and 256 (two)
+// wgmma path: bf16, hd 64, 112, 128 and (192, 128) (one warpgroup), 192
+// and 256 (two)
 // ---------------------------------------------------------------------------
 constexpr int kWgStages = 2;                    // K/V ring depth
 constexpr int kBoxBytes = 64 * 128;             // 64 rows x 128 B, one TMA box
 constexpr float kLog2e = 1.4426950408889634f;
 
-// HD is the true head width; the tiles are kHDP wide, whole 64-column
-// boxes (hd 112 pads to 128: TMA fills columns 112-127 with zeros). NWG
-// consumer warpgroups own 64 q rows each and share every K / V stage.
-template <int HD, int NWG>
+// HD is q / k's true head width, HDV v's (and the output's); the tiles are
+// whole 64-column boxes wide (hd 112 pads to 128: TMA fills columns 112-127
+// with zeros). NWG consumer warpgroups own 64 q rows each and share every
+// K / V stage.
+template <int HD, int HDV, int NWG>
 struct WgLayout {
-  static constexpr int kHDP = (HD + 63) / 64 * 64;         // padded width
+  static constexpr int kHDP = (HD + 63) / 64 * 64;         // padded q / k width
   static constexpr int kBoxes = kHDP / 64;                  // 64-column boxes per row
   static constexpr int kTileBytes = kBoxes * kBoxBytes;     // 64 rows x kHDP bf16
+  static constexpr int kVHDP = (HDV + 63) / 64 * 64;       // padded v width
+  static constexpr int kVBoxes = kVHDP / 64;                // never more than kBoxes
+  static constexpr int kVTileBytes = kVBoxes * kBoxBytes;   // 64 rows x kVHDP bf16
   static constexpr int kRows = 64 * NWG;                    // q rows of a block
   static constexpr int kThreads = 128 * NWG;
   // O += P V is issued in pieces of kPiece output columns: n128 where the
   // width is a multiple of 128, else n64 (3 x n64 at 192)
-  static constexpr int kPiece = kHDP % 128 == 0 ? 128 : 64;
-  static constexpr int kPieces = kHDP / kPiece;
+  static constexpr int kPiece = kVHDP % 128 == 0 ? 128 : 64;
+  static constexpr int kPieces = kVHDP / kPiece;
   static constexpr int kQ = 0;                              // [NWG] tiles
   static constexpr int kK = kQ + NWG * kTileBytes;          // [kWgStages] tiles
-  static constexpr int kV = kK + kWgStages * kTileBytes;    // [kWgStages] tiles
-  static constexpr int kBar = kV + kWgStages * kTileBytes;  // q_full, kv_full[2]
+  static constexpr int kV = kK + kWgStages * kTileBytes;    // [kWgStages] v tiles
+  static constexpr int kBar = kV + kWgStages * kVTileBytes; // q_full, kv_full[2]
   static constexpr int kSmem = kBar + 64 + 1024;            // + slack to align
+  static_assert(kVBoxes <= kBoxes, "v is no wider than q and k");
 };
 
 // O piece += P V for one k16 slice: A = P from registers, B = V MN-major.
@@ -491,12 +509,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   }
 }
 
-template <int HD, int NWG>
+template <int HD, int HDV, int NWG>
 __global__ void __launch_bounds__(128 * NWG, NWG == 1 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map, Params prm) {
-  using L = WgLayout<HD, NWG>;
+  using L = WgLayout<HD, HDV, NWG>;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles start on 1024-byte boundaries (of the shared window)
   uint8_t* smem = smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -540,12 +558,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int s = j % kWgStages;
     const int kt0 = k_begin + j * kBK;
     uint8_t* ks = smem + L::kK + s * L::kTileBytes;
-    uint8_t* vs = smem + L::kV + s * L::kTileBytes;
-    hopper::mbar_arrive_expect_tx(&kv_full[s], 2 * L::kTileBytes);
+    uint8_t* vs = smem + L::kV + s * L::kVTileBytes;
+    hopper::mbar_arrive_expect_tx(&kv_full[s], L::kTileBytes + L::kVTileBytes);
 #pragma unroll
     for (int c = 0; c < L::kBoxes; ++c) {
       hopper::tma_load_4d(ks + c * kBoxBytes, &k_map, &kv_full[s], 64 * c, hk, kt0, b);
-      hopper::tma_load_4d(vs + c * kBoxBytes, &v_map, &kv_full[s], 64 * c, hk, kt0, b);
+      if (c < L::kVBoxes)
+        hopper::tma_load_4d(vs + c * kBoxBytes, &v_map, &kv_full[s], 64 * c, hk, kt0, b);
     }
   };
   if (tid == 0 && n_tiles > 0) {
@@ -587,7 +606,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (tid == 0 && j + 1 < n_tiles) load_kv(j + 1);
     hopper::mbar_wait(&kv_full[s], (j / kWgStages) & 1);
     const uint8_t* ks = smem + L::kK + s * L::kTileBytes;
-    const uint8_t* vs = smem + L::kV + s * L::kTileBytes;
+    const uint8_t* vs = smem + L::kV + s * L::kVTileBytes;
 
     // ---- S = Q K^T: HD / 16 k16 slices (the zero columns of a padded
     // box are left out); K-major operands advance 32 B a slice inside a
@@ -661,8 +680,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     __syncthreads();   // every product that read stage s is done: it may refill
   }
 
-  // ---- out = O / l; a row with no live key (l == 0) writes 0; the zero
-  // columns of a padded box are not stored
+  // ---- out = O / l (HDV wide); a row with no live key (l == 0) writes 0;
+  // the zero columns of a padded box are not stored
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(prm.out);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -676,13 +695,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (prm.lse != nullptr && (lane & 3) == 0)
       store_lse(prm, b, h, qi, m[hh] * prm.sm_scale, sum);
     __nv_bfloat16* orow =
-        out + ((static_cast<int64_t>(b) * prm.Sq + qi) * prm.Hq + h) * HD + col_in;
+        out + ((static_cast<int64_t>(b) * prm.Sq + qi) * prm.Hq + h) * HDV + col_in;
 #pragma unroll
     for (int c = 0; c < L::kPieces; ++c) {
 #pragma unroll
       for (int i = 0; i < L::kPiece / 8; ++i) {
         const int col = c * L::kPiece + 8 * i;
-        if (col < HD)
+        if (col < HDV)
           *reinterpret_cast<uint32_t*>(orow + col) = hopper::pack_bf16(
               o[c][4 * i + 2 * hh] * inv, o[c][4 * i + 2 * hh + 1] * inv);
       }
@@ -702,66 +721,74 @@ bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int 
 }
 
 // One block per (kRows query rows, query head, batch row).
-template <int HD, int NWG>
+template <int HD, int HDV, int NWG>
 LaunchConfig wgmma_config(int B, int Sq, int Hq) {
-  using L = WgLayout<HD, NWG>;
+  using L = WgLayout<HD, HDV, NWG>;
   const long long rows = (Sq + L::kRows - 1) / L::kRows;
   LaunchConfig c{{rows, Hq, B}, {rows * L::kRows, Hq, B}, L::kThreads, L::kSmem, 1, 4};
   return c;
 }
 
-template <int HD, int NWG>
+template <int HD, int HDV, int NWG>
 cudaError_t launch_wgmma(const Params& prm, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!make_bshd_map(&qm, prm.q, prm.B, prm.Sq, prm.Hq, HD) ||
       !make_bshd_map(&km, prm.k, prm.B, prm.Sk, prm.Hkv, HD) ||
-      !make_bshd_map(&vm, prm.v, prm.B, prm.Sk, prm.Hkv, HD))
+      !make_bshd_map(&vm, prm.v, prm.B, prm.Sk, prm.Hkv, HDV))
     return cudaErrorInvalidValue;
-  const LaunchConfig c = wgmma_config<HD, NWG>(prm.B, prm.Sq, prm.Hq);
+  const LaunchConfig c = wgmma_config<HD, HDV, NWG>(prm.B, prm.Sq, prm.Hq);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma_kernel<HD, HDV, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       c.smem_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(c.grid[0]), static_cast<unsigned>(c.grid[1]),
                   static_cast<unsigned>(c.grid[2]));
-  flash_wgmma_kernel<HD, NWG><<<grid, c.threads, c.smem_bytes, stream>>>(qm, km, vm, prm);
+  flash_wgmma_kernel<HD, HDV, NWG><<<grid, c.threads, c.smem_bytes, stream>>>(qm, km, vm,
+                                                                               prm);
   return cudaGetLastError();
 }
 
-// The rule: bf16 with hd 64, 112, 128, 192 or 256 and at least one key
-// takes the wgmma kernel; everything else (fp32, bf16 hd 32, Sk 0) the
-// scalar one. The wrapper has already checked contiguity and 16-byte
+// The rule: bf16 with hd 64, 112, 128, 192 or 256, or q / k of 192 over a
+// v of 128, and at least one key takes the wgmma kernel; everything else
+// with one width (fp32, bf16 hd 32, Sk 0) the scalar one, which takes no
+// pair of widths. The wrapper has already checked contiguity and 16-byte
 // alignment, which TMA needs too.
-bool wgmma_path(int dtype, int hd, int Sk) {
-  return dtype == 1 && Sk > 0 &&
-         (hd == 64 || hd == 112 || hd == 128 || hd == 192 || hd == 256);
+bool wgmma_path(int dtype, int hd, int hd_v, int Sk) {
+  if (dtype != 1 || Sk <= 0) return false;
+  if (hd_v != hd) return hd == 192 && hd_v == 128;
+  return hd == 64 || hd == 112 || hd == 128 || hd == 192 || hd == 256;
 }
 
-cudaError_t dispatch_wgmma(int hd, const Params& prm, cudaStream_t stream) {
+cudaError_t dispatch_wgmma(int hd, int hd_v, const Params& prm, cudaStream_t stream) {
+  if (hd_v != hd) return launch_wgmma<192, 128, 1>(prm, stream);
   switch (hd) {
-    case 64: return launch_wgmma<64, 1>(prm, stream);
-    case 112: return launch_wgmma<112, 1>(prm, stream);
-    case 128: return launch_wgmma<128, 1>(prm, stream);
-    case 192: return launch_wgmma<192, 2>(prm, stream);
-    case 256: return launch_wgmma<256, 2>(prm, stream);
+    case 64: return launch_wgmma<64, 64, 1>(prm, stream);
+    case 112: return launch_wgmma<112, 112, 1>(prm, stream);
+    case 128: return launch_wgmma<128, 128, 1>(prm, stream);
+    case 192: return launch_wgmma<192, 192, 2>(prm, stream);
+    case 256: return launch_wgmma<256, 256, 2>(prm, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The configuration flash_attention_launch uses: false for a width no
-// kernel is compiled for.
-bool config_for(int dtype, int hd, int Sk, int B, int Sq, int Hq, LaunchConfig* c) {
-  if (wgmma_path(dtype, hd, Sk)) {
+// The configuration flash_attention_launch uses: false for a width or a
+// pair no kernel is compiled for.
+bool config_for(int dtype, int hd, int hd_v, int Sk, int B, int Sq, int Hq, LaunchConfig* c) {
+  if (wgmma_path(dtype, hd, hd_v, Sk)) {
+    if (hd_v != hd) {
+      *c = wgmma_config<192, 128, 1>(B, Sq, Hq);
+      return true;
+    }
     switch (hd) {
-      case 64: *c = wgmma_config<64, 1>(B, Sq, Hq); return true;
-      case 112: *c = wgmma_config<112, 1>(B, Sq, Hq); return true;
-      case 128: *c = wgmma_config<128, 1>(B, Sq, Hq); return true;
-      case 192: *c = wgmma_config<192, 2>(B, Sq, Hq); return true;
-      case 256: *c = wgmma_config<256, 2>(B, Sq, Hq); return true;
+      case 64: *c = wgmma_config<64, 64, 1>(B, Sq, Hq); return true;
+      case 112: *c = wgmma_config<112, 112, 1>(B, Sq, Hq); return true;
+      case 128: *c = wgmma_config<128, 128, 1>(B, Sq, Hq); return true;
+      case 192: *c = wgmma_config<192, 192, 2>(B, Sq, Hq); return true;
+      case 256: *c = wgmma_config<256, 256, 2>(B, Sq, Hq); return true;
       default: return false;
     }
   }
-  if (dtype != 0 && dtype != 1) return false;
+  if ((dtype != 0 && dtype != 1) || hd_v != hd) return false;
   switch (hd) {
     case 32: *c = scalar_config<32>(B, Sq, Hq); return true;
     case 64: *c = scalar_config<64>(B, Sq, Hq); return true;
@@ -787,24 +814,26 @@ __global__ void flash_tile_probe_kernel(long long rows, TileBox* boxes, int capa
 }  // namespace
 
 // dtype code: 0 = float32, 1 = bfloat16 (q, k, v and out alike). Tensors
-// are contiguous (B, S, H, hd). kv_len <= 0 means Sk. lse, when not null,
+// are contiguous (B, S, H, width): q and k hd wide, v and out hd_v wide
+// (hd_v == hd but for the pair (192, 128)). kv_len <= 0 means Sk. lse, when not null,
 // is a contiguous fp32 (B, Hq, Sq) that takes each row's log-sum-exp (the
 // training forward's; serving passes null); only the wgmma kernel writes
 // it, so a call off its path with lse is refused. Returns a cudaError_t
 // (0: ok).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, void* lse, int B, int Sq,
-                                      int Sk, int Hq, int Hkv, int hd,
+                                      int Sk, int Hq, int Hkv, int hd, int hd_v,
                                       int causal, int window, int kv_len,
                                       float sm_scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
+  const bool wgmma = wgmma_path(dtype, hd, hd_v, Sk);
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || kv_len > Sk ||
-      (lse != nullptr && !wgmma_path(dtype, hd, Sk)))
+      (lse != nullptr && !wgmma) || (hd_v != hd && !wgmma))
     return static_cast<int>(cudaErrorInvalidValue);
   Params prm{q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, Hq, Hkv, causal, window,
              kv_len <= 0 ? Sk : kv_len, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wgmma_path(dtype, hd, Sk)) return static_cast<int>(dispatch_wgmma(hd, prm, s));
+  if (wgmma) return static_cast<int>(dispatch_wgmma(hd, hd_v, prm, s));
   if (dtype == 0) return static_cast<int>(dispatch_hd<float>(hd, prm, s));
   if (dtype == 1) return static_cast<int>(dispatch_hd<__nv_bfloat16>(hd, prm, s));
   return static_cast<int>(cudaErrorInvalidValue);
@@ -812,17 +841,17 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
 
 // Which kernel flash_attention_launch takes for these operands: 1 the
 // wgmma kernel, 0 the scalar one.
-extern "C" int flash_attention_path(int dtype, int hd, int Sk) {
-  return wgmma_path(dtype, hd, Sk) ? 1 : 0;
+extern "C" int flash_attention_path(int dtype, int hd, int hd_v, int Sk) {
+  return wgmma_path(dtype, hd, hd_v, Sk) ? 1 : 0;
 }
 
 // The launch configuration flash_attention_launch uses for these shapes:
 // the output's dims are (Sq, Hq, B). Returns 0, or cudaErrorInvalidValue
-// for a dtype or head width no kernel is compiled for.
+// for a dtype, head width or pair of widths no kernel is compiled for.
 extern "C" int flash_attention_launch_config(int dtype, int B, int Sq, int Sk, int Hq,
-                                             int hd, LaunchConfig* out) {
-  return config_for(dtype, hd, Sk, B, Sq, Hq, out) ? 0
-                                                  : static_cast<int>(cudaErrorInvalidValue);
+                                             int hd, int hd_v, LaunchConfig* out) {
+  return config_for(dtype, hd, hd_v, Sk, B, Sq, Hq, out)
+             ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The output boxes of flash_attention_launch's blocks for these shapes,
@@ -830,11 +859,12 @@ extern "C" int flash_attention_launch_config(int dtype, int B, int Sq, int Sk, i
 // block into boxes (device memory, room for capacity), the number found in
 // *count (device memory, zeroed by the caller). Returns a cudaError_t.
 extern "C" int flash_attention_tile_probe(int dtype, int B, int Sq, int Sk, int Hq, int hd,
-                                          void* boxes, int capacity, void* count,
+                                          int hd_v, void* boxes, int capacity, void* count,
                                           void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
   LaunchConfig c;
-  if (!config_for(dtype, hd, Sk, B, Sq, Hq, &c)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!config_for(dtype, hd, hd_v, Sk, B, Sq, Hq, &c))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(c.grid[0]), static_cast<unsigned>(c.grid[1]),
                   static_cast<unsigned>(c.grid[2]));
   flash_tile_probe_kernel<<<grid, 1, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -189,6 +189,13 @@ __device__ __forceinline__ void named_bar_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
+// Arrive at named barrier `id` without waiting: the threads that sync on
+// it (`nthreads` in all, arrivals included) see this thread's earlier
+// shared-memory writes once it completes.
+__device__ __forceinline__ void named_bar_arrive(int id, int nthreads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));

@@ -9,7 +9,10 @@ running statistics; a row with no live key is written as 0.
 bf16 with head_dim 64, 112, 128, 192 or 256 runs on the tensor cores
 (wgmma fed by TMA; two warpgroups a block at 192 and 256); fp32, bf16 at
 32 and a k/v with no keys on the scalar kernel. ``HEAD_DIMS`` holds
-every ``head_dim`` of the model registry.
+every ``head_dim`` of the model registry. v may be narrower than q and k
+where ``HEAD_DIM_PAIRS`` holds the pair (q / k width, v width): latent
+attention's (192, 128), bf16 on the wgmma kernel only; the output then
+takes v's width and the scale stays 1/sqrt(q's width).
 ``kernel_path`` says which a call takes; the rule lives in the CUDA
 source.
 
@@ -49,6 +52,8 @@ from repro_torch.kernels import build, meta
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128, 192, 256)
+# (q / k width, v width) pairs of unequal widths the wgmma kernel compiles
+HEAD_DIM_PAIRS = ((192, 128),)
 
 # The JAX kernel's contract, on the card: a block owns one (q tile, query
 # head, batch row) tile and walks its k tiles itself, so no axis is a
@@ -72,7 +77,7 @@ def _library():
     lib = build.load("flash_attention")
     path = lib.flash_attention_path
     if path.argtypes is None:
-        path.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]   # dtype, hd, Sk
+        path.argtypes = [ctypes.c_int] * 4                   # dtype, hd, hd_v, Sk
         path.restype = ctypes.c_int
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
@@ -82,6 +87,7 @@ def _library():
             ctypes.c_void_p, ctypes.c_void_p,                    # out, lse
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, Sq, Sk
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # Hq, Hkv, hd
+            ctypes.c_int,                                        # hd_v
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # causal, window, kv_len
             ctypes.c_float, ctypes.c_void_p,                     # sm_scale, stream
         ]
@@ -101,49 +107,58 @@ def live_pairs(Sq: int, Sk: int, causal: bool, window: int, kv_len: int) -> int:
 
 
 def cost(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, hd: int, dtype: torch.dtype, *,
-         causal: bool, window: int = 0, kv_len: int = 0):
-    """``(flops, bytes)`` of one launch: 4 hd flops per live (query, key)
-    pair and query head (q k^T and p v); q, k, v read once and the
+         causal: bool, window: int = 0, kv_len: int = 0, hd_v: int = None):
+    """``(flops, bytes)`` of one launch: 2 (hd + hd_v) flops per live
+    (query, key) pair and query head (q k^T over q / k's width ``hd``, p v
+    over v's ``hd_v``, which defaults to ``hd``); q, k, v read once and the
     output written once."""
+    hd_v = hd if hd_v is None else hd_v
     elem = torch.empty((), dtype=dtype).element_size()
-    flops = 4 * hd * B * Hq * live_pairs(Sq, Sk, causal, window, kv_len)
-    nbytes = elem * B * hd * (2 * Sq * Hq + 2 * Sk * Hkv)
+    flops = 2 * (hd + hd_v) * B * Hq * live_pairs(Sq, Sk, causal, window, kv_len)
+    nbytes = elem * B * (hd + hd_v) * (Sq * Hq + Sk * Hkv)
     return flops, nbytes
 
 
-def launch_config(q: torch.Tensor, k: torch.Tensor) -> dict:
+def launch_config(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor = None) -> dict:
     """The launch configuration ``flash_attention(q, k, v)`` uses (the C
-    function its launch calls): output dims ``(Sq, Hq, B)``."""
-    _check(q, k, k, 0)
+    function its launch calls): output dims ``(Sq, Hq, B)``. ``v``
+    defaults to k (one width)."""
+    v = k if v is None else v
+    _check(q, k, v, 0)
     fn = _library().flash_attention_launch_config
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(build.LaunchConfig)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(build.LaunchConfig)]
     fn.restype = ctypes.c_int
     B, Sq, Hq, hd = q.shape
-    return build.launch_config(fn, _DTYPE_CODES[q.dtype], B, Sq, k.shape[1], Hq, hd)
+    return build.launch_config(fn, _DTYPE_CODES[q.dtype], B, Sq, k.shape[1], Hq, hd,
+                               v.shape[3])
 
 
-def tile_probe(q: torch.Tensor, k: torch.Tensor):
+def tile_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor = None):
     """The output box of every block ``flash_attention(q, k, v)``
     launches, from the kernels' own ``flash_tile`` on the launch's grid:
     an ``(n, 9)`` int64 array of ``writer (q tile, head, batch), lo, hi``
-    in ``(Sq, Hq, B)``."""
-    _check(q, k, k, 0)
+    in ``(Sq, Hq, B)``. ``v`` defaults to k."""
+    v = k if v is None else v
+    _check(q, k, v, 0)
     fn = _library().flash_attention_tile_probe
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, Sq, Hq, hd = q.shape
-    code, Sk = _DTYPE_CODES[q.dtype], k.shape[1]
+    code, Sk, hd_v = _DTYPE_CODES[q.dtype], k.shape[1], v.shape[3]
     return build.tile_boxes(
-        lambda boxes, cap, count, stream: fn(code, B, Sq, Sk, Hq, hd, boxes, cap, count,
+        lambda boxes, cap, count, stream: fn(code, B, Sq, Sk, Hq, hd, hd_v, boxes, cap, count,
                                              stream), q.device)
 
 
-def kernel_path(q: torch.Tensor, k: torch.Tensor) -> str:
+def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor = None) -> str:
     """The kernel ``flash_attention(q, k, v)`` launches for these
-    operands: ``"wgmma"`` (tensor cores, TMA) or ``"scalar"``."""
-    _check(q, k, k, 0)
-    code = _library().flash_attention_path(_DTYPE_CODES[q.dtype], q.shape[3], k.shape[1])
+    operands: ``"wgmma"`` (tensor cores, TMA) or ``"scalar"``. ``v``
+    defaults to k."""
+    v = k if v is None else v
+    _check(q, k, v, 0)
+    code = _library().flash_attention_path(_DTYPE_CODES[q.dtype], q.shape[3], v.shape[3],
+                                           k.shape[1])
     return "wgmma" if code else "scalar"
 
 
@@ -166,11 +181,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int) -> No
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype {q.dtype} is not float32 or bfloat16")
     B, _, Hq, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(
             f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}"
         )
-    if hd not in HEAD_DIMS:
+    hd_v = v.shape[3]
+    if hd_v != hd:
+        if (hd, hd_v) not in HEAD_DIM_PAIRS:
+            raise ValueError(f"q / k width {hd} over v width {hd_v} is not one of the "
+                             f"compiled pairs {HEAD_DIM_PAIRS}")
+        if q.dtype != torch.bfloat16 or k.shape[1] == 0:
+            raise ValueError(f"the pair ({hd}, {hd_v}) runs on the wgmma kernel only: bf16 "
+                             f"with at least one key, got {q.dtype} over {k.shape[1]} keys")
+    elif hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one of the compiled widths {HEAD_DIMS}")
     if k.shape[2] == 0 or Hq % k.shape[2]:
         raise ValueError(f"{Hq} query heads do not group over {k.shape[2]} kv heads")
@@ -183,7 +206,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int) -> No
 def flash_attention(
     q: torch.Tensor,            # (B, Sq, Hq, hd)
     k: torch.Tensor,            # (B, Sk, Hkv, hd)
-    v: torch.Tensor,            # (B, Sk, Hkv, hd)
+    v: torch.Tensor,            # (B, Sk, Hkv, hd_v)
     *,
     causal: bool = True,
     window: int = 0,
@@ -191,7 +214,7 @@ def flash_attention(
     out: torch.Tensor = None,
     lse: torch.Tensor = None,
 ) -> torch.Tensor:
-    """Attention of q over k/v on the card; out (B, Sq, Hq, hd) in q's
+    """Attention of q over k/v on the card; out (B, Sq, Hq, hd_v) in q's
     dtype (a new tensor, or ``out``). Query i and key j sit at positions
     i and j; ``kv_len > 0`` masks keys at positions >= kv_len. ``lse``, a
     contiguous fp32 (B, Hq, Sq) buffer, takes each row's log-sum-exp
@@ -200,18 +223,18 @@ def flash_attention(
     its path (``kernel_path``) with ``lse`` is refused."""
     _check(q, k, v, kv_len)
     B, Sq, Hq, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     if out is None:
-        out = torch.empty_like(q)
+        out = torch.empty((B, Sq, Hq, hd_v), dtype=q.dtype, device=q.device)
     else:
-        build.check_out("flash_attention", out, q.shape, q.dtype, q.device)
+        build.check_out("flash_attention", out, (B, Sq, Hq, hd_v), q.dtype, q.device)
     if lse is not None:
         build.check_out("flash_attention (lse)", lse, (B, Hq, Sq), torch.float32, q.device)
     if out.numel() == 0:
         return out
     if meta.is_meta(q):
         meta.report("flash_attention", *cost(B, Sq, Sk, Hq, Hkv, hd, q.dtype, causal=causal,
-                                             window=window, kv_len=kv_len), q.dtype)
+                                             window=window, kv_len=kv_len, hd_v=hd_v), q.dtype)
         return out
     launch = _library().flash_attention_launch
     with torch.cuda.device(q.device):
@@ -219,7 +242,7 @@ def flash_attention(
         err = launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
-            int(bool(causal)), int(window), int(kv_len),
+            hd_v, int(bool(causal)), int(window), int(kv_len),
             1.0 / math.sqrt(hd), stream,
         )
     if err:

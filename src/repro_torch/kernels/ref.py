@@ -25,15 +25,16 @@ def gossip_axpy_ref(x: torch.Tensor, y: torch.Tensor, alpha: float) -> torch.Ten
 def attention_ref(
     q: torch.Tensor,            # (B, Sq, Hq, hd)
     k: torch.Tensor,            # (B, Sk, Hkv, hd)
-    v: torch.Tensor,
+    v: torch.Tensor,            # (B, Sk, Hkv, hd_v)
     *,
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    """fp32 masked softmax attention; query head h reads kv head
-    ``h // (Hq // Hkv)``. Query i and key j sit at positions i and j.
-    A row with no live key gets uniform weights over NEG_INF scores
-    (the JAX oracle's behaviour; the kernel writes 0 there)."""
+    """fp32 masked softmax attention, scaled by q's width; query head h
+    reads kv head ``h // (Hq // Hkv)`` and the output takes v's width
+    (latent attention's is narrower). Query i and key j sit at positions
+    i and j. A row with no live key gets uniform weights over NEG_INF
+    scores (the JAX oracle's behaviour; the kernel writes 0 there)."""
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -50,7 +51,7 @@ def attention_ref(
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+    return o.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
@@ -88,12 +89,13 @@ def _probs(q, k, lse, causal):
 def flash_attention_dq_ref(q, k, v, o, do, lse, *, causal: bool = True):
     """The backward's dq pass in fp32: ``(dq, D)`` with ``D = rowsum(do *
     o)`` (B, Hq, S) fp32, ``dS = P (do v^T - D)`` from P rebuilt from the
-    given ``lse``, and ``dq = dS k / sqrt(hd)`` in q's dtype."""
+    given ``lse``, and ``dq = dS k / sqrt(hd)`` in q's dtype. ``o`` and
+    ``do`` take v's width, which may be narrower than q's and k's."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()     # (B, Hq, S)
     p = _probs(q, k, lse, causal)
-    dog = do.float().reshape(B, S, Hkv, Hq // Hkv, hd)
+    dog = do.float().reshape(B, S, Hkv, Hq // Hkv, v.shape[-1])
     dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
     ds = p * (dp - delta.reshape(B, Hkv, Hq // Hkv, S, 1))
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) / math.sqrt(hd)
@@ -101,14 +103,14 @@ def flash_attention_dq_ref(q, k, v, o, do, lse, *, causal: bool = True):
 
 
 def flash_attention_dkdv_ref(q, k, v, do, lse, delta, *, causal: bool = True):
-    """The backward's dk / dv pass in fp32: ``dv = P^T do`` and ``dk = dS^T
-    q / sqrt(hd)`` summed over each kv head's query heads, from the given
-    ``lse`` and ``delta`` (B, Hq, S), in k's dtype."""
+    """The backward's dk / dv pass in fp32: ``dv = P^T do`` (v's width) and
+    ``dk = dS^T q / sqrt(hd)`` summed over each kv head's query heads, from
+    the given ``lse`` and ``delta`` (B, Hq, S), in k's dtype."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
     p = _probs(q, k, lse, causal)
-    dog = do.float().reshape(B, S, Hkv, g, hd)
+    dog = do.float().reshape(B, S, Hkv, g, v.shape[-1])
     dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
     ds = p * (dp - delta.reshape(B, Hkv, g, S, 1))
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)

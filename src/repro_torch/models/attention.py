@@ -19,10 +19,11 @@ declaration, as in the JAX package:
     encoder output (whisper). Training's cache-less self-attention runs
     it with its backward kernels (``kernels.flash_attention_bwd``)
     wherever ``flash_route`` allows: on the card (or meta) in bf16 at a
-    head width the backward takes, with no softcap and no window; every
-    other training call (fp32, gemma3's windows, hd 112 / 192 / 256,
-    cross-attention, softcapped configs), decode steps, later prefills
-    and CPU tensors stay on ``sdpa``.
+    pair of head widths the backward takes (q / k and v of 64 or of 128,
+    latent attention's q / k of 192 over v of 128), with no softcap and
+    no window; every other training call (fp32, gemma3's windows, hd 112
+    / 192 / 256, cross-attention, softcapped configs), decode steps,
+    later prefills and CPU tensors stay on ``sdpa``.
 
 Under tensor parallel (``repro_torch.models.tp``) the block shards over
 heads, following the rules: where ``heads`` / ``kv_heads`` divide the
@@ -50,8 +51,8 @@ slice.
 
 ``mla_block`` is DeepSeek-V3's multi-head latent attention, for
 training: its query / key heads are wider than its value heads, so
-``sdpa`` and ``sdpa_chunked`` take v's width and ``flash_route`` refuses
-unequal widths (its kernels take one).
+``sdpa`` and ``sdpa_chunked`` take v's width, and ``flash_route`` takes
+the pair (192, 128) that the flash kernels compile (Moonlight's widths).
 
 Decode uses an explicit-position KV cache: positions are stored next to
 k/v, so full caches and ring-buffer (sliding-window) caches share one
@@ -213,14 +214,16 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Whether a cache-less self-attention call takes the flash kernel
     and its backward (``ops.attention``, differentiable on the card)
     instead of ``sdpa``: q and k on the card (or meta, the dry run) in
-    bf16, one head width for q, k and v that the backward kernels take,
-    no softcap, no window, as many keys as queries. Its caller gives
-    ``sdpa`` the same positions for queries and keys, and every builder
-    of them makes an arange, so ``sdpa``'s positional causal mask is the
-    kernel's index-causal one whatever the start."""
+    bf16, k as wide as q, and a (q / k width, v width) pair that the
+    backward kernels take (``BACKWARD_HEAD_DIMS``: one width of 64 or
+    128, or latent attention's 192 over 128), no softcap, no window, as
+    many keys as queries. The rule reads the shapes alone. Its caller
+    gives ``sdpa`` the same positions for queries and keys, and every
+    builder of them makes an arange, so ``sdpa``'s positional causal mask
+    is the kernel's index-causal one whatever the start."""
     return (q.device.type in ("cuda", "meta") and q.dtype == torch.bfloat16
-            and k.dtype == q.dtype and q.shape[-1] in BACKWARD_HEAD_DIMS
-            and k.shape[-1] == v.shape[-1] == q.shape[-1]
+            and k.dtype == q.dtype and k.shape[-1] == q.shape[-1]
+            and (q.shape[-1], v.shape[-1]) in BACKWARD_HEAD_DIMS
             and not logit_softcap and not window and q.shape[1] == k.shape[1])
 
 
@@ -469,9 +472,10 @@ def mla_block(
     v's width (``mla_v_dim``). The rotation is the port's ``apply_rope``
     on split halves; the published weights pair interleaved columns, a
     fixed permutation of the rotated columns of ``wq`` and ``wkv_a``.
-    ``flash_route`` decides the route by its rule; its kernels take one
-    head width, so the call runs ``sdpa`` (``sdpa_chunked`` from the
-    threshold on). Spans ``mla`` and ``mla/backward`` on the step's
+    ``flash_route`` decides the route by its rule: on the card in bf16 at
+    Moonlight's widths (q / k 192, v 128) the flash kernels and their
+    backward; elsewhere ``sdpa`` (``sdpa_chunked`` from the threshold
+    on). Spans ``mla`` and ``mla/backward`` on the step's
     block spans (``telemetry.blocks``). Serving caches and tensor
     parallel do not take this block yet: it raises."""
     if cache is not None or tpl.context() is not None:

@@ -4,8 +4,9 @@ On the CPU (no card needed):
 
 * ``models.attention.flash_route``, the one rule that sends a training
   attention call to the flash kernel: taken on meta (the dry run) and
-  card tensors in bf16 at head widths 64 and 128; refused for each
-  exclusion (fp32, hd 112 and 256, softcap, window, keys of another
+  card tensors in bf16 at head widths 64 and 128 and at latent
+  attention's q / k 192 over v 128; refused for each exclusion (fp32, hd
+  112 and 256, other pairs of widths, softcap, window, keys of another
   length, CPU tensors); ``attention_block`` asks it for cache-less
   self-attention only, whatever the start position (cross-attention and
   cache steps stay plain), and ``sdpa`` at an offset start computes the
@@ -14,7 +15,10 @@ On the CPU (no card needed):
   gradients are bit-equal to a run with the rule switched off, and a
   traced step's spans count the plain calls (none through the kernel);
 * the plain backward passes (``kernels.ref``) equal autograd through the
-  plain attention;
+  plain attention, also at q / k 192 over v 128; the kernels' costs count
+  the two widths apart;
+* the dry run of Moonlight's latent attention launches the kernels and
+  no plain attention;
 * the dry run of internlm2-1.8b-d10 training (one node's loss and
   gradients at the cell's 1 x 4096) launches the flash forward twice a
   layer (remat) and each backward pass once a layer, and one attention
@@ -24,9 +28,10 @@ On the CPU (no card needed):
 Marked ``cuda`` (skip without an sm_90 card; this file imports no JAX):
 the backward kernels' dq, dk and dv against the float32 plain backward at
 the training cell's shape and at ragged S, GQA groups 1, 2 and 8, causal
-and not, hd 64 and 128; two launches bit-equal; the forward's lse against
-a plain log-sum-exp, and refused off the wgmma path; ``ops.attention``'s
-gradients through ``FlashAttention``.
+and not, hd 64 and 128, and at latent attention's q / k 192 over v 128;
+two launches bit-equal; the forward's lse against a plain log-sum-exp,
+and refused off the wgmma path; ``ops.attention``'s gradients through
+``FlashAttention``.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_attention_train.py
 """
@@ -65,6 +70,12 @@ ROUTE = dict(logit_softcap=0.0, window=0)
     ("keys of another length", dict(Sk=24), {}, False),
     ("cpu", dict(device="cpu"), {}, False),
     ("v narrower than q and k (latent attention)", dict(hd=128, hd_v=64), {}, False),
+    ("meta bf16 q / k 192, v 128 (Moonlight's latent attention)", dict(hd=192, hd_v=128), {},
+     True),
+    ("q / k 192, v 192", dict(hd=192, hd_v=192), {}, False),
+    ("q / k 192, v 64", dict(hd=192, hd_v=64), {}, False),
+    ("fp32 q / k 192, v 128", dict(hd=192, hd_v=128, dtype=torch.float32), {}, False),
+    ("cpu q / k 192, v 128", dict(hd=192, hd_v=128, device="cpu"), {}, False),
 ])
 def test_flash_route_takes_and_refuses(case, qk, over, want):
     q, k, v = _qk(**qk)
@@ -199,6 +210,98 @@ def test_plain_backward_passes_equal_autograd(causal, Hq, Hkv):
     assert torch.allclose(delta.double(), (do * o).sum(-1).transpose(1, 2), atol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd,hd_v", [(192, 128), (128, 128)])
+def test_plain_backward_passes_equal_autograd_at_the_kernels_widths(hd, hd_v, causal):
+    """The plain passes at latent attention's q / k 192 over v 128 (and at
+    one width of 128): dq, dk and dv equal autograd through
+    ``attention_ref``, whose output takes v's width."""
+    gen = torch.Generator().manual_seed(hd + hd_v)
+    B, S, Hq, Hkv = 1, 37, 4, 2
+    q, k = (torch.randn((B, S, h, hd), generator=gen, dtype=torch.float64).requires_grad_()
+            for h in (Hq, Hkv))
+    v = torch.randn((B, S, Hkv, hd_v), generator=gen, dtype=torch.float64).requires_grad_()
+    o = ref.attention_ref(q, k, v, causal=causal)
+    assert o.shape == (B, S, Hq, hd_v)
+    do = torch.randn(o.shape, generator=gen, dtype=torch.float64)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    with torch.no_grad():
+        lse = ref.attention_lse_ref(q, k, causal=causal)
+        dq, delta = ops.attention_dq(q, k, v, o, do, lse, causal=causal)
+        dk, dv = ops.attention_dkdv(q, k, v, do, lse, delta, causal=causal)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.shape == w.shape
+        assert torch.allclose(got, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(192, 128), (128, 128), (64, 64)])
+def test_costs_count_the_two_widths_apart(hd, hd_v):
+    """Per live (query, key) pair and query head: the forward 2 (hd + hd_v)
+    flops, the backward's bound 2 (3 hd + 2 hd_v), the dq pass 2 (2 hd +
+    hd_v) and the dk / dv pass 2 (2 hd + 2 hd_v); their bytes read each
+    operand at its own width once."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    B, S, Hq, Hkv = 1, 100, 4, 2
+    pairs = B * Hq * fa.live_pairs(S, S, True, 0, 0)
+    assert pairs == B * Hq * S * (S + 1) // 2
+    flops, nbytes = fa.cost(B, S, S, Hq, Hkv, hd, torch.bfloat16, causal=True, hd_v=hd_v)
+    assert flops == 2 * (hd + hd_v) * pairs
+    assert nbytes == 2 * B * S * (Hq * (hd + hd_v) + Hkv * (hd + hd_v))
+    flops, _ = fab.cost(B, S, Hq, Hkv, hd, causal=True, hd_v=hd_v)
+    assert flops == 2 * (3 * hd + 2 * hd_v) * pairs
+    dq = fab.pass_cost("dq", B, S, Hq, Hkv, hd, causal=True, hd_v=hd_v)
+    dkdv = fab.pass_cost("dkdv", B, S, Hq, Hkv, hd, causal=True, hd_v=hd_v)
+    assert dq[0] == 2 * (2 * hd + hd_v) * pairs
+    assert dkdv[0] == 2 * (2 * hd + 2 * hd_v) * pairs
+    stats = 2 * B * Hq * S * 4
+    assert dq[1] == 2 * B * S * (Hq * (2 * hd + 2 * hd_v) + Hkv * (hd + hd_v)) + stats
+    assert dkdv[1] == 2 * B * S * (Hq * (hd + hd_v) + Hkv * (2 * hd + 2 * hd_v)) + stats
+    if hd == hd_v:          # one width: the defaults
+        assert fa.cost(B, S, S, Hq, Hkv, hd, torch.bfloat16, causal=True)[0] == 4 * hd * pairs
+        assert fab.cost(B, S, Hq, Hkv, hd, causal=True)[0] == 10 * hd * pairs
+
+
+def test_dry_run_of_moonlight_training_launches_the_kernels_and_no_plain_attention():
+    """Moonlight-16B-A3B's replica (latent attention at q / k 192, v 128)
+    at 2 layers on meta: each layer's attention launches the flash forward
+    twice (remat) and each backward pass once, and no call takes
+    ``sdpa``; the reported flops of the three kernels are their costs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    from repro_torch.kernels import meta
+
+    cfg = dryrun.config_for("moonlight_16b_a3b", layers=2, experts=8, vocab=20480)
+    assert (cfg.head_dim, cfg.mla_v_dim) == (192, 128)
+    S = 512
+    reported = {}
+
+    def hear(kernel, flops, nbytes, dtype):
+        if kernel.startswith("flash"):
+            reported[kernel] = reported.get(kernel, 0) + flops
+
+    before = attention.route_counts()["attention_plain"]
+    meta.listen(hear)
+    try:
+        cm = dryrun.trace(lambda: dryrun.replica_call(cfg, batch=1, seq=S))
+    finally:
+        meta.unlisten(hear)
+    assert attention.route_counts()["attention_plain"] == before
+    want = launch_counts.forward_backward(cfg, seq=S)
+    assert dict(cm.launches) == {k: v for k, v in want.items() if v}
+    assert {k: cm.launches[k] for k in ("flash_attention", "flash_attention_dq",
+                                        "flash_attention_dkdv")} == {
+        "flash_attention": 2 * 2, "flash_attention_dq": 2, "flash_attention_dkdv": 2}
+    H = cfg.num_heads
+    fwd = fa.cost(1, S, S, H, H, 192, torch.bfloat16, causal=True, hd_v=128)[0]
+    dq = fab.pass_cost("dq", 1, S, H, H, 192, causal=True, hd_v=128)[0]
+    dkdv = fab.pass_cost("dkdv", 1, S, H, H, 192, causal=True, hd_v=128)[0]
+    assert reported == {"flash_attention": 4 * fwd, "flash_attention_dq": 2 * dq,
+                        "flash_attention_dkdv": 2 * dkdv}
+
+
 def _d10():
     return dataclasses.replace(get_config("internlm2_1_8b"), num_layers=10)
 
@@ -318,6 +421,58 @@ def test_backward_launches_are_bit_equal(sm90, causal):
     again = _kernel_backward(q, k, v, do, causal)
     for a, b in zip(first[3] + (first[2],), again[3] + (again[2],)):
         assert torch.equal(a, b)
+
+
+# latent attention's widths, q / k 192 over v 128 (Moonlight): the dq pass
+# on two warpgroups a block, the dk / dv pass split over two
+LATENT_CASES = [
+    # (B, S, Hq, Hkv, causal)
+    (1, 2048, 16, 16, True),            # Moonlight's heads, a quarter of its context
+    (2, 197, 4, 4, True),               # ragged S: a block's second warpgroup holds no row
+    (1, 300, 8, 2, False),              # GQA 4, non-causal, ragged
+]
+
+
+def _latent_operands(B, S, Hq, Hkv, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    return mk(B, S, Hq, 192), mk(B, S, Hkv, 192), mk(B, S, Hkv, 128), mk(B, S, Hq, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal", LATENT_CASES)
+def test_latent_backward_kernels_match_the_fp32_plain_backward(sm90, B, S, Hq, Hkv, causal):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    q, k, v, do = _latent_operands(B, S, Hq, Hkv)
+    assert fa.kernel_path(q, k, v) == "wgmma" and fab.kernel_path(q, k, v) == "wgmma"
+    o, lse, _, got = _kernel_backward(q, k, v, do, causal)
+    assert o.shape == (B, S, Hq, 128)
+    assert float((lse - ref.attention_lse_ref(q, k, causal=causal)).abs().max()) < LSE_TOL
+    want = _fp32_backward(q, k, v, do, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) < BWD_REL_TOL, (name, _rel(g, w))
+    again = _kernel_backward(q, k, v, do, causal)
+    for a, b in zip(got, again[3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ops_attention_gradients_at_latent_widths_go_through_the_kernels(sm90):
+    from repro_torch.kernels import flash_attention_bwd as fab
+
+    q, k, v, do = _latent_operands(1, 256, 8, 8, seed=5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (fab.flash_attention_dq.launches, fab.flash_attention_dkdv.launches)
+    out = ops.attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (fab.flash_attention_dq.launches, fab.flash_attention_dkdv.launches) == \
+        (n[0] + 1, n[1] + 1)
+    for g, w in zip(got, _fp32_backward(q, k, v, do, True)):
+        assert _rel(g, w) < BWD_REL_TOL
 
 
 # the kernel's log-sum-exp sums the fp32 exponentials of ex2.approx in

@@ -208,6 +208,33 @@ def test_sweep_close_holds_gossip_bit_for_bit(smoke):
     assert smoke.sweep_close(torch, gmm, want + 1.0, want) == float("inf")
 
 
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_attention_dq",
+                                    "flash_attention_dkdv"])
+def test_latent_cases_reach_the_new_instantiations(smoke, kernel):
+    """Phase 2's kernel-lint cases at latent attention's widths: q and k
+    192 wide, v (and o, do) 128, Moonlight's 16 / 16 heads at a length
+    that neither the dq pass's 128-row blocks nor 64-key tiles divide;
+    the wrapper's meta branch gives the plain version's output shapes (v's
+    width for the forward's output and dv), and the plain version passes
+    its own judge."""
+    import torch
+
+    from repro_torch.analysis import kernel_lint
+
+    case = next(c for c in smoke.latent_cases() if c.kernel == kernel)
+    (q, _), (k, _), (v, _) = case.args[:3]
+    assert q[3] == k[3] and (k[3], v[3]) == smoke.LATENT_WIDTHS == (192, 128)
+    assert q[2] == k[2] == v[2] == 16
+    assert q[1] % 128 and q[1] % 64 and dict(case.guards) == {"kv": q[1], "q": q[1]}
+    t = case.make("cpu", pad=kernel_lint.POISON_PAD)
+    want = kernel_lint._outputs(case.run_plain(*t))
+    specs = kernel_lint._outputs(case.run_kernel(*(torch.empty_like(a, device="meta")
+                                                   for a in t)))
+    assert [(tuple(o.shape), o.dtype) for o in specs] == \
+        [(tuple(w.shape), w.dtype) for w in want]
+    assert smoke.sweep_close(torch, case, case.run_plain(*t), case.run_plain(*t)) == 0.0
+
+
 @pytest.mark.parametrize("kernel", ["flash_attention_dq", "flash_attention_dkdv"])
 def test_sweep_close_judges_the_flash_backward_by_relative_norm(smoke, kernel):
     """The backward's outputs stored in bf16 pass; a half tile of 32 rows

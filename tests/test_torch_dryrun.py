@@ -336,11 +336,12 @@ def test_cli_moonlight_share_train(tmp_path):
     """Moonlight-16B-A3B (a port-only arch) at full width, cut as its
     benchmark cell is: 2 layers (the dense one and one MoE layer), 8 of
     the router's 64 experts held (``--experts``), a 20,480-row vocabulary
-    slice (``--vocab``). Latent attention takes the plain route (no flash
-    launch); every node's MoE layer launches the grouped matmul 3 times,
-    3 more under remat, then dx and dw 3 times each; the gossip one
-    launch a leaf. The resident bytes hold 8 fp32 replicas and their
-    velocities."""
+    slice (``--vocab``). Latent attention (q / k 192, v 128) takes the
+    flash kernels: every node's attention layer launches the forward
+    twice (remat), the dq and dk / dv passes once each; every node's MoE
+    layer launches the grouped matmul 3 times, 3 more under remat, then dx
+    and dw 3 times each; the gossip one launch a leaf. The resident bytes
+    hold 8 fp32 replicas and their velocities."""
     assert dryrun.main(["--arch", "moonlight_16b_a3b", "--shape", "train_4k", "--layers", "2",
                         "--batch", "1", "--seq", "256", "--experts", "8", "--vocab", "20480",
                         "--out", str(tmp_path)]) == 0
@@ -349,6 +350,8 @@ def test_cli_moonlight_share_train(tmp_path):
     assert (cfg.moe_num_experts, cfg.router_experts, cfg.vocab_size) == (8, 64, 20480)
     model = Model(cfg)
     assert rec["kernel_launches"] == {
+        "flash_attention": 8 * 2 * 2, "flash_attention_dq": 8 * 2,
+        "flash_attention_dkdv": 8 * 2,
         "grouped_matmul": 8 * 6, "grouped_matmul_dx": 8 * 3, "grouped_matmul_dw": 8 * 3,
         "gossip_axpy": len(flatten(model.param_shapes()))}
     assert rec["memory"]["argument_bytes"] >= 2 * 8 * 4 * model.num_params()
